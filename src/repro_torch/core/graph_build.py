@@ -1,0 +1,76 @@
+"""Graph construction: edge list -> static-shape symmetric CSR (Graph500 step 2).
+
+Counterpart of ``repro.core.graph_build``: symmetrize, drop self loops,
+sort by (src, dst), dedupe, re-sort so the invalid slots (sentinel ``V``)
+sit at the tail, then degree and row offsets.  Every array keeps the static
+length ``2 * M``.  The (src, dst) lexsort is one stable sort of the int64
+key ``src * (V + 1) + dst``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.kronecker import EdgeList
+
+
+@dataclass
+class CSRGraph:
+    """Symmetric static-shape CSR; slots ``>= nnz`` hold the sentinel ``V``."""
+
+    row_offsets: torch.Tensor   # [V+1] int32
+    col_indices: torch.Tensor   # [E_pad] int32 (sentinel V in padding)
+    edge_valid: torch.Tensor    # [E_pad] bool
+    degree: torch.Tensor        # [V] int32
+    nnz: torch.Tensor           # [] int32 — directed entries (2x undirected)
+    num_vertices: int
+
+    @property
+    def padded_edges(self) -> int:
+        return int(self.col_indices.shape[0])
+
+    def edge_sources(self) -> torch.Tensor:
+        """Per-entry source ids from row_offsets (searchsorted); V on padding."""
+        e = torch.arange(self.padded_edges, dtype=torch.int32,
+                         device=self.row_offsets.device)
+        return (torch.searchsorted(self.row_offsets, e, right=True,
+                                   out_int32=True) - 1)
+
+
+def _lexsort(s: torch.Tensor, d: torch.Tensor, v: int) -> torch.Tensor:
+    key = s.to(torch.int64) * (v + 1) + d.to(torch.int64)
+    return torch.sort(key, stable=True).indices
+
+
+def build_csr(edges: EdgeList) -> CSRGraph:
+    """Graph500 step 2: construct the symmetric CSR from the edge list."""
+    v = edges.num_vertices
+    s = torch.cat([edges.src, edges.dst])
+    d = torch.cat([edges.dst, edges.src])
+    self_loop = s == d
+    s = torch.where(self_loop, v, s)
+    d = torch.where(self_loop, v, d)
+    order = _lexsort(s, d, v)
+    s, d = s[order], d[order]
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=s.device),
+                     (s[1:] == s[:-1]) & (d[1:] == d[:-1])])
+    valid = (s < v) & ~dup
+    s = torch.where(valid, s, v)
+    d = torch.where(valid, d, v)
+    # re-sort so invalidated duplicates move to the tail, keeping CSR dense.
+    order2 = _lexsort(s, d, v)
+    s, d, valid = s[order2], d[order2], valid[order2]
+    degree = torch.bincount(s[valid].to(torch.int64), minlength=v)[:v].to(torch.int32)
+    row_offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=s.device),
+                             torch.cumsum(degree, 0).to(torch.int32)])
+    return CSRGraph(
+        row_offsets=row_offsets, col_indices=d.to(torch.int32),
+        edge_valid=valid, degree=degree, nnz=row_offsets[-1].clone(),
+        num_vertices=v,
+    )
+
+
+def csr_to_edge_arrays(g: CSRGraph):
+    """(src, dst, valid) per directed CSR entry — the edge-parallel view."""
+    return g.edge_sources(), g.col_indices, g.edge_valid

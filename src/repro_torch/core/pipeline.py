@@ -1,0 +1,139 @@
+"""End-to-end Graph500 pipeline (steps 1-4) with the paper's option ladder.
+
+Counterpart of ``repro.core.pipeline`` for the rungs that are ported:
+
+  pre-g500        : degree sort (T2a) + heavy core (T2b) + the
+                    bitmap-resident engine with the hand-written kernels (T1),
+                    one timed traversal per root;
+  pre-g500-batch  : the same engine over the whole root batch, timed as
+                    one batch (wall-clock / n per search).
+
+The other rungs of the JAX ladder need the reference/legacy engines, a
+tuned plan table or a device mesh; asking for them raises
+``NotImplementedError``.  Everything runs on the card unless
+``Graph500Config.device`` says ``"cpu"``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import kronecker
+from repro_torch.core.bfs_steps import EdgeView, edge_view
+from repro_torch.core.graph_build import build_csr
+from repro_torch.core.heavy import HeavyCore, build_heavy_core
+from repro_torch.core.kronecker import EdgeList
+from repro_torch.core.plan import BFSPlan, _not_ported, compile_plan
+from repro_torch.core.reorder import Reordering, degree_reorder, relabel_edges
+from repro_torch.core.teps import Graph500Run
+from repro_torch.util import resolve_device
+
+_PORTED_RUNGS = {
+    "pre-g500": dict(degree_sort=True, heavy_threshold=100),
+    "pre-g500-batch": dict(degree_sort=True, heavy_threshold=100, batched=True),
+}
+#: JAX ladder rungs not ported yet -> the ROADMAP.md queue item that ports them.
+_PENDING_RUNGS = {
+    "reference-3.0.0": "Reference and legacy engines",
+    "th2": "Reference and legacy engines",
+    "k": "Reference and legacy engines",
+    "pre-g500-legacy": "Reference and legacy engines",
+    "pre-g500-mesh": "Multi-device layouts",
+    "pre-g500-mesh3": "Multi-device layouts",
+    "pre-g500-tuned": "Tuning",
+}
+
+
+@dataclass(frozen=True)
+class Graph500Config:
+    scale: int = 12
+    edge_factor: int = 16
+    seed: int = 42
+    n_roots: int = 8
+    degree_sort: bool = True
+    heavy_threshold: Optional[int] = 100   # None disables the dense core
+    alpha: float = 14.0
+    beta: float = 24.0
+    batched: bool = False                  # time the root batch as one
+    check: str = "post"                    # "off" | "post" | "full"
+    device: Optional[str] = None           # None: the card ("cuda")
+
+    @staticmethod
+    def ladder(rung: str, **kw) -> "Graph500Config":
+        if rung in _PENDING_RUNGS:
+            raise _not_ported(f"ladder rung {rung!r}", _PENDING_RUNGS[rung])
+        if rung not in _PORTED_RUNGS:
+            raise ValueError(f"unknown rung {rung!r}; expected one of "
+                             f"{sorted({**_PORTED_RUNGS, **_PENDING_RUNGS})}")
+        return Graph500Config(**{**_PORTED_RUNGS[rung], **kw})
+
+    def to_plan(self) -> BFSPlan:
+        return BFSPlan(engine="bitmap", layout=(), alpha=self.alpha,
+                       beta=self.beta, batch_roots=self.batched)
+
+
+@dataclass
+class BuiltGraph:
+    ev: EdgeView
+    degree: torch.Tensor
+    core: Optional[HeavyCore]
+    reorder: Optional[Reordering]
+    construction_s: float
+    n_vertices: int
+    nnz: int
+    edges: EdgeList   # the input edge list, original labels (root sampling)
+
+
+def build(cfg: Graph500Config, edges: EdgeList | None = None) -> BuiltGraph:
+    """Steps 1-2 on ``cfg.device`` (untimed for TEPS; construction time is
+    recorded).  ``edges`` replaces the generated Kronecker edge list."""
+    device = resolve_device(cfg.device)
+    t0 = time.perf_counter()
+    if edges is None:
+        edges = kronecker.generate_edges(cfg.seed, cfg.scale, cfg.edge_factor,
+                                         device=device)
+    elif edges.src.device.type != device.type:
+        raise ValueError(f"edges lie on {edges.src.device}, cfg.device is {device}")
+    g = build_csr(edges)
+    reord = None
+    if cfg.degree_sort:
+        reord = degree_reorder(g.degree)
+        g = build_csr(relabel_edges(edges, reord))
+    core = None
+    if cfg.heavy_threshold is not None:
+        core = build_heavy_core(g, threshold=cfg.heavy_threshold)
+    ev = edge_view(g)
+    nnz = int(g.nnz)  # synchronises: construction ends here
+    return BuiltGraph(ev=ev, degree=g.degree, core=core, reorder=reord,
+                      construction_s=time.perf_counter() - t0,
+                      n_vertices=g.num_vertices, nnz=nnz, edges=edges)
+
+
+def search_keys(cfg: Graph500Config, built: BuiltGraph, roots=None) -> np.ndarray:
+    """The search keys as ids of the built (relabeled) graph.
+
+    ``roots`` are ids in the input edge list's labels (default:
+    ``cfg.n_roots`` sampled from it); the degree sort's relabeling maps
+    them onto the sorted graph, as in the JAX pipeline.
+    """
+    if roots is None:
+        roots = kronecker.sample_roots(cfg.seed, built.edges, cfg.n_roots)
+    if not isinstance(roots, torch.Tensor):
+        roots = torch.from_numpy(np.array(roots, dtype=np.int64))
+    roots = roots.to(built.degree.device).long()
+    if built.reorder is not None:
+        roots = built.reorder.new_from_old[roots]
+    return roots.cpu().numpy()
+
+
+def run(cfg: Graph500Config, built: BuiltGraph | None = None,
+        roots=None) -> tuple[BuiltGraph, Graph500Run]:
+    """Steps 3-4: compile the config's plan and run the timed harness over
+    :func:`search_keys`."""
+    built = built or build(cfg)
+    compiled = compile_plan(cfg.to_plan(), built, device=cfg.device)
+    return built, compiled.run(search_keys(cfg, built, roots), check=cfg.check).run

@@ -1,0 +1,93 @@
+"""Package boundaries of the PyTorch port: it imports neither ``jax`` nor
+anything of ``repro``, its entry points run on the card unless asked for
+the CPU, and ``chip_smoke.py`` refuses to run without a card or without
+the repository beside it."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core.pipeline\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_jax_or_repro_imports_in_source():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    for path in files + [REPO / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_kernel_sources_exist_with_headers():
+    for name, tpu in (("frontier_update", "bitmap_ops.py"),
+                      ("core_spmv", "frontier_spmv.py")):
+        text = (PKG / "kernels" / "csrc" / f"{name}.cu").read_text()
+        head = text[:3000]
+        assert "Replaces:" in head and tpu in head
+        assert "What bounds it" in head and "What the design does" in head
+        assert 'extern "C" int' in text and "cudaGetLastError" in text
+
+
+def test_entry_points_need_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch import convert
+    from repro_torch.core import kronecker, pipeline
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.build(pipeline.Graph500Config(scale=6))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kronecker.generate_edges(0, 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.edge_list_from_numpy(np.zeros(4, np.int32), np.ones(4, np.int32), 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.build(pipeline.Graph500Config(scale=6, device="cuda"))
+    cfg = pipeline.Graph500Config(scale=6, edge_factor=4, n_roots=2, device="cpu")
+    built = pipeline.build(cfg)
+    assert built.ev.src.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_plan(BFSPlan(), built)
+    _, run = pipeline.run(cfg, built)
+    assert run.all_valid and len(run.teps) == 2
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
