@@ -7,7 +7,9 @@ non-zero and no result line is printed:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. the build of every hand-written kernel from ``src/repro_torch/kernels/csrc``;
-  3. each kernel against its plain PyTorch version on the card, bit for bit;
+  3. each kernel against its plain PyTorch version on the card: bit for bit
+     for the integer kernels, within rtol = atol = 2e-4 for ``cin_layer``
+     (fp32, TF32 off) at the full-width xDeepFM layer shapes;
   4. the main path at scale 16: levels equal to the numpy queue BFS;
   5. the main path, ``Graph500Config.ladder("pre-g500", scale=20,
      n_roots=16)``: all roots valid with zero failing checks, both kernels
@@ -16,7 +18,24 @@ non-zero and no result line is printed:
   6. each kernel at its main-path shape: time (CUDA events), its plain
      version's time and the bound (bytes over the card's memory rate);
   7. a torch.profiler trace of one scale-20 traversal: the device's busy
-     and idle share and the device time by kernel.
+     and idle share and the device time by kernel;
+  8. xDeepFM serving at full width (``xdeepfm_full``, fused CIN kernel):
+     ``serve_p99`` (B = 512) against the einsum path (probabilities, and
+     the pooled CIN features with a tolerance scaled to their size),
+     ``serve_bulk`` (B = 262,144, which only the fused kernel fits) with
+     each CIN layer held against the plain version on 4,096 rows spread
+     over the batch, the last 512 included, likewise scaled, and
+     ``retrieval_cand`` (1 query, 1,000,000 candidates); three ``cin_layer``
+     launches per forward; ms per step and rows/s; a torch.profiler
+     breakdown of one ``serve_p99`` step;
+  9. ``multi_source_spmv`` on phase 5's heavy core (K = 61,440) with 128
+     frontiers (16 roots x levels 0-7): bit-exact against the plain
+     version and ``torch._int_mm``, and ``counts > 0`` equal to the core
+     neighbourhoods read from the packed bitmap;
+ 10. ``cin_layer`` and ``spmv_mxu`` at their path's shapes: time, plain
+     time, the library call's time and the bound; ``cin_layer`` at
+     B = 262,144 on N(0, 1) operands also held against the plain version
+     on 4,096 rows spread over the batch (rtol = atol = 2e-4).
 
 The last two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
@@ -24,6 +43,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -41,6 +61,13 @@ HBM_BYTES_PER_S = 3.35e12
 # No integer rate is published; the 67 TFLOP/s fp32 rate outside the tensor
 # cores stands in for the scalar ALUs.
 SCALAR_OPS_PER_S = 67e12
+FP32_FLOPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+
+# cin_layer against its plain version: fp32 sums in another order, the
+# tolerance of the JAX package's kernel test (tests/test_kernels.py).
+CIN_TOL = 2e-4
+CIN_CHECK_ROWS = 4096
 
 SCALE_CHECK = 16
 SCALE_MAIN = 20
@@ -131,6 +158,339 @@ def check_core_spmv(device) -> None:
         f"(incl. the min-neighbour case)")
 
 
+def assert_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                 scaled: bool = False) -> float:
+    """Max |kernel - plain|; raises unless finite and within rtol = CIN_TOL
+    and atol = CIN_TOL elementwise.  With ``scaled`` the atol is CIN_TOL *
+    max |plain| instead, for outputs far below 1 (the model's own CIN
+    activations are ~1e-4 to 1e-8, where an absolute 2e-4 would pass a
+    kernel that wrote zeros); an all-zero plain output then raises."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    atol = CIN_TOL
+    if scaled:
+        atol = CIN_TOL * float(want.abs().max())
+        if atol == 0.0:
+            raise AssertionError(f"{name}: the plain version is all zero")
+    if not torch.allclose(got, want, rtol=CIN_TOL, atol=atol):
+        raise AssertionError(f"{name}: differs from its plain version (max abs "
+                             f"diff {err}, rtol = {CIN_TOL}, atol = {atol})")
+    return err
+
+
+def spread_rows(b: int, n: int, device, tail: int = 512) -> torch.Tensor:
+    """``n`` sorted row indices of a batch of ``b``: ``n - tail`` drawn
+    across the batch from a seeded generator, and the last ``tail`` rows
+    (the kernel's last blocks)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    head = torch.randperm(b - tail, generator=gen, device=device)[: n - tail]
+    return torch.cat([head.sort().values, torch.arange(b - tail, b, device=device)])
+
+
+def cin_operands(gen: torch.Generator, b: int, f0: int, fl: int, h: int, d: int,
+                 device):
+    """x0, xl ~ N(0, 1); w at the model's init scale sqrt(1 / (F0 Fl))."""
+    x0 = torch.randn(b, f0, d, generator=gen, device=device)
+    xl = torch.randn(b, fl, d, generator=gen, device=device)
+    w = torch.randn(h, f0, fl, generator=gen, device=device).mul_((f0 * fl) ** -0.5)
+    return x0, xl, w
+
+
+def check_cin_layer(device) -> float:
+    from repro_torch.kernels import cin, ref
+    gen = torch.Generator(device=device).manual_seed(3)
+    # the full-width layer shapes (F0 = 39, D = 10, H = 200; Fl = 39 for
+    # layer 1 and 200 for layers 2-3) at B = 512, a ragged B, and the smoke
+    # config's shape
+    cases = [(512, 39, 39, 200, 10), (512, 39, 200, 200, 10),
+             (300, 39, 39, 200, 10), (300, 39, 200, 200, 10),
+             (1, 39, 200, 200, 10), (128, 8, 16, 16, 4)]
+    err = 0.0
+    for b, f0, fl, h, d in cases:
+        x0, xl, w = cin_operands(gen, b, f0, fl, h, d, device)
+        err = max(err, assert_close(f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d}",
+                                    cin.cin_layer(x0, xl, w),
+                                    ref.cin_layer_ref(x0, xl, w)))
+    log(f"cin_layer: {len(cases)} shapes within rtol = atol = {CIN_TOL} of "
+        f"cin_layer_ref (max abs err {err})")
+    return err
+
+
+def rand_int8(gen: torch.Generator, shape, full_range: bool, device) -> torch.Tensor:
+    lo, hi = (-128, 128) if full_range else (0, 2)
+    return torch.randint(lo, hi, shape, generator=gen, device=device,
+                         dtype=torch.int16).to(torch.int8)
+
+
+def check_spmv_mxu(device) -> None:
+    from repro_torch.kernels import ref, spmv_mxu
+    gen = torch.Generator(device=device).manual_seed(4)
+    n = 0
+    for k, r in ((512, 256), (128, 128)):
+        for full_range in (False, True):
+            a = rand_int8(gen, (k, k), full_range, device)
+            f = rand_int8(gen, (k, r), full_range, device)
+            assert_equal(f"spmv_mxu K={k} R={r} full_range={full_range}",
+                         spmv_mxu.spmv_mxu(a, f), ref.spmv_mxu_ref(a, f))
+            n += 1
+    k = 512  # the extreme product: every term (-128) * (-128)
+    a = torch.full((k, k), -128, dtype=torch.int8, device=device)
+    got = spmv_mxu.spmv_mxu(a, a[:, :256].contiguous())
+    if int(got.min()) != k * 128 * 128 or int(got.max()) != k * 128 * 128:
+        raise AssertionError("spmv_mxu: the all -128 product is not K * 2^14")
+    log(f"spmv_mxu: {n + 1} cases bit-identical to spmv_mxu_ref "
+        f"(0/1 and full-range int8, incl. all -128)")
+
+
+def serve_xdeepfm(device) -> dict:
+    """Phase 8: the xDeepFM serving path at full width through the fused
+    CIN kernel.  Returns the launch count, the check error and the times."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+    from repro_torch.train import train_step as TS
+
+    spec = get("xdeepfm")
+    cfg = dataclasses.replace(spec.make_config(), use_cin_kernel=True)
+    log(f"    {spec.arch_id} ({spec.source}): n_sparse={cfg.n_sparse} "
+        f"embed_dim={cfg.embed_dim} cin={cfg.cin_layers} mlp={cfg.mlp_layers} "
+        f"rows_per_field={cfg.rows_per_field}; {spec.notes}")
+    params = recsys.init_params(cfg, seed=0, device=device)
+    serve = TS.make_xdeepfm_serve_step(cfg)
+    cfg_plain = dataclasses.replace(cfg, use_cin_kernel=False)
+    serve_plain = TS.make_xdeepfm_serve_step(cfg_plain)
+    retrieve = TS.make_retrieval_step(cfg)
+    b_p99 = spec.shape("serve_p99").dims["batch"]
+    b_bulk = spec.shape("serve_bulk").dims["batch"]
+    n_cand = spec.shape("retrieval_cand").dims["n_candidates"]
+    ids_p99 = recsys_batch(0, 0, b_p99, cfg.n_sparse, cfg.rows_per_field,
+                           device=device)["ids"]
+    ids_bulk = recsys_batch(0, 1, b_bulk, cfg.n_sparse, cfg.rows_per_field,
+                            device=device)["ids"]
+    gen = torch.Generator(device=device).manual_seed(5)
+    cand = torch.randn(n_cand, cfg.mlp_layers[-1], generator=gen, device=device)
+    torch.cuda.synchronize()
+
+    forwards = [0]
+
+    def counted(fn):
+        def run():
+            forwards[0] += 1
+            return fn()
+        return run
+
+    ops.reset_launch_counts()
+    probs_p99 = counted(lambda: serve(params, ids_p99))()
+    p99_ms = time_ms(counted(lambda: serve(params, ids_p99)), 20, 5)
+    torch.cuda.reset_peak_memory_stats()
+    probs_bulk = counted(lambda: serve(params, ids_bulk))()
+    torch.cuda.synchronize()
+    bulk_peak = torch.cuda.max_memory_allocated()
+    bulk_ms = time_ms(counted(lambda: serve(params, ids_bulk)), 3, 1)
+    scores = retrieve(params, ids_p99[:1], cand)
+    ret_ms = time_ms(lambda: retrieve(params, ids_p99[:1], cand), 10, 5)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["cin_layer"]
+    per_forward = len(cfg.cin_layers)
+    if launches != per_forward * forwards[0]:
+        raise AssertionError(f"cin_layer launched {launches} times over "
+                             f"{forwards[0]} forwards, not {per_forward} per forward")
+    log(f"    cin_layer launches {launches} over {forwards[0]} forwards "
+        f"({per_forward} per forward)")
+
+    # checks, after the counted window.  The CIN adds ~1e-8 to a logit at
+    # the model's init scales, so the probabilities alone cannot see it:
+    # the CIN features and layers are held with a tolerance scaled to
+    # their own size.
+    n = CIN_CHECK_ROWS
+    rows = spread_rows(b_bulk, n, device)
+    err = assert_close("serve_p99 probabilities: kernel path vs einsum path",
+                       probs_p99, serve_plain(params, ids_p99))
+    if probs_bulk.shape != (b_bulk,) or not torch.isfinite(probs_bulk).all():
+        raise AssertionError("serve_bulk: probabilities not finite or misshapen")
+    err = max(err, assert_close(f"serve_bulk probabilities, {n} rows, vs the "
+                                f"einsum path", probs_bulk[rows],
+                                serve_plain(params, ids_bulk[rows])))
+    with torch.inference_mode():
+        _, emb = recsys.embed(params, ids_p99, cfg)
+        feat = recsys.cin_features(params, emb, cfg)
+        feat_plain = recsys.cin_features(params, emb, cfg_plain)
+        err = max(err, assert_close("serve_p99 pooled CIN features: kernel path vs "
+                                    "einsum path", feat, feat_plain, scaled=True))
+        log(f"    serve_p99 pooled CIN features {tuple(feat.shape)}: max |einsum "
+            f"path| {float(feat_plain.abs().max()):.6e}, max abs diff "
+            f"{float((feat - feat_plain).abs().max()):.6e}")
+        _, emb = recsys.embed(params, ids_bulk, cfg)
+        xl = emb
+        for i, w in enumerate(params.cin):
+            out = ops.cin_layer(emb, xl, w)
+            want = ref.cin_layer_ref(emb[rows], xl[rows], w)
+            err = max(err, assert_close(
+                f"serve_bulk CIN layer {i + 1} (Fl={xl.shape[1]}), {n} rows",
+                out[rows], want, scaled=True))
+            log(f"    serve_bulk CIN layer {i + 1}: max |cin_layer_ref| "
+                f"{float(want.abs().max()):.6e}, max abs diff "
+                f"{float((out[rows] - want).abs().max()):.6e} on {n} rows "
+                f"({n - 512} spread over the batch, the last 512)")
+            xl = out
+        del xl, out, emb, want
+        h = recsys.dnn_tower(params, recsys.embed(params, ids_p99[:1], cfg)[1]
+                        .reshape(1, -1))[0]
+        want_scores = (cand.double() @ h.double()).float()
+    if scores.shape != (n_cand,) or not torch.allclose(scores, want_scores,
+                                                       rtol=1e-4, atol=1e-4):
+        raise AssertionError("retrieval_cand: scores differ from a float64 matvec")
+    log(f"    serve_p99  B={b_p99}: {p99_ms:.6f} ms/step, "
+        f"{b_p99 / p99_ms * 1e3:.6e} rows/s; probabilities and pooled CIN "
+        f"features within {CIN_TOL} of the einsum path")
+    log(f"    serve_bulk B={b_bulk}: {bulk_ms:.6f} ms/step, "
+        f"{b_bulk / bulk_ms * 1e3:.6e} rows/s, peak device memory "
+        f"{bulk_peak / 2**30:.6f} GiB; each CIN layer within {CIN_TOL} of "
+        f"cin_layer_ref on {n} rows (atol scaled to the layer)")
+    log(f"    retrieval_cand: 1 query x {n_cand} candidates "
+        f"{tuple(cand.shape)}: {ret_ms:.6f} ms; scores match a float64 matvec")
+    log(f"    max abs err of the CIN checks: {err}")
+    log(f"    profile of one serve_p99 step (B={b_p99})")
+    profile_window(lambda: serve(params, ids_p99), ("cin_layer_kernel",))
+    del params, cand, ids_bulk, probs_bulk
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, p99_ms=p99_ms, bulk_ms=bulk_ms,
+                b_p99=b_p99, b_bulk=b_bulk, f0=cfg.n_sparse, d=cfg.embed_dim,
+                cin_layers=cfg.cin_layers)
+
+
+def dense_core_int8(a_core: torch.Tensor, chunk_rows: int = 4096) -> torch.Tensor:
+    """The packed core (int32 bit-view [K, K/32]) as int8 0/1 [K, K]."""
+    k, w = a_core.shape
+    out = torch.empty((k, w * 32), dtype=torch.int8, device=a_core.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=a_core.device)
+    for s in range(0, k, chunk_rows):
+        # int32 >> is arithmetic: the & 1 drops the copies of bit 31
+        bits = (a_core[s:s + chunk_rows, :, None] >> shifts) & 1
+        out[s:s + chunk_rows] = bits.reshape(-1, w * 32).to(torch.int8)
+    return out
+
+
+def multi_source_on_core(built, levels: np.ndarray, device) -> dict:
+    """Phase 9: ops.multi_source_spmv over the main path's heavy core."""
+    from repro_torch.core.heavy import pack_bitmap
+    from repro_torch.kernels import ops, ref
+    k = built.core.k
+    a_core = built.core.a_core
+    a8 = dense_core_int8(a_core)
+    lev = torch.as_tensor(levels[:, :k], device=device)
+    n_levels = 128 // lev.shape[0]
+    # column 8 r + l marks the core vertices at level l of root r
+    f8 = (lev[:, None, :] == torch.arange(n_levels, device=device)[None, :, None]) \
+        .reshape(-1, k).t().contiguous().to(torch.int8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    counts = ops.multi_source_spmv(a8, f8)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["spmv_mxu"]
+    if launches < 1:
+        raise AssertionError("spmv_mxu was not launched by multi_source_spmv")
+    err = max(assert_equal("multi_source_spmv vs spmv_mxu_ref", counts,
+                           ref.spmv_mxu_ref(a8, f8)),
+              assert_equal("multi_source_spmv vs torch._int_mm", counts,
+                           torch._int_mm(a8, f8)))
+    cols = [c for c in range(f8.shape[1]) if int(f8[:, c].sum()) > 0]
+    checked = cols[:: max(1, len(cols) // 6)]
+    for c in checked:
+        fbm = pack_bitmap(f8[:, c] != 0, k // 32)
+        reach = ref.core_spmv_ref(a_core, fbm) < ref.BIG
+        if not torch.equal(counts[:, c] > 0, reach):
+            raise AssertionError(f"multi_source_spmv column {c}: counts > 0 is not "
+                                 f"the core neighbourhood of its frontier")
+    log(f"    K={k} R={f8.shape[1]} ({lev.shape[0]} roots x levels 0-{n_levels - 1}; "
+        f"{len(cols)} non-empty columns): counts bit-identical to spmv_mxu_ref and "
+        f"torch._int_mm; counts > 0 equals the packed-bitmap neighbourhood for "
+        f"columns {checked}; {launches} spmv_mxu launch; nnz(A8) "
+        f"{int(a8.sum(dtype=torch.int64))}, frontier bits {int(f8.sum(dtype=torch.int64))}")
+    return dict(a8=a8, f8=f8, launches=launches, err=err)
+
+
+def time_cin(serving: dict, device) -> dict:
+    """Phase 10, cin_layer: per layer shape at serve_p99 and serve_bulk."""
+    from repro_torch.kernels import cin, ref
+    gen = torch.Generator(device=device).manual_seed(6)
+    f0, d, hs = serving["f0"], serving["d"], serving["cin_layers"]
+    fls = [f0] + list(hs[:-1])
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bulk_ms=0.0,
+               bulk_bound_ms=0.0, err=0.0)
+    timed = {}
+    for fl, h in zip(fls, hs):
+        if (fl, h) not in timed:
+            row = {}
+            for b in (serving["b_p99"], 4096, serving["b_bulk"]):
+                x0, xl, w = cin_operands(gen, b, f0, fl, h, d, device)
+                n_bytes = 4 * (b * f0 * d + b * fl * d + h * f0 * fl + b * h * d)
+                flops = 2 * b * h * f0 * fl * d
+                bnd = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
+                lib = lambda: torch.einsum("hij,bid,bjd->bhd", w, x0, xl)
+                if b == serving["b_bulk"]:
+                    row["bulk_ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 3, 1)
+                    row["bulk_bound"] = bnd
+                    rows = spread_rows(b, CIN_CHECK_ROWS, device)
+                    row["bulk_err"] = assert_close(
+                        f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d}, "
+                        f"{CIN_CHECK_ROWS} rows", cin.cin_layer(x0, xl, w)[rows],
+                        ref.cin_layer_ref(x0[rows], xl[rows], w))
+                elif b == 4096:
+                    row["ms_4096"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 10, 3)
+                    row["lib_4096"] = time_ms(lib, 5, 1)
+                else:
+                    row["ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 20, 10)
+                    row["plain_ms"] = time_ms(lambda: ref.cin_layer_ref(x0, xl, w), 5, 1)
+                    row["lib_ms"] = time_ms(lib, 10, 3)
+                    row["bound"], row["bytes"], row["flops"] = bnd, n_bytes, flops
+                del x0, xl, w
+            torch.cuda.empty_cache()
+            timed[(fl, h)] = row
+            log(f"    cin_layer F0={f0} Fl={fl} H={h} D={d}: B={serving['b_p99']} "
+                f"{row['ms']:.6f} ms (plain {row['plain_ms']:.6f}, library einsum "
+                f"{row['lib_ms']:.6f}, bound {row['bound'][0]:.6f} {row['bound'][1]}, "
+                f"{row['flops'] / row['ms'] / 1e9:.6f} TFLOP/s); B=4096 "
+                f"{row['ms_4096']:.6f} ms (library {row['lib_4096']:.6f}); "
+                f"B={serving['b_bulk']} {row['bulk_ms']:.6f} ms (bound "
+                f"{row['bulk_bound'][0]:.6f}, {row['bulk_bound'][0] / row['bulk_ms']:.6f} "
+                f"of it; max abs err {row['bulk_err']:.6e} on {CIN_CHECK_ROWS} rows "
+                f"within rtol = atol = {CIN_TOL})")
+        row = timed[(fl, h)]
+        tot["ms"] += row["ms"]
+        tot["plain_ms"] += row["plain_ms"]
+        tot["library_ms"] += row["lib_ms"]
+        tot["bound_ms"] += row["bound"][0]
+        tot["bound_by"] = max((r["bound"] for r in timed.values()))[1]
+        tot["bulk_ms"] += row["bulk_ms"]
+        tot["bulk_bound_ms"] += row["bulk_bound"][0]
+        tot["err"] = max(tot["err"], row["bulk_err"])
+    for cell, step_ms, cin_ms in (("serve_p99", serving["p99_ms"], tot["ms"]),
+                                  ("serve_bulk", serving["bulk_ms"], tot["bulk_ms"])):
+        log(f"    {cell}: CIN kernels {cin_ms:.6f} ms of a {step_ms:.6f} ms step "
+            f"(share {cin_ms / step_ms:.6f})")
+    return tot
+
+
+def time_spmv(spmv: dict) -> dict:
+    """Phase 10, spmv_mxu at the core's shape."""
+    from repro_torch.kernels import ref, spmv_mxu
+    a8, f8 = spmv["a8"], spmv["f8"]
+    k, r = f8.shape
+    ms = time_ms(lambda: spmv_mxu.spmv_mxu(a8, f8), 10, 3)
+    plain = time_ms(lambda: ref.spmv_mxu_ref(a8, f8), 2, 1)
+    lib = time_ms(lambda: torch._int_mm(a8, f8), 10, 3)
+    bnd = bound_ms(k * k + k * r + 4 * k * r, 2 * k * k * r, INT8_TENSOR_OPS_PER_S)
+    log(f"    spmv_mxu K={k} R={r}: {ms:.6f} ms, plain {plain:.6f} ms, "
+        f"torch._int_mm {lib:.6f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}; "
+        f"{bnd[0] / ms:.6f} of it)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
+
+
 def check_valid(name: str, run) -> None:
     if not run.all_valid or any(run.check_counts.values()):
         raise AssertionError(f"{name}: validation failed {run.check_counts}")
@@ -175,16 +535,16 @@ def time_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def profile_traversal(compiled, root: int) -> None:
-    """Device busy share and device time by kernel over one traversal,
-    from torch.profiler's CUDA activity (printed as not measured when the
-    profiler records no device activity)."""
+def profile_window(fn, kernels: tuple[str, ...]) -> None:
+    """Device busy share and device time by kernel over one call of ``fn``
+    (after one warm-up call), from torch.profiler's CUDA activity (printed
+    as not measured when the profiler records no device activity)."""
     from torch.profiler import ProfilerActivity, profile
-    compiled.bfs(root)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compiled.bfs(root)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -213,16 +573,17 @@ def profile_traversal(compiled, root: int) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (tot, n) in top:
         log(f"    {tot / 1e3:10.6f} ms  x{n:<4d} {name[:110]}")
-    for kernel in ("frontier_update_kernel", "core_spmv_kernel"):
+    for kernel in kernels:
         hits = [(tot, n) for name, (tot, n) in by_name.items() if kernel in name]
         tot, n = sum(t for t, _ in hits), sum(c for _, c in hits)
         per = f"{tot / n / 1e3:.6f} ms per launch" if n else "not launched"
         log(f"    {kernel}: device {tot / 1e3:.6f} ms over {n} launches ({per})")
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -250,9 +611,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    ptxas {name}: {line.strip()}")
 
-    log("[3] kernels against their plain versions on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[3] kernels against their plain versions on the card "
+        f"(torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32})")
     check_frontier_update(device)
     check_core_spmv(device)
+    cin_err = check_cin_layer(device)
+    check_spmv_mxu(device)
 
     log(f"[4] main path at scale {SCALE_CHECK}")
     check_scale16()
@@ -271,7 +639,8 @@ def main() -> int:
         f"{run.mean_time_s * 1e3:.6f} ms, all_valid {run.all_valid}, "
         f"check_counts {run.check_counts}, launches {launches}")
     check_valid(f"scale {SCALE_MAIN}", run)
-    for name, n in launches.items():
+    for name in ("frontier_update", "core_spmv"):
+        n = launches[name]
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path "
                                  f"(no bottom-up level?)")
@@ -326,23 +695,51 @@ def main() -> int:
     log("    library call: none (no single PyTorch call computes either function)")
 
     log(f"[7] profile of one pre-g500 traversal at scale {SCALE_MAIN} (root 1)")
-    profile_traversal(per_root, int(roots[1]))
+    profile_window(lambda: per_root.bfs(int(roots[1])),
+                   ("frontier_update_kernel", "core_spmv_kernel"))
+
+    log("[8] xDeepFM serving at full width (xdeepfm_full, use_cin_kernel=True)")
+    serving = serve_xdeepfm(device)
+    cin_err = max(cin_err, serving["err"])
+
+    log(f"[9] multi_source_spmv on the scale-{SCALE_MAIN} heavy core")
+    spmv = multi_source_on_core(built, res_root.level, device)
+
+    log("[10] cin_layer and spmv_mxu at their path's shapes")
+    cin_t = time_cin(serving, device)
+    cin_err = max(cin_err, cin_t["err"])
+    spmv_t = time_spmv(spmv)
+    spmv_launches, spmv_err = spmv["launches"], spmv["err"]
+    del spmv
 
     kernels = [
         dict(name="frontier_update", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier_update.cu",
              replaces="src/repro/kernels/bitmap_ops.py:62",
-             tpu_source="src/repro/kernels/bitmap_ops.py:62",
              launches=launches["frontier_update"], max_abs_err=fu_err,
              ms=fu_ms, plain_ms=fu_plain, bound_ms=fu_bound[0],
              bound_by=fu_bound[1], library_ms=None),
         dict(name="core_spmv", route="cuda",
              source="src/repro_torch/kernels/csrc/core_spmv.cu",
              replaces="src/repro/kernels/frontier_spmv.py:74",
-             tpu_source="src/repro/kernels/frontier_spmv.py:74",
              launches=launches["core_spmv"], max_abs_err=cs_err,
              ms=cs_ms, plain_ms=cs_plain, bound_ms=cs_bound[0],
              bound_by=cs_bound[1], library_ms=None),
+        dict(name="spmv_mxu", route="cuda",
+             source="src/repro_torch/kernels/csrc/spmv_mxu.cu",
+             replaces="src/repro/kernels/spmv_mxu.py:57",
+             launches=spmv_launches, max_abs_err=spmv_err,
+             ms=spmv_t["ms"], plain_ms=spmv_t["plain_ms"], bound_ms=spmv_t["bound"][0],
+             bound_by=spmv_t["bound"][1], library_ms=spmv_t["library_ms"]),
+        # cin_layer: one serve_p99 forward's three layers (B = 512), summed;
+        # bulk_* the same at serve_bulk (B = 262,144)
+        dict(name="cin_layer", route="cuda",
+             source="src/repro_torch/kernels/csrc/cin_layer.cu",
+             replaces="src/repro/kernels/cin.py:64",
+             launches=serving["launches"], max_abs_err=cin_err,
+             ms=cin_t["ms"], plain_ms=cin_t["plain_ms"], bound_ms=cin_t["bound_ms"],
+             bound_by=cin_t["bound_by"], library_ms=cin_t["library_ms"],
+             bulk_ms=cin_t["bulk_ms"], bulk_bound_ms=cin_t["bulk_bound_ms"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,8 @@
+"""Architecture configs of the port (its own copies of ``repro.configs``).
+
+Importing this package registers every ported architecture.
+"""
+from repro_torch.configs import base, recsys_archs  # noqa: F401
+from repro_torch.configs.base import REGISTRY, get
+
+__all__ = ["base", "REGISTRY", "get"]

@@ -1,10 +1,10 @@
-"""Carry the JAX package's graph arrays, given as numpy, into the port.
+"""Carry the JAX package's arrays, given as numpy, into the port.
 
-The graph counterpart of loading a model's weights: the same edge list (or
-the same built graph) goes through both packages, so their outputs can be
-compared bit for bit.  Bitmaps are uint32 in the JAX package and int32
-bit-views here (``np.ndarray.view(np.int32)``); every other array keeps its
-values.
+The same edge list (or built graph, or xDeepFM parameter pytree) goes
+through both packages, so their outputs can be compared: graphs bit for
+bit, model outputs within a stated tolerance.  Bitmaps are uint32 in the
+JAX package and int32 bit-views here (``np.ndarray.view(np.int32)``); every
+other array keeps its values.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.core.bfs_steps import EdgeView
 from repro_torch.core.heavy import core_from_bitmap
 from repro_torch.core.kronecker import EdgeList
 from repro_torch.core.pipeline import BuiltGraph
+from repro_torch.models.recsys import XDeepFM
 from repro_torch.util import resolve_device
 
 
@@ -67,3 +68,25 @@ def built_from_numpy(src, dst, valid, degree, *, num_vertices: int,
     return BuiltGraph(ev=ev, degree=deg, core=core, reorder=None,
                       construction_s=0.0, n_vertices=v,
                       nnz=int(deg.to(torch.int64).sum()), edges=edges)
+
+
+def xdeepfm_params_from_numpy(params: dict, cfg, device=None):
+    """The JAX package's xDeepFM parameter pytree (as numpy) -> ``XDeepFM``.
+
+    ``params`` holds ``table``, ``linear``, ``bias``, ``cin`` (a list of
+    ``{"w"}``), ``cin_out``, ``mlp`` (a list of ``{"w", "b"}``) and
+    ``mlp_out``, in the JAX layouts, which the port keeps.
+    """
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    cin = [t(layer["w"]) for layer in params["cin"]]
+    mlp = [(t(layer["w"]), t(layer["b"])) for layer in params["mlp"]]
+    if [w.shape[0] for w in cin] != list(cfg.cin_layers) or \
+            [w.shape[1] for w, _ in mlp] != list(cfg.mlp_layers):
+        raise ValueError("xdeepfm_params_from_numpy: parameter widths do not "
+                         "match the config")
+    return XDeepFM(t(params["table"]), t(params["linear"]), t(params["bias"]),
+                   cin, t(params["cin_out"]), mlp, t(params["mlp_out"]))

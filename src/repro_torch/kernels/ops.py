@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bitmap_ops, frontier_spmv, ref
+from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
 
 #: name -> kernel object of every hand-written kernel (its ``launches``
 #: counts the launches the CUDA runtime accepted).
 KERNELS = {
     "frontier_update": bitmap_ops.KERNEL,
     "core_spmv": frontier_spmv.KERNEL,
+    "spmv_mxu": spmv_mxu.KERNEL,
+    "cin_layer": cin.KERNEL,
 }
 
 
@@ -43,3 +45,21 @@ def core_spmv(a_core: torch.Tensor, frontier_bm: torch.Tensor, *,
         return ref.core_spmv_ref(a_core, frontier_bm)
     return frontier_spmv.core_spmv(a_core, frontier_bm,
                                    rows_per_tile=rows_per_tile)
+
+
+def multi_source_spmv(a_core8: torch.Tensor, frontier8: torch.Tensor) -> torch.Tensor:
+    """Batched-root Boolean SpMV: int8 [K, K] x int8 [K, R] -> int32 [K, R].
+
+    K and R must be multiples of 128 on either device (the kernel's tiles).
+    """
+    spmv_mxu.check_shapes(a_core8, frontier8)
+    if a_core8.device.type == "cpu":
+        return ref.spmv_mxu_ref(a_core8, frontier8)
+    return spmv_mxu.spmv_mxu(a_core8, frontier8)
+
+
+def cin_layer(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Fused xDeepFM CIN layer: [B, F0, D] x [B, Fl, D] x [H, F0, Fl] -> [B, H, D]."""
+    if x0.device.type == "cpu":
+        return ref.cin_layer_ref(x0, xl, w)
+    return cin.cin_layer(x0, xl, w)

@@ -64,3 +64,33 @@ def core_spmv_ref(a_core: torch.Tensor, frontier_bm: torch.Tensor) -> torch.Tens
     cand = torch.where(hits != 0, word_idx[None, :] + ctz_u32(hits),
                        torch.tensor(BIG, dtype=torch.int32, device=a_core.device))
     return cand.min(dim=1).values.to(torch.int32)
+
+
+def spmv_mxu_ref(a_core8: torch.Tensor, frontier8: torch.Tensor, *,
+                 chunk_rows: int = 4096) -> torch.Tensor:
+    """Multi-source Boolean SpMV oracle: int32 [K, R] = A8 [K, K] @ F8 [K, R].
+
+    Computed in float64, which is exact here: |sum| <= K * 128^2 < 2^53.
+    torch has no integer matmul on CUDA, and a whole [K, K] float64 copy
+    would be 30 GB at K = 61,440, so ``chunk_rows`` rows of A are widened
+    at a time.  Callers threshold ``> 0`` for the next-frontier bits.
+    """
+    k, r = a_core8.shape[0], frontier8.shape[1]
+    f = frontier8.to(torch.float64)
+    out = torch.empty((k, r), dtype=torch.int32, device=a_core8.device)
+    for s in range(0, k, chunk_rows):
+        out[s:s + chunk_rows] = (a_core8[s:s + chunk_rows].to(torch.float64) @ f) \
+            .to(torch.int32)
+    return out
+
+
+def cin_layer_ref(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xDeepFM CIN layer oracle, materialising the outer product.
+
+    x0 [B, F0, D], xl [B, Fl, D], w [H, F0, Fl] -> [B, H, D] with
+    out[b, h, d] = sum_ij w[h, i, j] * x0[b, i, d] * xl[b, j, d].  The
+    [B, F0, Fl, D] intermediate (82 GB at B = 262,144 and full width) makes
+    this a small-batch oracle only.
+    """
+    outer = torch.einsum("bid,bjd->bijd", x0, xl)
+    return torch.einsum("hij,bijd->bhd", w, outer)

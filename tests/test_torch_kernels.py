@@ -1,5 +1,5 @@
 """The port's kernels: plain PyTorch versions against the JAX package's
-Pallas kernels (interpret mode) on the same numpy words.
+Pallas kernels (interpret mode) on the same numpy inputs.
 
 Bitmaps cross the boundary as uint32 numpy words, viewed as int32 for
 torch.  The hand-written CUDA kernels are held against the plain versions
@@ -10,10 +10,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from repro.kernels import ref as jref
+from repro.kernels import ops as jax_ops, ref as jref
 from repro.kernels.bitmap_ops import frontier_update as jax_frontier_update
 from repro.kernels.frontier_spmv import core_spmv as jax_core_spmv
-from repro_torch.kernels import bitmap_ops, frontier_spmv, ops, ref
+from repro.kernels.spmv_mxu import spmv_mxu as jax_spmv_mxu
+from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu
 
 torch.set_num_threads(2)
 
@@ -147,3 +148,79 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             bitmap_ops.frontier_update(to_t(a[0]), to_t(a[1]))
         else:
             frontier_spmv.core_spmv(to_t(a), to_t(f))
+
+
+# ---------------------------------------------------------------------------
+# spmv_mxu and cin_layer: plain versions and CPU dispatch vs the JAX kernels
+# ---------------------------------------------------------------------------
+
+def int8_operands(rng, k, r, full_range):
+    """A8 [K, K], F8 [K, R]: 0/1 (a Boolean core and frontiers) or every
+    int8 value, -128 included."""
+    if full_range:
+        return (rng.integers(-128, 128, (k, k), dtype=np.int8),
+                rng.integers(-128, 128, (k, r), dtype=np.int8))
+    return ((rng.random((k, k)) < 0.05).astype(np.int8),
+            (rng.random((k, r)) < 0.1).astype(np.int8))
+
+
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("k,r", [(256, 128), (512, 256)])
+def test_spmv_mxu_plain_matches_jax(k, r, full_range):
+    # integer products: bit-exact
+    rng = np.random.default_rng(k * r + full_range)
+    a, f = int8_operands(rng, k, r, full_range)
+    want = np.asarray(jax_spmv_mxu(jnp.asarray(a), jnp.asarray(f), interpret=True))
+    got = ops.multi_source_spmv(torch.from_numpy(a), torch.from_numpy(f))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.spmv_mxu_ref(torch.from_numpy(a), torch.from_numpy(f), chunk_rows=96).numpy(),
+        want)
+    if full_range:
+        assert a.min() == -128 and f.min() == -128
+
+
+@pytest.mark.parametrize("k,r", [(200, 128), (256, 100), (0, 128)])
+def test_spmv_mxu_refuses_untiled_shapes(k, r):
+    a = torch.zeros((k, k), dtype=torch.int8)
+    f = torch.zeros((k, r), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ops.multi_source_spmv(a, f)
+
+
+def cin_operands(rng, b, f0, fl, h, d):
+    """x0, xl ~ N(0, 1) and w at the model's init scale sqrt(1 / (F0 Fl))."""
+    return (rng.normal(size=(b, f0, d)).astype(np.float32),
+            rng.normal(size=(b, fl, d)).astype(np.float32),
+            (rng.normal(size=(h, f0, fl)) * np.sqrt(1.0 / (f0 * fl))).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,f0,fl,h,d", [
+    (128, 8, 8, 16, 4), (256, 12, 20, 8, 10), (128, 39, 16, 8, 10),
+    (64, 39, 200, 200, 10)])
+def test_cin_layer_plain_matches_jax(b, f0, fl, h, d):
+    # fp32 sums in another order than XLA's: rtol = atol = 2e-4, the
+    # tolerance of the JAX package's own kernel test
+    rng = np.random.default_rng(b + f0 + fl)
+    x0, xl, w = cin_operands(rng, b, f0, fl, h, d)
+    want = np.asarray(jax_ops.cin_layer(jnp.asarray(x0), jnp.asarray(xl), jnp.asarray(w)))
+    got = ops.cin_layer(torch.from_numpy(x0), torch.from_numpy(xl), torch.from_numpy(w))
+    assert got.shape == (b, h, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    plain = ref.cin_layer_ref(torch.from_numpy(x0), torch.from_numpy(xl), torch.from_numpy(w))
+    np.testing.assert_allclose(plain.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer"])
+def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if wrapper == "spmv_mxu":
+            spmv_mxu.spmv_mxu(torch.zeros((128, 128), dtype=torch.int8),
+                              torch.zeros((128, 128), dtype=torch.int8))
+        else:
+            cin.cin_layer(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
+                          torch.zeros((6, 3, 5)))
+    assert ops.launch_counts() == before
+    assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer"}

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bitmap_ops, frontier_spmv, ops, ref
+from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu
 
 torch.set_num_threads(2)
 
@@ -106,9 +106,13 @@ def test_kernel_launches_counted(cuda):
     nxt, vis = corner_cases()[0]
     ops.core_spmv(to_t(a, cuda), to_t(f, cuda))
     ops.frontier_update(to_t(nxt, cuda), to_t(vis, cuda))
+    a8 = torch.ones((128, 128), dtype=torch.int8, device=cuda)
+    ops.multi_source_spmv(a8, a8)
+    x = torch.ones((4, 3, 2), device=cuda)
+    ops.cin_layer(x, x, torch.ones((5, 3, 3), device=cuda))
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "frontier_update": 1, "core_spmv": 1}
+        "frontier_update": 1, "core_spmv": 1, "spmv_mxu": 1, "cin_layer": 1}
 
 
 @pytest.mark.cuda
@@ -136,3 +140,107 @@ def test_bitmap_engine_on_card_matches_cpu(cuda, batch):
     np.testing.assert_array_equal(runs[0].parent, runs[1].parent)
     np.testing.assert_array_equal(runs[0].level, runs[1].level)
     assert runs[0].run.edges == runs[1].run.edges
+
+
+# ---------------------------------------------------------------------------
+# spmv_mxu and cin_layer
+# ---------------------------------------------------------------------------
+
+def int8_operands(rng, k, r, full_range):
+    lo, hi = (-128, 128) if full_range else (0, 2)
+    return (rng.integers(lo, hi, (k, k)).astype(np.int8),
+            rng.integers(lo, hi, (k, r)).astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("k,r", [(128, 128), (512, 256), (1024, 128)])
+def test_spmv_mxu_kernel_matches_plain(cuda, k, r, full_range):
+    rng = np.random.default_rng(k + r)
+    a, f = (torch.from_numpy(x).to(cuda) for x in int8_operands(rng, k, r, full_range))
+    got = spmv_mxu.spmv_mxu(a, f)
+    assert got.dtype == torch.int32 and torch.equal(got, ref.spmv_mxu_ref(a, f))
+
+
+@pytest.mark.cuda
+def test_spmv_mxu_kernel_bit7_extreme(cuda):
+    # every term (-128) * (-128): the int32 sum K * 2^14, sign bit of int8 set
+    k = 1024
+    a = torch.full((k, k), -128, dtype=torch.int8, device=cuda)
+    f = torch.full((k, 128), -128, dtype=torch.int8, device=cuda)
+    f[:, 1] = 127
+    got = spmv_mxu.spmv_mxu(a, f)
+    assert int(got[:, 0].min()) == int(got[:, 0].max()) == k * 128 * 128
+    assert int(got[:, 1].max()) == -k * 128 * 127
+    assert torch.equal(got, ref.spmv_mxu_ref(a, f))
+
+
+def cin_operands(rng, b, f0, fl, h, d, device):
+    return (torch.from_numpy(rng.normal(size=(b, f0, d)).astype(np.float32)).to(device),
+            torch.from_numpy(rng.normal(size=(b, fl, d)).astype(np.float32)).to(device),
+            torch.from_numpy((rng.normal(size=(h, f0, fl)) / np.sqrt(f0 * fl))
+                             .astype(np.float32)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f0,fl,h,d", [
+    (512, 39, 39, 200, 10), (512, 39, 200, 200, 10), (300, 39, 200, 200, 10),
+    (1, 39, 200, 200, 10), (128, 8, 8, 16, 4), (77, 5, 3, 70, 3)])
+def test_cin_layer_kernel_matches_plain(cuda, b, f0, fl, h, d):
+    # fp32 sums in another order: rtol = atol = 2e-4, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(b + fl)
+    x0, xl, w = cin_operands(rng, b, f0, fl, h, d, cuda)
+    got = cin.cin_layer(x0, xl, w)
+    assert got.shape == (b, h, d)
+    torch.testing.assert_close(got, ref.cin_layer_ref(x0, xl, w), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_new_kernel_wrappers_refuse_bad_inputs(cuda):
+    a8 = torch.zeros((128, 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        spmv_mxu.spmv_mxu(a8.to(torch.int32), a8)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_mxu.spmv_mxu(torch.zeros((128, 256), dtype=torch.int8, device=cuda)[:, ::2], a8)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        spmv_mxu.spmv_mxu(a8[:64, :64].contiguous(), a8[:64].contiguous())
+    x = torch.zeros((4, 3, 2), device=cuda)
+    w = torch.zeros((5, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        cin.cin_layer(x.double(), x, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cin.cin_layer(torch.zeros((4, 2, 3), device=cuda).transpose(1, 2), x, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cin.cin_layer(x, x.cpu(), w)
+    with pytest.raises(ValueError, match="no backward"):
+        cin.cin_layer(x, x, w.clone().requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cin_kernel", [False, True])
+def test_xdeepfm_serve_on_card_matches_cpu(cuda, use_cin_kernel):
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import recsys
+    from repro_torch.train import train_step as ts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get("xdeepfm").make_smoke_config(),
+                              use_cin_kernel=use_cin_kernel)
+    params = recsys.init_params(cfg, seed=0, device="cpu")
+    # the table at 0.3, not init's 0.01, so the CIN layers are O(0.01-0.1)
+    # and a wrong kernel shows in the probabilities and the features
+    params.table.mul_(30.0)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.rows_per_field, (300, cfg.n_sparse)).astype(np.int32))
+    want = ts.make_xdeepfm_serve_step(cfg)(params, ids)
+    with torch.inference_mode():
+        feat = recsys.cin_features(params, recsys.embed(params, ids, cfg)[1], cfg)
+    assert float(feat.abs().max()) > 1e-2
+    params = params.to(cuda)   # nn.Module.to moves in place
+    got = ts.make_xdeepfm_serve_step(cfg)(params, ids.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    with torch.inference_mode():
+        got_feat = recsys.cin_features(params, recsys.embed(params, ids.to(cuda), cfg)[1],
+                                       cfg)
+    torch.testing.assert_close(got_feat.cpu(), feat, rtol=2e-4, atol=2e-4)

@@ -24,6 +24,8 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.pipeline\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.models.recsys, repro_torch.train.train_step\n"
+        "import repro_torch.configs, repro_torch.data.synthetic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -36,7 +38,7 @@ def test_import_leaves_jax_and_repro_out():
 
 def test_no_jax_or_repro_imports_in_source():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 25
     for path in files + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -52,13 +54,22 @@ def test_no_jax_or_repro_imports_in_source():
 
 
 def test_kernel_sources_exist_with_headers():
+    # the header note: which TPU kernel, what bounds it, what the design does
     for name, tpu in (("frontier_update", "bitmap_ops.py"),
-                      ("core_spmv", "frontier_spmv.py")):
+                      ("core_spmv", "frontier_spmv.py"),
+                      ("spmv_mxu", "spmv_mxu.py"), ("cin_layer", "cin.py")):
         text = (PKG / "kernels" / "csrc" / f"{name}.cu").read_text()
-        head = text[:3000]
-        assert "Replaces:" in head and tpu in head
+        head = text[:4000]
+        assert "Replaces:" in head and f"src/repro/kernels/{tpu}" in head
         assert "What bounds it" in head and "What the design does" in head
         assert 'extern "C" int' in text and "cudaGetLastError" in text
+
+
+def test_every_kernel_source_has_a_counted_wrapper():
+    from repro_torch.kernels import ops
+    sources = sorted(p.stem for p in (PKG / "kernels" / "csrc").glob("*.cu"))
+    assert sorted(k.lib_name for k in ops.KERNELS.values()) == sources
+    assert sorted(ops.KERNELS) == sources
 
 
 def test_entry_points_need_cuda_unless_cpu():
