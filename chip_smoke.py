@@ -9,7 +9,9 @@ non-zero and no result line is printed:
   2. the build of every hand-written kernel from ``src/repro_torch/kernels/csrc``;
   3. each kernel against its plain PyTorch version on the card: bit for bit
      for the integer kernels, within rtol = atol = 2e-4 for ``cin_layer``
-     (fp32, TF32 off) at the full-width xDeepFM layer shapes;
+     (3xTF32 against the fp32 plain version, TF32 off) at the full-width
+     xDeepFM layer shapes, ragged and split grids included, and two calls
+     on the split grid bit-identical;
   4. the main path at scale 16: levels equal to the numpy queue BFS;
   5. the main path, ``Graph500Config.ladder("pre-g500", scale=20,
      n_roots=16)``: all roots valid with zero failing checks, both kernels
@@ -33,7 +35,8 @@ non-zero and no result line is printed:
      version and ``torch._int_mm``, and ``counts > 0`` equal to the core
      neighbourhoods read from the packed bitmap;
  10. ``cin_layer`` and ``spmv_mxu`` at their path's shapes: time, plain
-     time, the library call's time and the bound; ``cin_layer`` at
+     time, the library call's time and the bound (``cin_layer``: the
+     3xTF32 tensor-core bound it is held to and the fp32 bound); ``cin_layer`` at
      B = 262,144 on N(0, 1) operands also held against the plain version
      on 4,096 rows spread over the batch (rtol = atol = 2e-4).
 
@@ -62,10 +65,11 @@ HBM_BYTES_PER_S = 3.35e12
 # cores stands in for the scalar ALUs.
 SCALAR_OPS_PER_S = 67e12
 FP32_FLOPS_PER_S = 67e12
+TF32_TENSOR_FLOPS_PER_S = 495e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 
-# cin_layer against its plain version: fp32 sums in another order, the
-# tolerance of the JAX package's kernel test (tests/test_kernels.py).
+# cin_layer (3xTF32 on the tensor cores, fp32-level error) against its plain
+# version: the tolerance of the JAX package's kernel test (tests/test_kernels.py).
 CIN_TOL = 2e-4
 CIN_CHECK_ROWS = 4096
 
@@ -203,19 +207,27 @@ def check_cin_layer(device) -> float:
     from repro_torch.kernels import cin, ref
     gen = torch.Generator(device=device).manual_seed(3)
     # the full-width layer shapes (F0 = 39, D = 10, H = 200; Fl = 39 for
-    # layer 1 and 200 for layers 2-3) at B = 512, a ragged B, and the smoke
-    # config's shape
+    # layer 1 and 200 for layers 2-3) at B = 512 (F0 split over blocks), a
+    # ragged B, a ragged last slab (513), B = 7 and 1 (filters split too),
+    # the smoke config's shape and H = 70 at D = 3
     cases = [(512, 39, 39, 200, 10), (512, 39, 200, 200, 10),
              (300, 39, 39, 200, 10), (300, 39, 200, 200, 10),
-             (1, 39, 200, 200, 10), (128, 8, 16, 16, 4)]
+             (513, 39, 200, 200, 10), (7, 39, 39, 200, 10),
+             (1, 39, 200, 200, 10), (128, 8, 16, 16, 4), (96, 12, 20, 70, 3)]
     err = 0.0
     for b, f0, fl, h, d in cases:
         x0, xl, w = cin_operands(gen, b, f0, fl, h, d, device)
-        err = max(err, assert_close(f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d}",
-                                    cin.cin_layer(x0, xl, w),
+        plan = cin.cin_plan(b, f0, fl, h, d, sms=cin.sm_count(device))
+        err = max(err, assert_close(f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d} "
+                                    f"grid={plan.grid}", cin.cin_layer(x0, xl, w),
                                     ref.cin_layer_ref(x0, xl, w)))
+    x0, xl, w = cin_operands(gen, 512, 39, 200, 200, 10, device)
+    if not torch.equal(cin.cin_layer(x0, xl, w), cin.cin_layer(x0, xl, w)):
+        raise AssertionError("cin_layer: two calls on the split grid differ")
     log(f"cin_layer: {len(cases)} shapes within rtol = atol = {CIN_TOL} of "
-        f"cin_layer_ref (max abs err {err})")
+        f"cin_layer_ref (max abs err {err}); two calls at B=512 (grid "
+        f"{cin.cin_plan(512, 39, 200, 200, 10, sms=cin.sm_count(device)).grid}) "
+        f"bit-identical")
     return err
 
 
@@ -420,8 +432,8 @@ def time_cin(serving: dict, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(6)
     f0, d, hs = serving["f0"], serving["d"], serving["cin_layers"]
     fls = [f0] + list(hs[:-1])
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bulk_ms=0.0,
-               bulk_bound_ms=0.0, err=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fp32_bound_ms=0.0, library_ms=0.0,
+               bulk_ms=0.0, bulk_bound_ms=0.0, bulk_fp32_bound_ms=0.0, err=0.0)
     timed = {}
     for fl, h in zip(fls, hs):
         if (fl, h) not in timed:
@@ -430,11 +442,14 @@ def time_cin(serving: dict, device) -> dict:
                 x0, xl, w = cin_operands(gen, b, f0, fl, h, d, device)
                 n_bytes = 4 * (b * f0 * d + b * fl * d + h * f0 * fl + b * h * d)
                 flops = 2 * b * h * f0 * fl * d
-                bnd = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
+                # held to: three TF32 passes on the tensor cores; beside it,
+                # the same flops once on the fp32 cores
+                bnd = bound_ms(n_bytes, 3 * flops, TF32_TENSOR_FLOPS_PER_S)
+                bnd32 = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
                 lib = lambda: torch.einsum("hij,bid,bjd->bhd", w, x0, xl)
                 if b == serving["b_bulk"]:
                     row["bulk_ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 3, 1)
-                    row["bulk_bound"] = bnd
+                    row["bulk_bound"], row["bulk_bound32"] = bnd, bnd32
                     rows = spread_rows(b, CIN_CHECK_ROWS, device)
                     row["bulk_err"] = assert_close(
                         f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d}, "
@@ -447,33 +462,69 @@ def time_cin(serving: dict, device) -> dict:
                     row["ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 20, 10)
                     row["plain_ms"] = time_ms(lambda: ref.cin_layer_ref(x0, xl, w), 5, 1)
                     row["lib_ms"] = time_ms(lib, 10, 3)
-                    row["bound"], row["bytes"], row["flops"] = bnd, n_bytes, flops
+                    row["bound"], row["bound32"] = bnd, bnd32
+                    row["bytes"], row["flops"] = n_bytes, flops
+                    row["plan"] = cin.cin_plan(b, f0, fl, h, d, sms=cin.sm_count(device))
                 del x0, xl, w
             torch.cuda.empty_cache()
             timed[(fl, h)] = row
+            plan = row["plan"]
             log(f"    cin_layer F0={f0} Fl={fl} H={h} D={d}: B={serving['b_p99']} "
+                f"(grid {plan.grid}, {plan.warps} warps, {plan.smem_bytes} B shared) "
                 f"{row['ms']:.6f} ms (plain {row['plain_ms']:.6f}, library einsum "
-                f"{row['lib_ms']:.6f}, bound {row['bound'][0]:.6f} {row['bound'][1]}, "
-                f"{row['flops'] / row['ms'] / 1e9:.6f} TFLOP/s); B=4096 "
+                f"{row['lib_ms']:.6f}; 3xTF32 bound {row['bound'][0]:.6f} "
+                f"{row['bound'][1]}, {row['bound'][0] / row['ms']:.6f} of it; fp32 "
+                f"bound {row['bound32'][0]:.6f}, {row['bound32'][0] / row['ms']:.6f} "
+                f"of it; {row['flops'] / row['ms'] / 1e9:.6f} TFLOP/s); B=4096 "
                 f"{row['ms_4096']:.6f} ms (library {row['lib_4096']:.6f}); "
-                f"B={serving['b_bulk']} {row['bulk_ms']:.6f} ms (bound "
+                f"B={serving['b_bulk']} {row['bulk_ms']:.6f} ms (3xTF32 bound "
                 f"{row['bulk_bound'][0]:.6f}, {row['bulk_bound'][0] / row['bulk_ms']:.6f} "
-                f"of it; max abs err {row['bulk_err']:.6e} on {CIN_CHECK_ROWS} rows "
-                f"within rtol = atol = {CIN_TOL})")
+                f"of it; fp32 bound {row['bulk_bound32'][0]:.6f}, "
+                f"{row['bulk_bound32'][0] / row['bulk_ms']:.6f} of it; max abs err "
+                f"{row['bulk_err']:.6e} on {CIN_CHECK_ROWS} rows within rtol = atol "
+                f"= {CIN_TOL})")
         row = timed[(fl, h)]
         tot["ms"] += row["ms"]
         tot["plain_ms"] += row["plain_ms"]
         tot["library_ms"] += row["lib_ms"]
         tot["bound_ms"] += row["bound"][0]
+        tot["fp32_bound_ms"] += row["bound32"][0]
         tot["bound_by"] = max((r["bound"] for r in timed.values()))[1]
         tot["bulk_ms"] += row["bulk_ms"]
         tot["bulk_bound_ms"] += row["bulk_bound"][0]
+        tot["bulk_fp32_bound_ms"] += row["bulk_bound32"][0]
         tot["err"] = max(tot["err"], row["bulk_err"])
-    for cell, step_ms, cin_ms in (("serve_p99", serving["p99_ms"], tot["ms"]),
-                                  ("serve_bulk", serving["bulk_ms"], tot["bulk_ms"])):
+    for cell, step_ms, cin_ms, bnd, bnd32 in (
+            ("serve_p99", serving["p99_ms"], tot["ms"], tot["bound_ms"],
+             tot["fp32_bound_ms"]),
+            ("serve_bulk", serving["bulk_ms"], tot["bulk_ms"], tot["bulk_bound_ms"],
+             tot["bulk_fp32_bound_ms"])):
         log(f"    {cell}: CIN kernels {cin_ms:.6f} ms of a {step_ms:.6f} ms step "
-            f"(share {cin_ms / step_ms:.6f})")
+            f"(share {cin_ms / step_ms:.6f}); 3xTF32 bound {bnd:.6f} ms "
+            f"({bnd / cin_ms:.6f} of it), fp32 bound {bnd32:.6f} ms "
+            f"({bnd32 / cin_ms:.6f} of it)")
+    log(f"    library einsum, the forward's three layers at B={serving['b_p99']}: "
+        f"{tot['library_ms']:.6f} ms; the kernel {tot['ms']:.6f} ms")
     return tot
+
+
+def time_cin_splits(serving: dict, device) -> None:
+    """Phase 10, cin_layer at serve_p99: the forward's three layers with the
+    F0 sum split over 1-8 blocks, beside the split the plan picks."""
+    from repro_torch.kernels import cin
+    gen = torch.Generator(device=device).manual_seed(8)
+    b, f0, d, hs = serving["b_p99"], serving["f0"], serving["d"], serving["cin_layers"]
+    layers = [cin_operands(gen, b, f0, fl, h, d, device)
+              for fl, h in zip([f0] + list(hs[:-1]), hs)]
+    times = {}
+    for splits in (1, 2, 3, 4, 5, 8):
+        times[splits] = sum(time_ms(lambda: cin.cin_layer(x0, xl, w, splits=splits), 10, 5)
+                            for x0, xl, w in layers)
+    pick = {cin.cin_plan(b, f0, w.shape[2], w.shape[0], d, sms=cin.sm_count(device)).splits
+            for _, _, w in layers}
+    log(f"    cin_layer B={b}, the forward's three layers by splits of the F0 sum: "
+        + ", ".join(f"{k}: {v:.6f} ms" for k, v in times.items())
+        + f"; the plan picks {sorted(pick)}")
 
 
 def time_spmv(spmv: dict) -> dict:
@@ -574,10 +625,13 @@ def profile_window(fn, kernels: tuple[str, ...]) -> None:
     for name, (tot, n) in top:
         log(f"    {tot / 1e3:10.6f} ms  x{n:<4d} {name[:110]}")
     for kernel in kernels:
-        hits = [(tot, n) for name, (tot, n) in by_name.items() if kernel in name]
-        tot, n = sum(t for t, _ in hits), sum(c for _, c in hits)
+        hits = [(name, tot, n) for name, (tot, n) in by_name.items() if kernel in name]
+        tot, n = sum(t for _, t, _ in hits), sum(c for _, _, c in hits)
         per = f"{tot / n / 1e3:.6f} ms per launch" if n else "not launched"
         log(f"    {kernel}: device {tot / 1e3:.6f} ms over {n} launches ({per})")
+        if len(hits) > 1:
+            for name, t_, c in hits:
+                log(f"      {t_ / 1e3:.6f} ms x{c} {name[:100]}")
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -608,8 +662,15 @@ def main() -> int:
         f"(nvcc {_build.build_info['seconds']:.2f} s) into {_build.build_info['dir']}")
     for name, text in _build.build_info["ptxas"].items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    ptxas {name}: {line.strip()}")
+            elif name == "cin_layer" and "Compiling entry" in line:
+                log(f"    ptxas {name}: {line.strip()[-90:]}")
+    from repro_torch.kernels import cin
+    for fl in (39, 200):
+        plan = cin.cin_plan(262144, 39, fl, 200, 10, sms=cin.sm_count(device))
+        log(f"    cin_layer at Fl={fl}: {plan.warps} warps, {plan.smem_bytes} B of "
+            f"dynamic shared memory per block (above the static smem ptxas reports)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -707,6 +768,7 @@ def main() -> int:
 
     log("[10] cin_layer and spmv_mxu at their path's shapes")
     cin_t = time_cin(serving, device)
+    time_cin_splits(serving, device)
     cin_err = max(cin_err, cin_t["err"])
     spmv_t = time_spmv(spmv)
     spmv_launches, spmv_err = spmv["launches"], spmv["err"]
@@ -732,14 +794,18 @@ def main() -> int:
              ms=spmv_t["ms"], plain_ms=spmv_t["plain_ms"], bound_ms=spmv_t["bound"][0],
              bound_by=spmv_t["bound"][1], library_ms=spmv_t["library_ms"]),
         # cin_layer: one serve_p99 forward's three layers (B = 512), summed;
-        # bulk_* the same at serve_bulk (B = 262,144)
+        # bulk_* the same at serve_bulk (B = 262,144).  bound_ms is the
+        # 3xTF32 tensor-core bound the kernel is held to; fp32_bound_ms the
+        # same flops once at the fp32 rate
         dict(name="cin_layer", route="cuda",
              source="src/repro_torch/kernels/csrc/cin_layer.cu",
              replaces="src/repro/kernels/cin.py:64",
              launches=serving["launches"], max_abs_err=cin_err,
              ms=cin_t["ms"], plain_ms=cin_t["plain_ms"], bound_ms=cin_t["bound_ms"],
              bound_by=cin_t["bound_by"], library_ms=cin_t["library_ms"],
-             bulk_ms=cin_t["bulk_ms"], bulk_bound_ms=cin_t["bulk_bound_ms"]),
+             fp32_bound_ms=cin_t["fp32_bound_ms"],
+             bulk_ms=cin_t["bulk_ms"], bulk_bound_ms=cin_t["bulk_bound_ms"],
+             bulk_fp32_bound_ms=cin_t["bulk_fp32_bound_ms"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

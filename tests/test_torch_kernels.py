@@ -224,3 +224,111 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
                           torch.zeros((6, 3, 5)))
     assert ops.launch_counts() == before
     assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer"}
+
+
+# ---------------------------------------------------------------------------
+# cin_layer: the kernel's 3xTF32 arithmetic, emulated, and its launch plan
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (ties away from zero), as
+    ``cvt.rna.tf32.f32`` gives it: 10 mantissa bits kept."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def cin_tf32_emulation(x0, xl, w, passes: int = 3) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in plain torch: per i, P_i = w[:, i] @ xl
+    with each operand split as hi = tf32(a), lo = tf32(a - hi) and the
+    products lo*hi + hi*lo + hi*hi (``passes=3``) or hi*hi alone (one TF32
+    pass), then out += x0[:, i] * P_i in fp32."""
+    wh, xh = tf32_round(w), tf32_round(xl)
+    wl, xlo = tf32_round(w - wh), tf32_round(xl - xh)
+    out = torch.zeros(x0.shape[0], w.shape[0], x0.shape[2])
+    for i in range(x0.shape[1]):
+        p = torch.einsum("hj,bjd->bhd", wh[:, i], xh)
+        if passes == 3:
+            p = (torch.einsum("hj,bjd->bhd", wl[:, i], xh)
+                 + torch.einsum("hj,bjd->bhd", wh[:, i], xlo)) + p
+        out += x0[:, i, None, :] * p
+    return out
+
+
+def test_tf32_round_matches_rna():
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-12, -(1 + 2**-11), 1 + 2**-12,
+                      3.0e-38, 123456.789])
+    got = tf32_round(x)
+    # ties go away from zero; below half an ulp rounds down
+    assert got[0] == 1.0 and got[1] == 1 + 2**-10 and got[3] == -(1 + 2**-10)
+    assert got[2] == 1 + 2**-10 and got[4] == 1.0
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((got - x).abs() <= x.abs() * 2**-11).all()
+
+
+@pytest.mark.parametrize("fl", [39, 200])
+def test_cin_3xtf32_emulation_matches_reference(fl):
+    # the full-width layer (F0 = 39, H = 200, D = 10) at B = 16: three TF32
+    # passes keep rtol = atol = 2e-4 against the fp32 oracle and the Pallas
+    # kernel; one pass does not
+    b, f0, h, d = 16, 39, 200, 10
+    rng = np.random.default_rng(fl)
+    x0, xl, w = cin_operands(rng, b, f0, fl, h, d)
+    tx0, txl, tw = (torch.from_numpy(a) for a in (x0, xl, w))
+    got = cin_tf32_emulation(tx0, txl, tw)
+    plain = ref.cin_layer_ref(tx0, txl, tw)
+    want = np.asarray(jax_ops.cin_layer(jnp.asarray(x0), jnp.asarray(xl), jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    # fp32-level: far inside the tolerance
+    assert float((got - plain).abs().max()) < 2e-5
+    one_pass = cin_tf32_emulation(tx0, txl, tw, passes=1)
+    assert not torch.allclose(one_pass, plain, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("b,f0,fl,h,d", [
+    (1, 39, 200, 200, 10), (7, 39, 39, 200, 10), (300, 39, 200, 200, 10),
+    (512, 39, 39, 200, 10), (512, 39, 200, 200, 10), (513, 39, 200, 200, 10),
+    (4096, 39, 200, 200, 10), (262144, 39, 39, 200, 10),
+    (262144, 39, 200, 200, 10), (96, 12, 20, 70, 3), (100, 12, 20, 70, 4),
+    (8192, 150, 20, 30, 4), (256, 6, 400, 40, 10), (40, 5, 8, 300, 4),
+    (0, 39, 200, 200, 10)])
+def test_cin_plan(b, f0, fl, h, d):
+    plan = cin.cin_plan(b, f0, fl, h, d)
+    assert plan.h_pad == -(-h // 16) * 16 and plan.h_pad - h < 16
+    assert 1 <= plan.warps <= cin.MAX_WARPS
+    cols, h_blocks, splits = plan.grid
+    assert splits == plan.splits and cols * cin.BLOCK_COLS >= b * d
+    assert h_blocks * plan.warps * 16 >= h
+    # every i in exactly one split; split sizes differ by at most one
+    covered = [i for lo, hi in plan.i_ranges for i in range(lo, hi)]
+    assert covered == list(range(f0))
+    sizes = [hi - lo for lo, hi in plan.i_ranges]
+    assert len(sizes) == splits and max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert plan.scratch_shape == ((splits, b, h, d) if splits > 1 else None)
+    assert plan.smem_bytes <= 232448
+    # the cheapest split under the plan's wave model, the fewest among equals
+    tiles = cols * h_blocks
+    if tiles:
+        costs = [cin.split_cost(tiles, f0, s) for s in range(1, f0 + 1)]
+        assert costs[splits - 1] == min(costs) and costs.index(min(costs)) == splits - 1
+    if (f0, h, d) == (39, 200, 10):
+        assert plan.h_pad == 208 and plan.warps == 13
+        if b == 262144:
+            assert splits == 1 and plan.scratch_shape is None
+        if b in (512, 513):
+            # one wave: 64 (65) column blocks x 2 halves of the F0 sum
+            assert splits == 2 and plan.i_ranges == ((0, 20), (20, 39))
+            assert plan.scratch_shape == (2, b, 200, 10)
+        if b == 1:
+            assert splits == 39 and plan.blocks == 39
+
+
+def test_cin_plan_split_model_order():
+    # the wave model's order of the splits at B = 512 (64 column blocks,
+    # F0 = 39): 2 < 4 < 8 < 5 < 3, one block per SM
+    cost = {s: cin.split_cost(64, 39, s) for s in (2, 3, 4, 5, 8)}
+    assert sorted(cost, key=cost.get) == [2, 4, 8, 5, 3]
+    assert cin.cin_plan(512, 39, 200, 200, 10, splits=5).i_ranges == (
+        (0, 8), (8, 16), (16, 24), (24, 32), (32, 39))
+    with pytest.raises(ValueError, match="splits"):
+        cin.cin_plan(512, 39, 200, 200, 10, splits=40)

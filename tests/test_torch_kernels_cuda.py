@@ -185,15 +185,35 @@ def cin_operands(rng, b, f0, fl, h, d, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,f0,fl,h,d", [
     (512, 39, 39, 200, 10), (512, 39, 200, 200, 10), (300, 39, 200, 200, 10),
-    (1, 39, 200, 200, 10), (128, 8, 8, 16, 4), (77, 5, 3, 70, 3)])
+    (1, 39, 200, 200, 10), (128, 8, 8, 16, 4), (77, 5, 3, 70, 3),
+    # F0 split over 5 blocks with a ragged last slab; B = 7 splits the
+    # filters too; D = 3 and 4 with H = 70
+    (513, 39, 200, 200, 10), (7, 39, 39, 200, 10), (96, 12, 20, 70, 3),
+    (100, 12, 20, 70, 4),
+    # Fl > 312 and F0 > 64 per split: xl and x0 taken in chunks
+    (256, 6, 400, 40, 10), (8192, 150, 20, 30, 4),
+    # H = 300: 19 filter tiles in two blocks of up to 16
+    (40, 5, 8, 300, 4)])
 def test_cin_layer_kernel_matches_plain(cuda, b, f0, fl, h, d):
-    # fp32 sums in another order: rtol = atol = 2e-4, TF32 off
+    # 3xTF32 on the tensor cores against the fp32 oracle (TF32 off):
+    # rtol = atol = 2e-4
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(b + fl)
     x0, xl, w = cin_operands(rng, b, f0, fl, h, d, cuda)
     got = cin.cin_layer(x0, xl, w)
     assert got.shape == (b, h, d)
     torch.testing.assert_close(got, ref.cin_layer_ref(x0, xl, w), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cin_layer_split_path_is_deterministic(cuda):
+    # B = 512 splits the F0 sum over blocks; the partials are summed in a
+    # fixed order, so two calls give the same bits
+    assert cin.cin_plan(512, 39, 200, 200, 10).splits > 1
+    x0, xl, w = cin_operands(np.random.default_rng(11), 512, 39, 200, 200, 10, cuda)
+    first = cin.cin_layer(x0, xl, w)
+    second = cin.cin_layer(x0, xl, w)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
