@@ -11,7 +11,11 @@ non-zero and no result line is printed:
      for the integer kernels, within rtol = atol = 2e-4 for ``cin_layer``
      (3xTF32 against the fp32 plain version, TF32 off) at the full-width
      xDeepFM layer shapes, ragged and split grids included, and two calls
-     on the split grid bit-identical;
+     on the split grid bit-identical; ``frontier_update`` also back to back
+     without synchronising (its ticket resets), in the ``out=`` form, and
+     refusing aliased outputs; ``spmv_mxu`` at K = 128 to 4,224 (one tile,
+     a ragged row tile, two frontier tiles, tiles split by stream-K) in 0/1,
+     full-range and all -128 int8, and two split calls bit-identical;
   4. the main path at scale 16: levels equal to the numpy queue BFS;
   5. the main path, ``Graph500Config.ladder("pre-g500", scale=20,
      n_roots=16)``: all roots valid with zero failing checks, both kernels
@@ -19,8 +23,11 @@ non-zero and no result line is printed:
      per-root parents;
   6. each kernel at its main-path shape: time (CUDA events), its plain
      version's time and the bound (bytes over the card's memory rate);
+     ``frontier_update`` in the engine's ``out=`` form, with the device time
+     per launch and the device operations per call (one) from torch.profiler;
   7. a torch.profiler trace of one scale-20 traversal: the device's busy
-     and idle share and the device time by kernel;
+     and idle share, the device time by kernel, one ``frontier_update``
+     launch a level and no memset beside one;
   8. xDeepFM serving at full width (``xdeepfm_full``, fused CIN kernel):
      ``serve_p99`` (B = 512) against the einsum path (probabilities, and
      the pooled CIN features with a tolerance scaled to their size),
@@ -38,7 +45,9 @@ non-zero and no result line is printed:
      time, the library call's time and the bound (``cin_layer``: the
      3xTF32 tensor-core bound it is held to and the fp32 bound); ``cin_layer`` at
      B = 262,144 on N(0, 1) operands also held against the plain version
-     on 4,096 rows spread over the batch (rtol = atol = 2e-4).
+     on 4,096 rows spread over the batch (rtol = atol = 2e-4); ``spmv_mxu``
+     with its share of the byte bound, its stream-K plan and a profile of
+     its two launches (F's transpose, the product).
 
 The last two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
@@ -131,7 +140,44 @@ def check_frontier_update(device) -> None:
             assert_equal(f"frontier_update {name} {part}", g, w_)
     if int(bitmap_ops.frontier_update(ones, zeros)[2]) != 1024 * 32:
         raise AssertionError("frontier_update: all-ones count is not 32768")
-    log(f"frontier_update: {len(cases)} cases bit-identical to frontier_update_ref")
+    # back to back on one stream, no synchronisation between the launches:
+    # each finds the ticket the one before reset.  2^21 words run the
+    # grid-stride loop (more than 528 blocks x 256 threads x 4 words).
+    n_b2b = 0
+    for w in (1024, 2**21):
+        ins = [(rand_words(gen, (w,), d, device), rand_words(gen, (w,), 0.1, device))
+               for d in (0.3, 0.02, 0.0, 0.6)]
+        got = [bitmap_ops.frontier_update(nxt, vis) for nxt, vis in ins]
+        torch.cuda.synchronize()
+        for (nxt, vis), g in zip(ins, got):
+            for g_, w_, part in zip(g, ref.frontier_update_ref(nxt, vis),
+                                    ("next", "visited", "count")):
+                assert_equal(f"frontier_update back-to-back W={w} {part}", g_, w_)
+            n_b2b += 1
+    # the engine's form: caller buffers, reused; aliased outputs refused
+    w = 32768
+    out = (torch.empty(w, dtype=torch.int32, device=device),
+           torch.empty(w, dtype=torch.int32, device=device),
+           torch.empty((), dtype=torch.int32, device=device))
+    for d in (0.5, 0.01):
+        nxt, vis = rand_words(gen, (w,), d, device), rand_words(gen, (w,), d, device)
+        got = bitmap_ops.frontier_update(nxt, vis, out=out)
+        if any(g is not o for g, o in zip(got, out)):
+            raise AssertionError("frontier_update(out=) did not return its buffers")
+        for g, w_, part in zip(got, ref.frontier_update_ref(nxt, vis),
+                               ("next", "visited", "count")):
+            assert_equal(f"frontier_update out= d={d} {part}", g, w_)
+    refused = 0
+    for bad in ((nxt, out[1], out[2]), (out[0], vis, out[2]), (out[0], out[0], out[2])):
+        try:
+            bitmap_ops.frontier_update(nxt, vis, out=bad)
+        except ValueError:
+            refused += 1
+    if refused != 3:
+        raise AssertionError("frontier_update accepted an output aliasing an input")
+    log(f"frontier_update: {len(cases)} cases, {n_b2b} back-to-back launches "
+        f"(W = 1024, 2^21) and the out= form bit-identical to frontier_update_ref; "
+        f"3 aliased outputs refused")
 
 
 def check_core_spmv(device) -> None:
@@ -241,20 +287,36 @@ def check_spmv_mxu(device) -> None:
     from repro_torch.kernels import ref, spmv_mxu
     gen = torch.Generator(device=device).manual_seed(4)
     n = 0
-    for k, r in ((512, 256), (128, 128)):
-        for full_range in (False, True):
-            a = rand_int8(gen, (k, k), full_range, device)
-            f = rand_int8(gen, (k, r), full_range, device)
-            assert_equal(f"spmv_mxu K={k} R={r} full_range={full_range}",
-                         spmv_mxu.spmv_mxu(a, f), ref.spmv_mxu_ref(a, f))
+    # (128, 128): one tile, fewer than the SMs; (384, 128): a ragged row
+    # tile; (512, 256) and (1024, 256): two frontier tiles; (4224, 128):
+    # tiles split over blocks
+    for k, r in ((128, 128), (384, 128), (512, 256), (1024, 256), (4224, 128)):
+        for values in ("0/1", "full", "all -128"):
+            if values == "all -128":
+                a = torch.full((k, k), -128, dtype=torch.int8, device=device)
+                f = torch.full((k, r), -128, dtype=torch.int8, device=device)
+            else:
+                a = rand_int8(gen, (k, k), values == "full", device)
+                f = rand_int8(gen, (k, r), values == "full", device)
+            got = spmv_mxu.spmv_mxu(a, f)
+            assert_equal(f"spmv_mxu K={k} R={r} {values}", got, ref.spmv_mxu_ref(a, f))
+            if values == "all -128" and not (int(got.min()) == int(got.max())
+                                             == k * 128 * 128):
+                raise AssertionError("spmv_mxu: the all -128 product is not K * 2^14")
             n += 1
-    k = 512  # the extreme product: every term (-128) * (-128)
-    a = torch.full((k, k), -128, dtype=torch.int8, device=device)
-    got = spmv_mxu.spmv_mxu(a, a[:, :256].contiguous())
-    if int(got.min()) != k * 128 * 128 or int(got.max()) != k * 128 * 128:
-        raise AssertionError("spmv_mxu: the all -128 product is not K * 2^14")
-    log(f"spmv_mxu: {n + 1} cases bit-identical to spmv_mxu_ref "
-        f"(0/1 and full-range int8, incl. all -128)")
+    plan = spmv_mxu.spmv_plan(4224, 128, spmv_mxu.sm_count(device))
+    if not plan.split_tiles:
+        raise AssertionError("spmv_mxu: the K = 4224 plan splits no tile")
+    a = rand_int8(gen, (4224, 4224), True, device)
+    f = rand_int8(gen, (4224, 256), True, device)
+    first, second = spmv_mxu.spmv_mxu(a, f), spmv_mxu.spmv_mxu(a, f)
+    if not torch.equal(first, second):
+        raise AssertionError("spmv_mxu: two calls with split tiles differ")
+    assert_equal("spmv_mxu K=4224 R=256 vs torch._int_mm", first, torch._int_mm(a, f))
+    log(f"spmv_mxu: {n} cases bit-identical to spmv_mxu_ref (0/1, full-range "
+        f"int8 and all -128; K = 4224 splits {len(plan.split_tiles)} of "
+        f"{plan.tiles} tiles over {plan.blocks} blocks); two calls at K = 4224, "
+        f"R = 256 bit-identical and equal to torch._int_mm")
 
 
 def serve_xdeepfm(device) -> dict:
@@ -528,17 +590,25 @@ def time_cin_splits(serving: dict, device) -> None:
 
 
 def time_spmv(spmv: dict) -> dict:
-    """Phase 10, spmv_mxu at the core's shape."""
+    """Phase 10, spmv_mxu at the core's shape (the prep launch, F's
+    transpose, included in its time)."""
     from repro_torch.kernels import ref, spmv_mxu
     a8, f8 = spmv["a8"], spmv["f8"]
     k, r = f8.shape
+    plan = spmv_mxu.spmv_plan(k, r, spmv_mxu.sm_count(a8.device))
     ms = time_ms(lambda: spmv_mxu.spmv_mxu(a8, f8), 10, 3)
     plain = time_ms(lambda: ref.spmv_mxu_ref(a8, f8), 2, 1)
     lib = time_ms(lambda: torch._int_mm(a8, f8), 10, 3)
     bnd = bound_ms(k * k + k * r + 4 * k * r, 2 * k * k * r, INT8_TENSOR_OPS_PER_S)
     log(f"    spmv_mxu K={k} R={r}: {ms:.6f} ms, plain {plain:.6f} ms, "
         f"torch._int_mm {lib:.6f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}; "
-        f"{bnd[0] / ms:.6f} of it)")
+        f"{bnd[0] / ms:.6f} of it; A streamed at {k * k / ms / 1e9:.6f} TB/s)")
+    log(f"    spmv_mxu plan: {plan.blocks} blocks, {plan.units} units "
+        f"({plan.tiles} tiles x {plan.k_steps} k steps, "
+        f"{plan.ranges[0][1] - plan.ranges[0][0]}-{plan.ranges[-1][1] - plan.ranges[-1][0]} "
+        f"units a block), {len(plan.split_tiles)} split tiles")
+    profile_window(lambda: spmv_mxu.spmv_mxu(a8, f8),
+                   ("spmv_prep_kernel", "spmv_mxu_kernel"))
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
 
 
@@ -586,10 +656,12 @@ def time_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def profile_window(fn, kernels: tuple[str, ...]) -> None:
+def profile_window(fn, kernels: tuple[str, ...]) -> dict | None:
     """Device busy share and device time by kernel over one call of ``fn``
     (after one warm-up call), from torch.profiler's CUDA activity (printed
-    as not measured when the profiler records no device activity)."""
+    as not measured when the profiler records no device activity).  Returns
+    the count of device activities, of memsets among them, and the device
+    time (us) and launches of each of ``kernels``; None when not measured."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -598,17 +670,24 @@ def profile_window(fn, kernels: tuple[str, ...]) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, by_name, order = [], {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
+        order.append((start, e.name))
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + (end - start), n + 1)
+    order.sort()
+    # the device operation that follows each memset, by name
+    after_memset: dict = {}
+    for (_, name), (_, nxt) in zip(order, order[1:]):
+        if "memset" in name.lower():
+            after_memset[nxt[:70]] = after_memset.get(nxt[:70], 0) + 1
     if not spans:
         log("    device time: not measured (the profiler recorded no CUDA activity)")
-        return
+        return None
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s_, e_ in spans[1:]:
@@ -618,12 +697,17 @@ def profile_window(fn, kernels: tuple[str, ...]) -> None:
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
+    memsets = sum(n for name, (_, n) in by_name.items() if "memset" in name.lower())
     log(f"    wall {wall_us / 1e3:.6f} ms (host clock, profiler on), device busy "
         f"{busy / 1e3:.6f} ms, idle share {1 - busy / wall_us:.6f}, "
-        f"{len(spans)} device activities")
+        f"{len(spans)} device activities ({memsets} memsets)")
+    if after_memset:
+        log("    memsets precede: " + "; ".join(f"x{n} {name}" for name, n in
+                                                 after_memset.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (tot, n) in top:
         log(f"    {tot / 1e3:10.6f} ms  x{n:<4d} {name[:110]}")
+    stats = dict(activities=len(spans), memsets=memsets, kernels={})
     for kernel in kernels:
         hits = [(name, tot, n) for name, (tot, n) in by_name.items() if kernel in name]
         tot, n = sum(t for _, t, _ in hits), sum(c for _, _, c in hits)
@@ -632,6 +716,10 @@ def profile_window(fn, kernels: tuple[str, ...]) -> None:
         if len(hits) > 1:
             for name, t_, c in hits:
                 log(f"      {t_ / 1e3:.6f} ms x{c} {name[:100]}")
+        stats["kernels"][kernel] = (tot, n)
+        stats.setdefault("memset_before", {})[kernel] = sum(
+            c for name, c in after_memset.items() if kernel in name)
+    return stats
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -664,7 +752,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    ptxas {name}: {line.strip()}")
-            elif name == "cin_layer" and "Compiling entry" in line:
+            elif name in ("cin_layer", "spmv_mxu") and "Compiling entry" in line:
                 log(f"    ptxas {name}: {line.strip()[-90:]}")
     from repro_torch.kernels import cin
     for fl in (39, 200):
@@ -741,13 +829,34 @@ def main() -> int:
                                             ("next", "visited", "count")))
     cs_err = assert_equal("core_spmv main-path", frontier_spmv.core_spmv(a_core, f_core),
                           ref.core_spmv_ref(a_core, f_core))
-    fu_ms = time_ms(lambda: bitmap_ops.frontier_update(found, visited), 30, 20)
+    # frontier_update in the engine's form: into reused caller buffers
+    fu_out = (torch.empty_like(found), torch.empty_like(visited),
+              torch.empty((), dtype=torch.int32, device=device))
+    fu_ms = time_ms(lambda: bitmap_ops.frontier_update(found, visited, out=fu_out), 30, 20)
+    fu_alloc_ms = time_ms(lambda: bitmap_ops.frontier_update(found, visited), 30, 20)
     fu_plain = time_ms(lambda: ref.frontier_update_ref(found, visited), 10, 5)
     fu_bound = bound_ms(16 * w + 4, 5 * w)
+    n_calls = 50
+    log(f"    profile of {n_calls} frontier_update calls (out= form)")
+    fu_prof = profile_window(
+        lambda: [bitmap_ops.frontier_update(found, visited, out=fu_out)
+                 for _ in range(n_calls)], ("frontier_update_kernel",))
+    fu_device_ms = None
+    if fu_prof is not None:
+        tot, n = fu_prof["kernels"]["frontier_update_kernel"]
+        if n != n_calls or fu_prof["activities"] != n_calls:
+            raise AssertionError(f"frontier_update: {fu_prof['activities']} device "
+                                 f"operations and {n} kernels over {n_calls} calls, "
+                                 f"not one each")
+        fu_device_ms = tot / n / 1e3
+        log(f"    frontier_update: {fu_prof['activities'] / n_calls:.6f} device "
+            f"operations per call, device {fu_device_ms:.6f} ms per launch")
     cs_ms = time_ms(lambda: frontier_spmv.core_spmv(a_core, f_core), 20, 5)
     cs_plain = time_ms(lambda: ref.core_spmv_ref(a_core, f_core), 3, 1)
     cs_bound = bound_ms(4 * (k * (k // 32) + k // 32 + k), 5 * k * (k // 32))
-    log(f"    frontier_update W={w}: {fu_ms:.6f} ms, plain {fu_plain:.6f} ms, "
+    log(f"    frontier_update W={w}: {fu_ms:.6f} ms per wrapper call into out= "
+        f"buffers ({fu_alloc_ms:.6f} ms allocating its outputs), device "
+        f"{fu_device_ms} ms per launch, plain {fu_plain:.6f} ms, "
         f"bound {fu_bound[0]:.6f} ms ({fu_bound[1]})")
     log(f"    core_spmv K={k} W={k // 32} (bottom-up level {bu}): {cs_ms:.6f} ms, "
         f"plain {cs_plain:.6f} ms, bound {cs_bound[0]:.6f} ms ({cs_bound[1]})")
@@ -756,8 +865,18 @@ def main() -> int:
     log("    library call: none (no single PyTorch call computes either function)")
 
     log(f"[7] profile of one pre-g500 traversal at scale {SCALE_MAIN} (root 1)")
-    profile_window(lambda: per_root.bfs(int(roots[1])),
-                   ("frontier_update_kernel", "core_spmv_kernel"))
+    lv1 = int(per_root.bfs(int(roots[1])).stats.levels)
+    trav = profile_window(lambda: per_root.bfs(int(roots[1])),
+                          ("frontier_update_kernel", "core_spmv_kernel"))
+    if trav is not None:
+        fu_launches = trav["kernels"]["frontier_update_kernel"][1]
+        fu_memsets = trav["memset_before"]["frontier_update_kernel"]
+        log(f"    root 1: {lv1} levels, {fu_launches} frontier_update launches, "
+            f"{fu_memsets} memsets right before one, {trav['memsets']} memsets in "
+            f"all, {trav['activities']} device activities")
+        if fu_launches != lv1 or fu_memsets:
+            raise AssertionError(f"frontier_update: {fu_launches} launches over "
+                                 f"{lv1} levels, {fu_memsets} memsets beside them")
 
     log("[8] xDeepFM serving at full width (xdeepfm_full, use_cin_kernel=True)")
     serving = serve_xdeepfm(device)
@@ -780,7 +899,7 @@ def main() -> int:
              replaces="src/repro/kernels/bitmap_ops.py:62",
              launches=launches["frontier_update"], max_abs_err=fu_err,
              ms=fu_ms, plain_ms=fu_plain, bound_ms=fu_bound[0],
-             bound_by=fu_bound[1], library_ms=None),
+             bound_by=fu_bound[1], library_ms=None, device_ms=fu_device_ms),
         dict(name="core_spmv", route="cuda",
              source="src/repro_torch/kernels/csrc/core_spmv.cu",
              replaces="src/repro/kernels/frontier_spmv.py:74",

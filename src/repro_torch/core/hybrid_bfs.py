@@ -144,6 +144,11 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     bit = 1 << (root % 32)
     frontier_bm[root // 32] = bit - 2**32 if bit >= 2**31 else bit
     visited_bm = frontier_bm.clone()
+    # The epilogue writes each level's (frontier, visited) into the pair the
+    # previous level read from, so the loop allocates no bitmaps.
+    pairs = [(frontier_bm, visited_bm),
+             (torch.empty_like(frontier_bm), torch.empty_like(visited_bm))]
+    count = torch.empty((), dtype=i32, device=dev)
     m_f = degree[root].to(i32)
     deg_vis = m_f.clone()
 
@@ -154,10 +159,9 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     stats_ok = torch.full((max_levels,), -1, dtype=i32, device=dev)
 
     in_count, vis_count = 1, 1
-    count = None
     lvl, direction = 0, TOP_DOWN
     while lvl < max_levels:
-        if count is not None:
+        if lvl > 0:
             in_count = int(count)  # the level's one synchronisation
             vis_count += in_count
         if in_count == 0:
@@ -181,13 +185,14 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                          frontier_bm, visited_bm, parent_ext, v)
 
         # Epilogue: pack the newly-found delta, then the fused kernel does
-        # mask / merge / popcount in one pass.
+        # mask / merge / popcount in one pass, into the idle pair.
         newly = (parent_ext[:v] != v) & unvisited
         found = pack_bitmap(newly, w)
-        next_bm, new_visited_bm, count = kops.frontier_update(found, visited_bm)
+        next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
+        kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
 
         s1 = count == popcount_u32(found).sum()
-        s2 = popcount_u32(next_bm & visited_bm).sum() == 0
+        s2 = popcount_u32(next_bm & visited_bm).sum() == 0  # the old visited
         s3 = int(lvl + 1 <= max_levels)
         stats_ok[lvl] = s1.to(i32) + 2 * s2.to(i32) + 4 * s3
 

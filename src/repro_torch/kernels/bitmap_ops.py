@@ -11,6 +11,11 @@ kernel).  Bitmaps are int32 bit-views ``[W]`` with ``W % 1024 == 0`` (see
 ``core.heavy.padded_bitmap_words``).  This wrapper only launches the CUDA
 kernel; ``kernels.ops.frontier_update`` dispatches a CPU tensor to the plain
 version instead.
+
+A call is one device operation: the kernel needs no zeroed counter, and with
+``out=(next, visited, count)`` it writes into the caller's buffers, so the
+engine's per-level call allocates nothing.  The kernel's scratch (a sum slot
+per block and a ticket) is allocated once per device and stream.
 """
 from __future__ import annotations
 
@@ -19,47 +24,69 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels.ref import check_frontier_out
 
 #: Bitmap length alignment (words), the JAX kernel's (8, 128) tile:
 #: 1024 words = 32768 bits.
 WORDS_PER_TILE = 1024
+#: The kernel's scratch: kMaxBlocks sum slots and the ticket
+#: (csrc/frontier_update.cu).
+SCRATCH_WORDS = 132 * 4 + 1
 
 KERNEL = CudaKernel("frontier_update", "frontier_update_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
 ])
+
+#: (device index, raw stream) -> (scratch, its data pointer); two streams
+#: never share a ticket.
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
 
 
 def _check_bitmap(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"frontier_update: {name} must be a CUDA tensor, "
                          f"got device {t.device}")
-    if t.dtype != torch.int32 or t.dim() != 1:
-        raise ValueError(f"frontier_update: {name} must be int32 [W] "
+    if t.dtype is not torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"frontier_update: {name} must be contiguous int32 [W] "
                          f"(uint32 bit-view), got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"frontier_update: {name} must be contiguous and "
-                         f"16-byte aligned")
 
 
-def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor):
+def scratch_for(device: int, stream: int) -> tuple[torch.Tensor, int]:
+    """The kernel's scratch for one (device index, stream), zeroed at
+    allocation, and its data pointer."""
+    key = (device, stream)
+    entry = _scratch.get(key)
+    if entry is None:
+        buf = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=f"cuda:{device}")
+        entry = _scratch[key] = (buf, buf.data_ptr())
+    return entry
+
+
+def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
     """Launch the fused (mask, merge, popcount) kernel.
 
     int32 [W] x2 on the card -> (int32 [W], int32 [W], int32 scalar tensor).
+    ``out=(next, visited, count)`` writes into those buffers (same shapes;
+    none may overlap an input or another output) and returns them.  The
+    engine calls this once a level, so the checks stick to cheap tensor
+    attributes and the stream comes as a raw handle.
     """
     _check_bitmap("next_raw", next_raw)
     _check_bitmap("visited", visited)
-    w = next_raw.shape[0]
-    if visited.shape != next_raw.shape or visited.device != next_raw.device:
+    w, dev = next_raw.shape[0], next_raw.get_device()
+    if visited.shape[0] != w or visited.get_device() != dev:
         raise ValueError(f"frontier_update: shapes/devices differ: "
                          f"{tuple(next_raw.shape)}@{next_raw.device} vs "
                          f"{tuple(visited.shape)}@{visited.device}")
     if w % WORDS_PER_TILE:
         raise ValueError(f"bitmap length {w} not a multiple of {WORDS_PER_TILE}")
-    out_next = torch.empty_like(next_raw)
-    out_vis = torch.empty_like(visited)
-    count = torch.empty((), dtype=torch.int32, device=next_raw.device)
-    stream = torch.cuda.current_stream(next_raw.device).cuda_stream
-    KERNEL(next_raw.data_ptr(), visited.data_ptr(), out_next.data_ptr(),
-           out_vis.data_ptr(), count.data_ptr(), w, stream)
-    return out_next, out_vis, count
+    if out is None:
+        out = (torch.empty_like(next_raw), torch.empty_like(visited),
+               torch.empty((), dtype=torch.int32, device=next_raw.device))
+    ptrs = check_frontier_out(next_raw, visited, out)
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16:
+        raise ValueError("frontier_update: bitmaps must be 16-byte aligned")
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    KERNEL(*ptrs, scratch_for(dev, stream)[1], w, stream)
+    return out

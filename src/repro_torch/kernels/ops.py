@@ -31,11 +31,15 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor):
-    """Fused: next &= ~visited; visited |= next; count = popcount(next)."""
+def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
+    """Fused: next &= ~visited; visited |= next; count = popcount(next).
+
+    ``out=(next, visited, count)`` writes into the caller's buffers (none may
+    alias an input or another output) and returns them.
+    """
     if next_raw.device.type == "cpu":
-        return ref.frontier_update_ref(next_raw, visited)
-    return bitmap_ops.frontier_update(next_raw, visited)
+        return ref.frontier_update_ref(next_raw, visited, out=out)
+    return bitmap_ops.frontier_update(next_raw, visited, out=out)
 
 
 def core_spmv(a_core: torch.Tensor, frontier_bm: torch.Tensor, *,

@@ -42,15 +42,68 @@ def ctz_u32(w: torch.Tensor) -> torch.Tensor:
                        popcount_u32(low - 1).to(torch.int64)).to(torch.int32)
 
 
-def frontier_update_ref(next_raw: torch.Tensor, visited: torch.Tensor):
+def out_aliases(nb: int, p_raw: int, p_vis: int, p_next: int, p_nvis: int,
+                p_count: int) -> bool:
+    """Whether ``frontier_update``'s outputs (bitmaps of ``nb`` bytes at
+    ``p_next``, ``p_nvis``; the 4-byte count at ``p_count``) overlap an input
+    bitmap (``p_raw``, ``p_vis``) or each other."""
+    return (abs(p_next - p_raw) < nb or abs(p_next - p_vis) < nb
+            or abs(p_nvis - p_raw) < nb or abs(p_nvis - p_vis) < nb
+            or abs(p_next - p_nvis) < nb
+            or p_raw <= p_count < p_raw + nb or p_vis <= p_count < p_vis + nb
+            or p_next <= p_count < p_next + nb or p_nvis <= p_count < p_nvis + nb)
+
+
+def check_frontier_out(next_raw: torch.Tensor, visited: torch.Tensor,
+                       out) -> tuple[int, int, int, int, int]:
+    """``out=(next, visited, count)`` of ``frontier_update``: contiguous int32
+    bitmaps shaped like ``next_raw``, an int32 scalar count, all on its
+    device, and no output overlapping an input or another output.  Returns
+    the data pointers of (next_raw, visited, next, visited, count).  The BFS
+    engine passes ``out`` on every level, so the checks read cheap tensor
+    attributes only."""
+    if not isinstance(out, (tuple, list)) or len(out) != 3:
+        raise ValueError("frontier_update: out must be (next, visited, count)")
+    nxt, vis, count = out
+    w, dev = next_raw.shape[0], next_raw.get_device()
+    i32 = torch.int32
+    if (nxt.dtype is not i32 or vis.dtype is not i32 or nxt.dim() != 1 or vis.dim() != 1
+            or nxt.shape[0] != w or vis.shape[0] != w or not nxt.is_contiguous()
+            or not vis.is_contiguous()):
+        raise ValueError(f"frontier_update: out bitmaps must be contiguous int32 "
+                         f"{tuple(next_raw.shape)}, got {nxt.dtype} {tuple(nxt.shape)} "
+                         f"and {vis.dtype} {tuple(vis.shape)}")
+    if count.dtype is not torch.int32 or count.dim() != 0:
+        raise ValueError(f"frontier_update: out count must be an int32 scalar, got "
+                         f"{count.dtype} {tuple(count.shape)}")
+    if nxt.get_device() != dev or vis.get_device() != dev or count.get_device() != dev:
+        raise ValueError(f"frontier_update: out on {[str(t.device) for t in out]}, "
+                         f"inputs on {next_raw.device}")
+    ptrs = (next_raw.data_ptr(), visited.data_ptr(), nxt.data_ptr(), vis.data_ptr(),
+            count.data_ptr())
+    if out_aliases(4 * w, *ptrs):
+        raise ValueError("frontier_update: an output aliases an input or another "
+                         "output")
+    return ptrs
+
+
+def frontier_update_ref(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
     """next = next_raw & ~visited; visited |= next; count = popcount(next).
 
-    int32 [W] x2 -> (int32 [W], int32 [W], int32 scalar).
+    int32 [W] x2 -> (int32 [W], int32 [W], int32 scalar).  ``out=(next,
+    visited, count)`` writes into those buffers and returns them, as the
+    kernel's wrapper does.
     """
+    if out is not None:
+        check_frontier_out(next_raw, visited, out)
     nxt = next_raw & ~visited
     vis = visited | nxt
     count = popcount_u32(nxt).sum().to(torch.int32)
-    return nxt, vis, count
+    if out is None:
+        return nxt, vis, count
+    for dst, src in zip(out, (nxt, vis, count)):
+        dst.copy_(src)
+    return out
 
 
 def core_spmv_ref(a_core: torch.Tensor, frontier_bm: torch.Tensor) -> torch.Tensor:

@@ -79,6 +79,37 @@ def test_bitmap_engine_bitwise_equal_to_jax(scale, edge_factor, batch):
     assert (got.stats.direction == hybrid_bfs.BOTTOM_UP).any()
 
 
+@pytest.mark.parametrize("scale", [10, 12])
+def test_engine_alternates_two_output_pairs(monkeypatch, scale):
+    # every level's epilogue writes into caller buffers: two (frontier,
+    # visited) pairs taken in turn and one count, none aliasing the level's
+    # inputs; parents, levels and stats stay bitwise equal to the JAX engine
+    jb, tb, roots = graphs(scale)
+    calls = []
+    real = hybrid_bfs.kops.frontier_update
+
+    def recording(next_raw, visited, out=None):
+        assert out is not None
+        calls.append((visited.data_ptr(), tuple(t.data_ptr() for t in out)))
+        return real(next_raw, visited, out=out)
+
+    monkeypatch.setattr(hybrid_bfs.kops, "frontier_update", recording)
+    jc = jax_compile(JaxPlan(engine="bitmap", layout=(), batch_roots=False), jb)
+    tc = compile_plan(BFSPlan(engine="bitmap", layout=(), batch_roots=False), tb,
+                      device="cpu")
+    got = tc.bfs(int(roots[0]))
+    assert_results_equal(got, jc.bfs(int(roots[0])))
+    n_levels = int(got.stats.levels)
+    assert len(calls) == n_levels >= 3
+    pairs = [out[:2] for _, out in calls]
+    assert len(set(pairs)) == 2 and pairs[0] != pairs[1]
+    assert all(pairs[i] == pairs[i % 2] for i in range(n_levels))
+    assert len({out[2] for _, out in calls}) == 1
+    # each level reads the visited bitmap the level before wrote
+    assert all(calls[i][0] == calls[i - 1][1][1] for i in range(1, n_levels))
+    assert all(calls[i][0] not in calls[i][1] for i in range(n_levels))
+
+
 def _f32_edge(divisor: float):
     """An x where float32 division truncates differently from float64."""
     for x in range(2**24, 2**24 + 200_000):

@@ -71,6 +71,53 @@ def test_frontier_update_corners_match_jax(case):
         assert int(got[2]) == 1024 * 32
 
 
+@pytest.mark.parametrize("density", [0.01, 0.5])
+def test_frontier_update_out_matches_jax(density):
+    # the engine's form: outputs written into reused caller buffers
+    rng = np.random.default_rng(17)
+    w = 2048
+    out = (torch.full((w,), 7, dtype=torch.int32), torch.full((w,), 7, dtype=torch.int32),
+           torch.full((), 7, dtype=torch.int32))
+    for _ in range(2):
+        nxt, vis = rand_u32(rng, (w,), density), rand_u32(rng, (w,), density)
+        want = jax_frontier_update(jnp.asarray(nxt), jnp.asarray(vis), interpret=True)
+        got = ops.frontier_update(to_t(nxt), to_t(vis), out=out)
+        assert all(g is o for g, o in zip(got, out))
+        np.testing.assert_array_equal(to_u32(out[0]), np.asarray(want[0]))
+        np.testing.assert_array_equal(to_u32(out[1]), np.asarray(want[1]))
+        assert int(out[2]) == int(want[2])
+
+
+def test_frontier_update_out_refuses_aliases():
+    w = 1024
+    nxt, vis = torch.zeros(w, dtype=torch.int32), torch.zeros(w, dtype=torch.int32)
+    spare = torch.zeros(2 * w + 8, dtype=torch.int32)
+    count = torch.zeros((), dtype=torch.int32)
+    aliased = [(nxt, spare[:w], count), (spare[:w], vis, count),
+               (spare[:w], spare[:w], count), (spare[:w], spare[w:2 * w], spare[w + 3]),
+               (spare[1:w + 1], spare[:w], count), (spare[:w], spare[w:2 * w], nxt[5])]
+    for out in aliased:
+        with pytest.raises(ValueError, match="aliases"):
+            ops.frontier_update(nxt, vis, out=out)
+    # disjoint views of one buffer are fine
+    ops.frontier_update(nxt, vis, out=(spare[:w], spare[w:2 * w], spare[2 * w + 1]))
+    for out, match in (((spare[:w],), "out must be"),
+                       ((spare[:w], spare[w:2 * w], spare[:1]), "int32 scalar"),
+                       ((spare[:w].long(), spare[w:2 * w], count), "int32"),
+                       ((spare[:w - 8], spare[w:2 * w], count), "int32")):
+        with pytest.raises(ValueError, match=match):
+            ops.frontier_update(nxt, vis, out=out)
+
+
+@pytest.mark.parametrize("nb,ptrs,aliased", [
+    (64, (0, 64, 128, 192, 256), False), (64, (0, 64, 128, 191, 256), True),
+    (64, (0, 64, 127, 192, 256), True), (64, (0, 64, 128, 192, 255), True),
+    (64, (0, 64, 128, 192, 63), True), (64, (0, 0, 128, 192, 256), False)])
+def test_out_aliases(nb, ptrs, aliased):
+    # (p_raw, p_vis, p_next, p_nvis, p_count); the inputs may share memory
+    assert ref.out_aliases(nb, *ptrs) is aliased
+
+
 @pytest.mark.parametrize("density", [0.001, 0.05])
 def test_core_spmv_plain_matches_jax(density):
     rng = np.random.default_rng(4096)
@@ -187,6 +234,48 @@ def test_spmv_mxu_refuses_untiled_shapes(k, r):
     f = torch.zeros((k, r), dtype=torch.int8)
     with pytest.raises(ValueError, match="multiples of 128"):
         ops.multi_source_spmv(a, f)
+
+
+@pytest.mark.parametrize("k,r,sms", [
+    (128, 128, 132), (256, 128, 132), (384, 128, 132), (1024, 256, 132),
+    (4224, 128, 132), (4224, 256, 132), (61440, 128, 132), (61440, 256, 132),
+    (61440, 128, 114), (3968, 384, 7), (640, 128, 1), (2048, 128, 1000)])
+def test_spmv_plan_covers_every_unit_once(k, r, sms):
+    plan = spmv_mxu.spmv_plan(k, r, sms)
+    assert plan.m_tiles == -(-k // 256) and plan.n_tiles == r // 128
+    assert plan.k_steps == k // 128 and plan.units == plan.tiles * plan.k_steps
+    assert 1 <= plan.blocks <= min(sms, plan.units)
+    # the shares tile [0, units) in order; sizes differ by at most one
+    starts = [a for a, _ in plan.ranges]
+    ends = [b for _, b in plan.ranges]
+    assert starts[0] == 0 and ends[-1] == plan.units and starts[1:] == ends[:-1]
+    sizes = [b - a for a, b in plan.ranges]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= spmv_mxu.MIN_UNITS_PER_BLOCK \
+        or plan.blocks == 1
+    # every (tile, k step) exactly once, and each unit's owner as the kernel
+    # computes it
+    seen = np.zeros((plan.tiles, plan.k_steps), np.int64)
+    for blk, (a, b) in enumerate(plan.ranges):
+        for u in (a, b - 1):
+            assert spmv_mxu.owner(u, plan.units, plan.blocks) == blk
+        for u in range(a, b):
+            seen[u // plan.k_steps, u % plan.k_steps] += 1
+    assert (seen == 1).all()
+    split = {t for t in range(plan.tiles)
+             if len({blk for blk, (a, b) in enumerate(plan.ranges)
+                     if a < (t + 1) * plan.k_steps and b > t * plan.k_steps}) > 1}
+    assert set(plan.split_tiles) == split
+    if (k, r, sms) == (61440, 128, 132):
+        assert (plan.tiles, plan.k_steps, plan.units, plan.blocks) == (240, 480, 115200, 132)
+        assert set(sizes) == {872, 873} and len(plan.split_tiles) == 120
+    if (k, r) == (128, 128):
+        assert plan.blocks == 1 and plan.split_tiles == ()
+
+
+def test_spmv_plan_refuses_untiled_shapes():
+    for k, r in ((200, 128), (256, 100), (0, 128)):
+        with pytest.raises(ValueError, match="multiples of 128"):
+            spmv_mxu.spmv_plan(k, r)
 
 
 def cin_operands(rng, b, f0, fl, h, d):

@@ -81,6 +81,75 @@ def test_frontier_update_kernel_corners(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [1024, 2**21])
+def test_frontier_update_back_to_back_counts(cuda, n_words):
+    # the second launch on the stream finds the ticket the first one reset;
+    # 2^21 words (> 528 blocks x 256 threads x 4) runs the grid-stride loop
+    rng = np.random.default_rng(n_words + 1)
+    outs, wants = [], []
+    for density in (0.3, 0.02, 0.0):
+        nxt = to_t(rand_u32(rng, (n_words,), density), cuda)
+        vis = to_t(rand_u32(rng, (n_words,), 0.1), cuda)
+        outs.append(bitmap_ops.frontier_update(nxt, vis))
+        wants.append(ref.frontier_update_ref(nxt, vis))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int(outs[2][2]) == 0 and int(outs[0][2]) > int(outs[1][2]) > 0
+
+
+@pytest.mark.cuda
+def test_frontier_update_out_buffers(cuda):
+    # the engine's form: outputs into caller buffers, reused across calls
+    rng = np.random.default_rng(3)
+    w = 32768
+    out = (torch.empty(w, dtype=torch.int32, device=cuda),
+           torch.empty(w, dtype=torch.int32, device=cuda),
+           torch.empty((), dtype=torch.int32, device=cuda))
+    for density in (0.5, 0.01):
+        nxt = to_t(rand_u32(rng, (w,), density), cuda)
+        vis = to_t(rand_u32(rng, (w,), density), cuda)
+        got = bitmap_ops.frontier_update(nxt, vis, out=out)
+        assert all(g is o for g, o in zip(got, out))
+        for g, want in zip(got, ref.frontier_update_ref(nxt, vis)):
+            assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+def test_frontier_update_refuses_aliased_out(cuda):
+    w = 1024
+    nxt = torch.zeros(w, dtype=torch.int32, device=cuda)
+    vis = torch.zeros(w, dtype=torch.int32, device=cuda)
+    spare = torch.zeros(2 * w, dtype=torch.int32, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    before = bitmap_ops.KERNEL.launches
+    for out in ((nxt, spare[:w], count), (spare[:w], vis, count),
+                (spare[:w], spare[:w], count), (spare[:w], spare[w:], spare[5])):
+        with pytest.raises(ValueError, match="aliases"):
+            bitmap_ops.frontier_update(nxt, vis, out=out)
+    assert bitmap_ops.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_frontier_update_scratch_per_stream(cuda):
+    rng = np.random.default_rng(5)
+    nxt = to_t(rand_u32(rng, (4096,), 0.2), cuda)
+    vis = to_t(rand_u32(rng, (4096,), 0.2), cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = bitmap_ops.frontier_update(nxt, vis)
+    torch.cuda.current_stream().wait_stream(side)
+    main = bitmap_ops.frontier_update(nxt, vis)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], main[2])
+    dev = torch.cuda.current_device()
+    assert bitmap_ops.scratch_for(dev, side.cuda_stream)[1] != \
+        bitmap_ops.scratch_for(dev, torch.cuda.current_stream().cuda_stream)[1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows_per_tile", [1, 8, 32])
 @pytest.mark.parametrize("density", [0.001, 0.05])
 def test_core_spmv_kernel_matches_plain(cuda, rows_per_tile, density):
@@ -160,6 +229,38 @@ def test_spmv_mxu_kernel_matches_plain(cuda, k, r, full_range):
     a, f = (torch.from_numpy(x).to(cuda) for x in int8_operands(rng, k, r, full_range))
     got = spmv_mxu.spmv_mxu(a, f)
     assert got.dtype == torch.int32 and torch.equal(got, ref.spmv_mxu_ref(a, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["bool", "full", "neg128"])
+@pytest.mark.parametrize("k,r", [(128, 128), (384, 128), (1024, 256), (4224, 128)])
+def test_spmv_mxu_stream_k_shapes(cuda, k, r, values):
+    # (128, 128): one tile, fewer than the SMs; (384, 128): a ragged row
+    # tile; (1024, 256): two frontier tiles; (4224, 128): split tiles
+    rng = np.random.default_rng(k * 7 + r)
+    if values == "neg128":
+        a = torch.full((k, k), -128, dtype=torch.int8, device=cuda)
+        f = torch.full((k, r), -128, dtype=torch.int8, device=cuda)
+    else:
+        a, f = (torch.from_numpy(x).to(cuda)
+                for x in int8_operands(rng, k, r, values == "full"))
+    got = spmv_mxu.spmv_mxu(a, f)
+    assert torch.equal(got, ref.spmv_mxu_ref(a, f))
+    if values == "neg128":
+        assert int(got.min()) == int(got.max()) == k * 128 * 128
+    if k == 4224:
+        assert spmv_mxu.spmv_plan(k, r, spmv_mxu.sm_count(cuda)).split_tiles
+
+
+@pytest.mark.cuda
+def test_spmv_mxu_back_to_back_identical(cuda):
+    # split tiles are summed with integer atomics: any order, same bits
+    rng = np.random.default_rng(9)
+    a, f = (torch.from_numpy(x).to(cuda) for x in int8_operands(rng, 4224, 256, True))
+    first = spmv_mxu.spmv_mxu(a, f)
+    second = spmv_mxu.spmv_mxu(a, f)
+    assert torch.equal(first, second)
+    assert torch.equal(first, torch._int_mm(a, f))
 
 
 @pytest.mark.cuda
