@@ -47,7 +47,20 @@ non-zero and no result line is printed:
      B = 262,144 on N(0, 1) operands also held against the plain version
      on 4,096 rows spread over the batch (rtol = atol = 2e-4); ``spmv_mxu``
      with its share of the byte bound, its stream-K plan and a profile of
-     its two launches (F's transpose, the product).
+     its two launches (F's transpose, the product);
+ 11. the Fig. 18 ladder at scale 20: ``reference-3.0.0``, ``th2``, ``k`` and
+     ``pre-g500-legacy`` through ``pipeline.run`` with the spec checks, all
+     roots valid; the parents of ``th2``, ``k`` and ``pre-g500-legacy``
+     equal to phase 5's ``pre-g500`` parents; ``core_spmv`` launched once a
+     bottom-up level of ``pre-g500-legacy`` (timed and warm-up traversals)
+     and no kernel by the reference rungs; per rung hmean TEPS, ms per
+     root, levels and the idle share of one traversal;
+ 12. Graph500 SSSP (δ-stepping) at scale 20, per root and batched: every
+     root passes the five SSSP checks, the batch's rows (parents,
+     distances, every stats trace) equal the per-root rows; hmean TEPS,
+     rounds per root, δ, and a profile of one root; parents and distances
+     equal to ``sssp_oracle`` on ``grid_graph(256)`` and on a scale-14
+     Kronecker graph built on the card, 2 roots each.
 
 The last two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
@@ -85,6 +98,16 @@ CIN_CHECK_ROWS = 4096
 SCALE_CHECK = 16
 SCALE_MAIN = 20
 N_ROOTS = 16
+# the roots of phases 11 and 12 (cut these, never N_ROOTS, to save time)
+LADDER_ROOTS = 16
+SSSP_ROOTS = 16
+SSSP_MAX_WEIGHT = 255
+SSSP_SEED = 42
+# grid_graph(256) takes ~820 δ-stepping rounds: above the default bound of
+# 512 (which would cut the traversal short), so its plan raises the bound
+GRID_SIDE = 256
+GRID_MAX_LEVELS = 2048
+SCALE_ORACLE = 14
 
 
 def log(msg: str) -> None:
@@ -707,7 +730,9 @@ def profile_window(fn, kernels: tuple[str, ...]) -> dict | None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (tot, n) in top:
         log(f"    {tot / 1e3:10.6f} ms  x{n:<4d} {name[:110]}")
-    stats = dict(activities=len(spans), memsets=memsets, kernels={})
+    stats = dict(activities=len(spans), memsets=memsets, kernels={},
+                 wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                 idle_share=1 - busy / wall_us)
     for kernel in kernels:
         hits = [(name, tot, n) for name, (tot, n) in by_name.items() if kernel in name]
         tot, n = sum(t for _, t, _ in hits), sum(c for _, _, c in hits)
@@ -719,6 +744,197 @@ def profile_window(fn, kernels: tuple[str, ...]) -> dict | None:
         stats["kernels"][kernel] = (tot, n)
         stats.setdefault("memset_before", {})[kernel] = sum(
             c for name, c in after_memset.items() if kernel in name)
+    return stats
+
+
+def time_validation(kernel: str, ev, rows, keys) -> float:
+    """Host-clock ms per root of the kernel's five spec checks over
+    ``rows`` (synchronised), one batched call after a warm-up call."""
+    from repro_torch.core.kernels import validate_result_batch
+    parents = torch.stack([r.parent for r in rows])
+    levels = torch.stack([r.level for r in rows])
+    val = validate_result_batch(kernel, ev, parents, levels, keys)
+    torch.cuda.synchronize()
+    if not bool(val.ok.all()):
+        raise AssertionError(f"{kernel}: validation of the timed rows failed")
+    t0 = time.perf_counter()
+    validate_result_batch(kernel, ev, parents, levels, keys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(keys)
+
+
+def ladder_rungs(built, res_root, roots) -> int:
+    """Phase 11: the Fig. 18 ladder's reference and legacy rungs at scale
+    20.  Returns the ``core_spmv`` launches of ``pre-g500-legacy``."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import ops
+    legacy_launches = 0
+    summary = []
+    # every rung searches from phase 5's first roots, in the input labels
+    orig = built.reorder.old_from_new[
+        torch.as_tensor(roots[:LADDER_ROOTS], device=built.degree.device).long()]
+    for rung in ("reference-3.0.0", "th2", "k", "pre-g500-legacy"):
+        cfg = pipeline.Graph500Config.ladder(rung, scale=SCALE_MAIN,
+                                             n_roots=LADDER_ROOTS, check="post")
+        if cfg.degree_sort:
+            # phase 5's graph is this rung's build: same seed, same sort
+            b = dataclasses.replace(
+                built, core=built.core if cfg.heavy_threshold is not None else None)
+        else:
+            b = pipeline.build(cfg)
+            log(f"    {rung}: construction {b.construction_s:.6f} s (no degree "
+                f"sort, no core)")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, run = pipeline.run(cfg, b, roots=orig)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check_valid(rung, run)
+        keys = pipeline.search_keys(cfg, b, orig)
+        compiled = compile_plan(cfg.to_plan(), b)
+        rows = [compiled.bfs(int(r)) for r in keys]
+        levels = [int(r.stats.levels) for r in rows]
+        n_bu = [int((r.stats.direction == BOTTOM_UP).sum()) for r in rows]
+        if cfg.degree_sort:
+            if not np.array_equal(keys, roots[:LADDER_ROOTS]):
+                raise AssertionError(f"{rung}: search keys differ from phase 5's")
+            parents = torch.stack([r.parent for r in rows]).cpu().numpy()
+            if not np.array_equal(parents, res_root.parent[:LADDER_ROOTS]):
+                raise AssertionError(f"{rung}: parents differ from pre-g500's")
+        if rung == "pre-g500-legacy":
+            # the timed traversals and the warm-up of the first root
+            want = sum(n_bu) + n_bu[0]
+            if launches["core_spmv"] != want or want <= 0:
+                raise AssertionError(f"{rung}: core_spmv launched "
+                                     f"{launches['core_spmv']} times, not once "
+                                     f"for each of the {want} bottom-up levels")
+            legacy_launches = launches["core_spmv"]
+        elif any(launches.values()):
+            raise AssertionError(f"{rung}: the reference engine launched {launches}")
+        log(f"    {rung} (engine {cfg.engine}, alpha {cfg.alpha}, beta {cfg.beta}): "
+            f"hmean TEPS {run.harmonic_mean_teps:.6e}, mean time/root "
+            f"{run.mean_time_s * 1e3:.6f} ms, levels {levels}, bottom-up levels "
+            f"{n_bu}, launches {launches}, check_counts {run.check_counts}"
+            + ("; parents equal pre-g500's" if cfg.degree_sort else ""))
+        if rung == "th2":
+            log(f"    validate_batch (the five BFS checks) on th2's rows: "
+                f"{time_validation('bfs', b.ev, rows, keys):.6f} ms per root")
+        log(f"    profile of one {rung} traversal (root {int(keys[1])})")
+        prof = profile_window(lambda: compiled.bfs(int(keys[1])), ("core_spmv_kernel",))
+        summary.append((rung, run.harmonic_mean_teps, run.mean_time_s * 1e3,
+                        None if prof is None else prof["idle_share"]))
+        del rows, compiled
+    for rung, teps, ms, idle in summary:
+        log(f"    ladder {rung}: hmean TEPS {teps:.6e}, {ms:.6f} ms/root, idle "
+            f"share of one traversal {idle}")
+    return legacy_launches
+
+
+def sssp_against_oracle(name: str, el, device, n_roots: int, degree_sort: bool,
+                        max_levels: int) -> None:
+    """Phase 12: SSSP on the card equal to the host Dijkstra oracle."""
+    from repro_torch.core import (build_csr, edge_view, sample_roots,
+                                  sssp_oracle, with_edge_weights)
+    from repro_torch.core.plan import PreparedGraph, TraversalPlan, compile_plan
+    from repro_torch.core.reorder import degree_reorder, relabel_edges
+    g = build_csr(el)
+    roots = sample_roots(SSSP_SEED, el, n_roots)
+    if degree_sort:
+        r = degree_reorder(g.degree)
+        g = build_csr(relabel_edges(el, r))
+        roots = r.new_from_old[roots.long()]
+    ev = with_edge_weights(edge_view(g), seed=SSSP_SEED, max_weight=SSSP_MAX_WEIGHT)
+    compiled = compile_plan(TraversalPlan(kernel="sssp", batch_roots=False,
+                                          max_levels=max_levels),
+                            PreparedGraph(ev=ev, degree=g.degree), device=device)
+    args = (ev.src.cpu().numpy(), ev.dst.cpu().numpy(), ev.valid.cpu().numpy(),
+            ev.weight.cpu().numpy(), g.num_vertices)
+    rounds = []
+    for root in roots.cpu().numpy():
+        res = compiled.bfs(int(root))
+        t0 = time.perf_counter()
+        p, d = sssp_oracle(*args, int(root))
+        oracle_s = time.perf_counter() - t0
+        if not (np.array_equal(res.parent.cpu().numpy(), p)
+                and np.array_equal(res.level.cpu().numpy(), d)):
+            raise AssertionError(f"SSSP on {name}, root {root}: parents or "
+                                 f"distances differ from sssp_oracle")
+        rounds.append(int(res.stats.levels))
+    log(f"    {name}: V={g.num_vertices} nnz={int(g.nnz)} delta {compiled.delta}, "
+        f"round bound {compiled.max_rounds}: roots {roots.tolist()} took rounds "
+        f"{rounds}, max distance {int(d.max())}; parents and distances equal "
+        f"sssp_oracle (its Dijkstra {oracle_s:.3f} s on the host)")
+
+
+def sssp_phase(device) -> None:
+    """Phase 12: Graph500 SSSP at scale 20, per root and batched."""
+    from repro_torch.core import kronecker, pipeline
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.data.graphs import grid_graph
+    from repro_torch.kernels import ops
+    cfg = pipeline.Graph500Config(kernel="sssp", scale=SCALE_MAIN, n_roots=SSSP_ROOTS,
+                                  max_weight=SSSP_MAX_WEIGHT, seed=SSSP_SEED,
+                                  check="post")
+    cfg_b = dataclasses.replace(cfg, batched=True)
+    built = pipeline.build(cfg)
+    log(f"    construction {built.construction_s:.6f} s: V={built.n_vertices} "
+        f"nnz={built.nnz}, weights in [1, {cfg.max_weight}]")
+    ops.reset_launch_counts()
+    _, run = pipeline.run(cfg, built)
+    _, run_b = pipeline.run(cfg_b, built)
+    torch.cuda.synchronize()
+    check_valid("sssp", run)
+    check_valid("sssp batched", run_b)
+    keys = pipeline.search_keys(cfg, built)
+    per_root = compile_plan(cfg.to_plan(), built)
+    rows = [per_root.bfs(int(r)) for r in keys]
+    batch = compile_plan(cfg_b.to_plan(), built).bfs(keys)
+    for f in ("parent", "level"):
+        if not torch.equal(torch.stack([getattr(r, f) for r in rows]), getattr(batch, f)):
+            raise AssertionError(f"sssp: batched {f} rows differ from per-root rows")
+    for f in batch.stats._fields:
+        if not torch.equal(torch.stack([getattr(r.stats, f) for r in rows]),
+                           getattr(batch.stats, f)):
+            raise AssertionError(f"sssp: batched stats.{f} differ from per-root rows")
+    rounds = [int(r.stats.levels) for r in rows]
+    log(f"    per root: hmean TEPS {run.harmonic_mean_teps:.6e}, mean time/root "
+        f"{run.mean_time_s * 1e3:.6f} ms; batched: hmean TEPS "
+        f"{run_b.harmonic_mean_teps:.6e}, {run_b.mean_time_s * 1e3:.6f} ms/root; "
+        f"delta {per_root.delta}, round bound {per_root.max_rounds}, rounds per "
+        f"root {rounds}; check_counts {run.check_counts}; kernel launches "
+        f"{ops.launch_counts()}")
+    log("    batched rows (parents, distances, every stats trace) equal the "
+        "per-root rows")
+    log(f"    validate_sssp_batch (the five SSSP checks): "
+        f"{time_validation('sssp', built.ev, rows, keys):.6f} ms per root")
+    log(f"    profile of one root's SSSP (root {int(keys[0])}, {rounds[0]} rounds)")
+    profile_window(lambda: per_root.bfs(int(keys[0])), ())
+    del rows, batch, per_root, built
+    torch.cuda.empty_cache()
+    sssp_against_oracle(f"grid_graph({GRID_SIDE})", grid_graph(GRID_SIDE, seed=5,
+                                                               device=device),
+                        device, 2, False, GRID_MAX_LEVELS)
+    sssp_against_oracle(f"Kronecker scale {SCALE_ORACLE}",
+                        kronecker.generate_edges(SSSP_SEED, SCALE_ORACLE,
+                                                 device=device),
+                        device, 2, True, 64)
+
+
+def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
+    """:func:`profile_window` again while ``short(stats)`` says the trace
+    holds fewer launches than the calls made, and nothing else amiss: the
+    profiler can drop a device event from a window (one of 50
+    ``frontier_update`` launches in one of five chip runs of PR 15).  A
+    trace with extra operations is returned at once, for the caller's
+    check to fail."""
+    for i in range(attempts):
+        stats = profile_window(fn, kernels)
+        if stats is None or not short(stats) or i == attempts - 1:
+            return stats
+        log("    the trace is short of the launches made (device events "
+            "dropped); profiling again")
     return stats
 
 
@@ -838,9 +1054,11 @@ def main() -> int:
     fu_bound = bound_ms(16 * w + 4, 5 * w)
     n_calls = 50
     log(f"    profile of {n_calls} frontier_update calls (out= form)")
-    fu_prof = profile_window(
+    fu_prof = profile_complete(
         lambda: [bitmap_ops.frontier_update(found, visited, out=fu_out)
-                 for _ in range(n_calls)], ("frontier_update_kernel",))
+                 for _ in range(n_calls)], ("frontier_update_kernel",),
+        lambda p: (p["kernels"]["frontier_update_kernel"][1] < n_calls
+                   and p["activities"] == p["kernels"]["frontier_update_kernel"][1]))
     fu_device_ms = None
     if fu_prof is not None:
         tot, n = fu_prof["kernels"]["frontier_update_kernel"]
@@ -866,8 +1084,11 @@ def main() -> int:
 
     log(f"[7] profile of one pre-g500 traversal at scale {SCALE_MAIN} (root 1)")
     lv1 = int(per_root.bfs(int(roots[1])).stats.levels)
-    trav = profile_window(lambda: per_root.bfs(int(roots[1])),
-                          ("frontier_update_kernel", "core_spmv_kernel"))
+    trav = profile_complete(
+        lambda: per_root.bfs(int(roots[1])),
+        ("frontier_update_kernel", "core_spmv_kernel"),
+        lambda p: (p["kernels"]["frontier_update_kernel"][1] < lv1
+                   and not p["memset_before"]["frontier_update_kernel"]))
     if trav is not None:
         fu_launches = trav["kernels"]["frontier_update_kernel"][1]
         fu_memsets = trav["memset_before"]["frontier_update_kernel"]
@@ -893,6 +1114,12 @@ def main() -> int:
     spmv_launches, spmv_err = spmv["launches"], spmv["err"]
     del spmv
 
+    log(f"[11] the Fig. 18 ladder at scale {SCALE_MAIN}, {LADDER_ROOTS} roots")
+    legacy_launches = ladder_rungs(built, res_root, roots)
+
+    log(f"[12] Graph500 SSSP at scale {SCALE_MAIN}, {SSSP_ROOTS} roots")
+    sssp_phase(device)
+
     kernels = [
         dict(name="frontier_update", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier_update.cu",
@@ -903,7 +1130,7 @@ def main() -> int:
         dict(name="core_spmv", route="cuda",
              source="src/repro_torch/kernels/csrc/core_spmv.cu",
              replaces="src/repro/kernels/frontier_spmv.py:74",
-             launches=launches["core_spmv"], max_abs_err=cs_err,
+             launches=launches["core_spmv"] + legacy_launches, max_abs_err=cs_err,
              ms=cs_ms, plain_ms=cs_plain, bound_ms=cs_bound[0],
              bound_by=cs_bound[1], library_ms=None),
         dict(name="spmv_mxu", route="cuda",

@@ -4,7 +4,10 @@ The single-device BFS path: Kronecker edge list -> symmetric CSR -> degree
 sort (T2a) -> dense heavy core (T2b) -> the bitmap-resident,
 direction-optimizing engine (T1) -> spec validation -> harmonic-mean TEPS.
 Its two kernels, ``frontier_update`` and ``core_spmv``, are hand-written
-CUDA C++ for Hopper (``kernels/csrc``).  The xDeepFM serving path
+CUDA C++ for Hopper (``kernels/csrc``).  The reference and legacy engines
+(the lower rungs of the paper's Fig. 18 ladder; the legacy one calls
+``core_spmv`` too) and the δ-stepping SSSP kernel run on the same plan and
+validation layers.  The xDeepFM serving path
 (``models.recsys``, ``train.train_step``) runs its CIN layers through the
 hand-written ``cin_layer`` kernel, and ``kernels.ops.multi_source_spmv``
 advances many BFS frontiers over the heavy core with the ``spmv_mxu``

@@ -43,21 +43,27 @@ def edge_list_from_numpy(src, dst, num_vertices: int, device=None) -> EdgeList:
 
 def built_from_numpy(src, dst, valid, degree, *, num_vertices: int,
                      a_core=None, k_heavy=None, threshold: int = 100,
-                     edges: EdgeList | None = None, device=None) -> BuiltGraph:
+                     weight=None, edges: EdgeList | None = None,
+                     device=None) -> BuiltGraph:
     """A built graph from the JAX package's arrays (as numpy).
 
     ``src/dst/valid`` are the ``EdgeView`` planes, ``degree`` the sorted
     degree vector and ``a_core`` (uint32 ``[K, K/32]``) the heavy core with
     ``k_heavy``/``threshold`` its statics; ``a_core=None`` builds no core.
     The halo and ``core_nnz`` follow from the edges and ``K``, as
-    ``build_heavy_core`` derives them.  ``edges`` is the input edge list
-    for root sampling (optional).
+    ``build_heavy_core`` derives them.  ``weight`` is the uint32 weight
+    plane of a weighted ``EdgeView`` (carried as int64, same values), None
+    for an unweighted graph.  ``edges`` is the input edge list for root
+    sampling (optional).
     """
     device = resolve_device(device)
     v = int(num_vertices)
+    w = None
+    if weight is not None:
+        w = torch.from_numpy(np.asarray(weight, np.uint32).astype(np.int64)).to(device)
     ev = EdgeView(src=_i32(src, device), dst=_i32(dst, device),
                   valid=torch.from_numpy(np.asarray(valid, bool).copy()).to(device),
-                  num_vertices=v)
+                  num_vertices=v, weight=w)
     core = None
     if a_core is not None:
         core = core_from_bitmap(

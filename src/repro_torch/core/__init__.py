@@ -1,15 +1,26 @@
-"""The single-device Graph500 BFS path in PyTorch (counterpart of repro.core)."""
+"""The single-device Graph500 BFS and SSSP kernels in PyTorch (counterpart of
+repro.core)."""
 from repro_torch.core.kronecker import EdgeList, generate_edges, sample_roots
-from repro_torch.core.graph_build import CSRGraph, build_csr
+from repro_torch.core.graph_build import (
+    DEFAULT_MAX_WEIGHT, CSRGraph, build_csr, edge_weights,
+)
 from repro_torch.core.reorder import Reordering, degree_reorder, reorder_graph
 from repro_torch.core.heavy import (
     HeavyCore, build_heavy_core, pack_bitmap, padded_bitmap_words, unpack_bitmap,
 )
 from repro_torch.core.bfs_steps import (
-    ChunkedEdgeView, EdgeView, chunk_edge_view, edge_view,
+    ChunkedEdgeView, EdgeView, chunk_edge_view, edge_view, masked_relax_step,
+    relax_step, with_edge_weights,
 )
 from repro_torch.core.hybrid_bfs import BFSResult, BFSStats
-from repro_torch.core.validate import CHECK_NAMES, validate, validate_batch
+from repro_torch.core.sssp_steps import (
+    INF_U32, bucket_width, sssp_max_rounds, sssp_oracle,
+)
+from repro_torch.core.validate import (
+    CHECK_NAMES, SSSP_CHECK_NAMES, SsspValidation, validate, validate_batch,
+    validate_sssp, validate_sssp_batch,
+)
+from repro_torch.core.kernels import KernelSpec, kernel_spec, rekernel_plan
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.plan import (
     BFSPlan, CompiledBFS, Graph500Result, PreparedGraph, TraversalPlan,
@@ -19,6 +30,10 @@ from repro_torch.core.pipeline import BuiltGraph, Graph500Config, build, run
 
 __all__ = [
     "EdgeList", "generate_edges", "sample_roots", "CSRGraph", "build_csr",
+    "DEFAULT_MAX_WEIGHT", "edge_weights", "with_edge_weights", "relax_step",
+    "masked_relax_step", "INF_U32", "bucket_width", "sssp_max_rounds",
+    "sssp_oracle", "SSSP_CHECK_NAMES", "SsspValidation", "validate_sssp",
+    "validate_sssp_batch", "KernelSpec", "kernel_spec", "rekernel_plan",
     "Reordering", "degree_reorder", "reorder_graph", "HeavyCore",
     "build_heavy_core", "pack_bitmap", "padded_bitmap_words", "unpack_bitmap",
     "ChunkedEdgeView", "EdgeView", "chunk_edge_view", "edge_view",

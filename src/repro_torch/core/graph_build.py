@@ -74,3 +74,51 @@ def build_csr(edges: EdgeList) -> CSRGraph:
 def csr_to_edge_arrays(g: CSRGraph):
     """(src, dst, valid) per directed CSR entry — the edge-parallel view."""
     return g.edge_sources(), g.col_indices, g.edge_valid
+
+
+# ---------------------------------------------------------------------------
+# Deterministic edge weights (the SSSP kernel's input).
+#
+# The weight is a pure function of the unordered endpoint pair, so
+# w(u, v) == w(v, u) without an undirected edge list: a 32-bit finalizer
+# hash of the canonical (min, max) pair, bit-identical to the JAX
+# package's ``edge_weights``.  torch has no uint32 arithmetic, so the
+# words ride in int64 holding [0, 2^32): each 32 x 32-bit product is split
+# into 16-bit halves (every partial product < 2^48) and masked back to 32
+# bits, and the right shifts act on non-negative values.
+# ---------------------------------------------------------------------------
+
+DEFAULT_MAX_WEIGHT = 255
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2^32`` for int64 ``h`` in [0, 2^32) and a 32-bit ``c``."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """32-bit finalizer (lowbias32-style avalanche) on int64 words."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def edge_weights(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, *,
+                 seed: int = 0, max_weight: int = DEFAULT_MAX_WEIGHT) -> torch.Tensor:
+    """int64 weight in ``[1, max_weight]`` per directed edge entry, 0 on
+    invalid slots; symmetric and deterministic in ``seed``.  The values
+    are the JAX package's uint32 weights."""
+    if max_weight < 1:
+        raise ValueError(f"max_weight must be >= 1, got {max_weight}")
+    s = src.to(torch.int64) & _U32
+    d = dst.to(torch.int64) & _U32
+    a = torch.minimum(s, d)
+    b = torch.maximum(s, d)
+    h = _mix32((_mul32(a, 0x9E3779B9) + (int(seed) & _U32)) & _U32)
+    h = _mix32(h ^ _mul32(b, 0x85EBCA6B))
+    w = 1 + h % int(max_weight)
+    return torch.where(valid, w, 0)

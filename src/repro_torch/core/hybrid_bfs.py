@@ -1,7 +1,16 @@
-"""Direction-optimizing hybrid BFS (paper §2.1): the bitmap-resident engine.
+"""Direction-optimizing hybrid BFS (paper §2.1) with selectable engines.
 
-Counterpart of the ``bitmap`` engine of ``repro.core.hybrid_bfs``
-(``_run_bitmap_impl``).  Switching policy, paper eq. (1)/(2)::
+Counterpart of the single-device engines of ``repro.core.hybrid_bfs``,
+the Fig. 18 ladder:
+
+  * ``reference`` — edge-parallel relaxation of every edge, both
+    directions, over ``bool [V]`` frontier/visited (``_run_legacy``);
+  * ``legacy``    — the same state, but bottom-up levels run the
+    ``core_spmv`` kernel over the dense core, the frontier re-packed into a
+    bitmap every bottom-up level, and the other edges relaxed around it;
+  * ``bitmap``    — the bitmap-resident engine (``_run_bitmap_impl``).
+
+Switching policy, paper eq. (1)/(2)::
 
     top-down  -> bottom-up  when |in| > ThrV1 = (|V| - |vis|) / alpha
     bottom-up -> top-down   when |in| < ThrV2 = |V| / beta
@@ -12,11 +21,12 @@ every level ends in the fused ``frontier_update`` kernel, and a bottom-up
 level starts with the ``core_spmv`` kernel over the dense heavy core.
 
 JAX's ``lax.while_loop`` becomes a host loop that synchronises once per
-level, on the popcount the epilogue kernel returns; the direction switch
-is then decided on the host.  ``lax.cond`` over the edge chunks becomes a
-gather of the live chunks (a top-down level also reads their indices back).
-The outputs (parent, level and every stats trace) are bitwise equal to the
-JAX engine's.
+level, on the size of the next frontier (the bitmap engine reads it from
+its epilogue kernel's popcount); the direction switch is then decided on
+the host.  ``lax.cond`` over the edge chunks becomes a gather of the live
+chunks (a top-down level also reads their indices back).  The outputs
+(parent, level and every stats trace) are bitwise equal to the JAX
+engines'.
 """
 from __future__ import annotations
 
@@ -25,7 +35,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.bfs_steps import ChunkedEdgeView, chunk_frontier_mask
+from repro_torch.core.bfs_steps import (
+    ChunkedEdgeView, EdgeView, chunk_frontier_mask, frontier_edge_count,
+    masked_relax_step, relax_step, unvisited_edge_count,
+)
 from repro_torch.core.heavy import HeavyCore, pack_bitmap, padded_bitmap_words, testbit
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import BIG, popcount_u32
@@ -34,6 +47,10 @@ MAX_LEVELS = 64
 TOP_DOWN, BOTTOM_UP = 0, 1
 
 ENGINES = ("reference", "legacy", "bitmap")
+#: Exchange wirings of the BFS kernel's sharded engine (the JAX package's
+#: vocabulary; the sharded engine is not ported yet).
+SHARD_EXCHANGES = ("hier_or", "hier_gather", "flat", "hier_or_packed",
+                   "hier_or_sieve")
 
 #: All in-loop sentinel bits passing (BFSStats.sentinel).
 SENTINEL_OK = 7
@@ -64,7 +81,8 @@ class BFSStats(NamedTuple):
     scanned_chunks: torch.Tensor  # [MAX_LEVELS] int32 — edge chunks relaxed (-1 n/a)
     total_chunks: torch.Tensor    # [] int32
     # per-level bitmask, -1 for unused levels: bit0 = delta conservation,
-    # bit1 = frontier ∩ visited = ∅, bit2 = level within bound.
+    # bit1 = frontier ∩ visited = ∅, bit2 = level within bound.  None for
+    # the reference and legacy engines.
     sentinel: Optional[torch.Tensor] = None
 
 
@@ -73,6 +91,105 @@ class BFSResult(NamedTuple):
     level: torch.Tensor   # [V] int32, -1 = unvisited
     stats: Optional[BFSStats]
 
+
+# ---------------------------------------------------------------------------
+# Reference and legacy engines: bool [V] frontier state.
+# ---------------------------------------------------------------------------
+
+def _core_bottom_up_legacy(core: HeavyCore, frontier, visited, parent_ext,
+                           v: int) -> None:
+    """Dense-core kernel step with the per-level bool -> bitmap round trip,
+    in place.
+
+    The frontier's first K entries are packed (a core padded beyond a tiny
+    graph reads False past ``V``), the kernel finds each core row's least
+    frontier neighbour, and unvisited rows take it.  Rows at or past ``V``
+    count as visited, so only the first ``min(K, V)`` rows can win.
+    """
+    k = core.k
+    f_bm = pack_bitmap(frontier[:k], k // 32)
+    cand = kops.core_spmv(core.a_core, f_bm)  # int32 [K]
+    kk = min(k, v)
+    won = (cand[:kk] < BIG) & ~visited[:kk]
+    prefix = parent_ext[:kk]
+    prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], v)))
+
+
+def _run_legacy(ev: EdgeView, degree: torch.Tensor, n_active: int, root: int,
+                core: HeavyCore | None, *, engine: str, alpha: float,
+                beta: float, max_levels: int) -> BFSResult:
+    """One traversal of the ``reference`` or ``legacy`` engine from ``root``
+    (host loop, one sync a level).
+
+    Every top-down level (and every level of ``reference``) relaxes all
+    padded edges.  A ``legacy`` bottom-up level with a core runs the core
+    step, then relaxes every edge but the core-to-core ones.
+    """
+    v = ev.num_vertices
+    dev = degree.device
+    i32 = torch.int32
+    root = int(root)
+    use_core = engine == "legacy" and core is not None
+
+    parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
+    parent_ext[root] = root
+    frontier = torch.zeros(v, dtype=torch.bool, device=dev)
+    frontier[root] = True
+    visited = frontier.clone()
+    level = torch.full((v,), -1, dtype=i32, device=dev)
+    level[root] = 0
+    tail_mask = ~((ev.src < core.k) & (ev.dst < core.k)) if use_core else None
+
+    stats_dir = torch.full((max_levels,), -1, dtype=i32, device=dev)
+    stats_fs = torch.zeros(max_levels, dtype=i32, device=dev)
+    stats_se = torch.zeros(max_levels, dtype=i32, device=dev)
+
+    in_count, vis_count = 1, 1
+    lvl, direction = 0, TOP_DOWN
+    count = None
+    while lvl < max_levels:
+        if lvl > 0:
+            in_count = int(count)  # the level's one synchronisation
+            vis_count += in_count
+        if in_count == 0:
+            break
+        direction = _switch_direction(direction, in_count, vis_count,
+                                      n_active, alpha, beta)
+        if use_core and direction == BOTTOM_UP:
+            _core_bottom_up_legacy(core, frontier, visited, parent_ext, v)
+            parent_ext, nxt = masked_relax_step(ev, parent_ext, frontier,
+                                                visited, tail_mask)
+        else:
+            parent_ext, nxt = relax_step(ev, parent_ext, frontier, visited)
+        # scanned-edge estimate: TD scans the frontier adjacency, BU the
+        # unvisited adjacency (the work the direction choice implies).
+        stats_se[lvl] = (frontier_edge_count(degree, frontier)
+                         if direction == TOP_DOWN
+                         else unvisited_edge_count(degree, visited))
+        stats_dir[lvl] = direction
+        stats_fs[lvl] = in_count
+        visited = visited | nxt
+        level.masked_fill_(nxt, lvl + 1)
+        count = nxt.sum()
+        frontier = nxt
+        lvl += 1
+
+    parent = parent_ext[:v]
+    parent = torch.where(parent == v, -1, parent)
+    return BFSResult(
+        parent=parent, level=level,
+        stats=BFSStats(
+            stats_dir, stats_fs, stats_se,
+            torch.tensor(lvl, dtype=i32, device=dev),
+            torch.full((max_levels,), -1, dtype=i32, device=dev),
+            torch.tensor(0, dtype=i32, device=dev),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The bitmap-resident engine.
+# ---------------------------------------------------------------------------
 
 def bottom_up_tail(chunks: ChunkedEdgeView, core: HeavyCore | None):
     """(src, dst) of the valid edges a bottom-up level relaxes after the
@@ -230,6 +347,9 @@ def _run_batch(chunks, degree, n_active, roots, core, **kw) -> BFSResult:
 
 
 def stack_results(results: list[BFSResult]) -> BFSResult:
-    stats = BFSStats(*(torch.stack(f) for f in zip(*(r.stats for r in results))))
+    """Stack per-root results into ``[R, ...]`` leaves; a stats field that
+    is None (the legacy engines' sentinel) stays None."""
+    stats = BFSStats(*(None if f[0] is None else torch.stack(f)
+                       for f in zip(*(r.stats for r in results))))
     return BFSResult(torch.stack([r.parent for r in results]),
                      torch.stack([r.level for r in results]), stats)

@@ -1,15 +1,23 @@
 """End-to-end Graph500 pipeline (steps 1-4) with the paper's option ladder.
 
-Counterpart of ``repro.core.pipeline`` for the rungs that are ported:
+Counterpart of ``repro.core.pipeline`` for the single-device rungs, the
+four of Fig. 18 and two more:
 
-  pre-g500        : degree sort (T2a) + heavy core (T2b) + the
-                    bitmap-resident engine with the hand-written kernels (T1),
-                    one timed traversal per root;
-  pre-g500-batch  : the same engine over the whole root batch, timed as
+  reference-3.0.0 : no sort, no core, the reference engine;
+  th2             : degree sort (T2a), the reference engine;
+  k               : degree sort + the hybrid switch tuned (alpha 8, beta 64);
+  pre-g500        : degree sort + heavy core (T2b) + the bitmap-resident
+                    engine with the hand-written kernels (T1), one timed
+                    traversal per root;
+  pre-g500-legacy : the pre-resident loop (bool frontier re-packed every
+                    bottom-up level for the ``core_spmv`` kernel, every
+                    edge scanned top-down), the measured "before";
+  pre-g500-batch  : the bitmap engine over the whole root batch, timed as
                     one batch (wall-clock / n per search).
 
-The other rungs of the JAX ladder need the reference/legacy engines, a
-tuned plan table or a device mesh; asking for them raises
+``kernel="sssp"`` runs Graph500's second kernel, δ-stepping SSSP, on the
+same graph with a weight plane seeded from ``seed``.  The mesh and tuned
+rungs need a device mesh or a tuned plan table; asking for them raises
 ``NotImplementedError``.  Everything runs on the card unless
 ``Graph500Config.device`` says ``"cpu"``.
 """
@@ -23,8 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import kronecker
-from repro_torch.core.bfs_steps import EdgeView, edge_view
-from repro_torch.core.graph_build import build_csr
+from repro_torch.core.bfs_steps import EdgeView, edge_view, with_edge_weights
+from repro_torch.core.graph_build import DEFAULT_MAX_WEIGHT, build_csr
 from repro_torch.core.heavy import HeavyCore, build_heavy_core
 from repro_torch.core.kronecker import EdgeList
 from repro_torch.core.plan import BFSPlan, _not_ported, compile_plan
@@ -33,15 +41,19 @@ from repro_torch.core.teps import Graph500Run
 from repro_torch.util import resolve_device
 
 _PORTED_RUNGS = {
-    "pre-g500": dict(degree_sort=True, heavy_threshold=100),
-    "pre-g500-batch": dict(degree_sort=True, heavy_threshold=100, batched=True),
+    "reference-3.0.0": dict(degree_sort=False, heavy_threshold=None,
+                            engine="reference"),
+    "th2": dict(degree_sort=True, heavy_threshold=None, engine="reference"),
+    "k": dict(degree_sort=True, heavy_threshold=None, engine="reference",
+              alpha=8.0, beta=64.0),
+    "pre-g500-legacy": dict(degree_sort=True, heavy_threshold=100,
+                            engine="legacy"),
+    "pre-g500": dict(degree_sort=True, heavy_threshold=100, engine="bitmap"),
+    "pre-g500-batch": dict(degree_sort=True, heavy_threshold=100,
+                           engine="bitmap", batched=True),
 }
 #: JAX ladder rungs not ported yet -> the ROADMAP.md queue item that ports them.
 _PENDING_RUNGS = {
-    "reference-3.0.0": "Reference and legacy engines",
-    "th2": "Reference and legacy engines",
-    "k": "Reference and legacy engines",
-    "pre-g500-legacy": "Reference and legacy engines",
     "pre-g500-mesh": "Multi-device layouts",
     "pre-g500-mesh3": "Multi-device layouts",
     "pre-g500-tuned": "Tuning",
@@ -56,10 +68,16 @@ class Graph500Config:
     n_roots: int = 8
     degree_sort: bool = True
     heavy_threshold: Optional[int] = 100   # None disables the dense core
+    engine: str = "bitmap"                 # "reference" | "legacy" | "bitmap"
     alpha: float = 14.0
     beta: float = 24.0
     batched: bool = False                  # time the root batch as one
     check: str = "post"                    # "off" | "post" | "full"
+    # Graph500 kernel: "bfs" or "sssp".  Under "sssp" the build attaches the
+    # symmetric weight plane (seeded from ``seed``, uniform in
+    # [1, max_weight]) and the plan runs the δ-stepping engine.
+    kernel: str = "bfs"
+    max_weight: int = DEFAULT_MAX_WEIGHT
     device: Optional[str] = None           # None: the card ("cuda")
 
     @staticmethod
@@ -72,8 +90,9 @@ class Graph500Config:
         return Graph500Config(**{**_PORTED_RUNGS[rung], **kw})
 
     def to_plan(self) -> BFSPlan:
-        return BFSPlan(engine="bitmap", layout=(), alpha=self.alpha,
-                       beta=self.beta, batch_roots=self.batched)
+        return BFSPlan(engine=self.engine, layout=(), alpha=self.alpha,
+                       beta=self.beta, batch_roots=self.batched,
+                       kernel=self.kernel)
 
 
 @dataclass
@@ -107,6 +126,10 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None) -> BuiltGraph:
     if cfg.heavy_threshold is not None:
         core = build_heavy_core(g, threshold=cfg.heavy_threshold)
     ev = edge_view(g)
+    if cfg.kernel == "sssp":
+        # the weights hash the relabelled endpoint ids, which the oracle and
+        # every engine see alike
+        ev = with_edge_weights(ev, seed=cfg.seed, max_weight=cfg.max_weight)
     nnz = int(g.nnz)  # synchronises: construction ends here
     return BuiltGraph(ev=ev, degree=g.degree, core=core, reorder=reord,
                       construction_s=time.perf_counter() - t0,

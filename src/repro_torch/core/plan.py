@@ -11,12 +11,15 @@ Counterpart of ``repro.core.plan`` for the slice of it that is ported:
   3. **runner** — :meth:`CompiledBFS.run` is the Graph500 timed harness:
      warm-up outside the timed region, spec validation, harmonic-mean TEPS.
 
-Ported: ``layout=()``, ``engine="bitmap"``, ``kernel="bfs"`` and
-``check`` in off|post|full.  Every other layout, engine or kernel, and the
-retry/fallback recovery, raise ``NotImplementedError`` naming the
-``ROADMAP.md`` queue item that ports them.  ``batch_roots=True`` runs the
-roots one after another through the per-root engine and keeps the batched
-timing convention (wall-clock / n).
+Ported: ``layout=()`` with every engine of the BFS kernel (``bitmap``,
+``reference``, ``legacy``) and the SSSP kernel (``bitmap``), and ``check``
+in off|post|full.  The kernel's row of :mod:`repro_torch.core.kernels`
+gives its engines, exchanges, weight needs and validation.  Every other
+layout, fault injection and the retry/fallback recovery raise
+``NotImplementedError`` naming the ``ROADMAP.md`` queue item that ports
+them.  ``batch_roots=True`` (bitmap engine only, as in the JAX package)
+runs the roots one after another through the per-root engine and keeps
+the batched timing convention (wall-clock / n).
 """
 from __future__ import annotations
 
@@ -33,11 +36,15 @@ from repro_torch.core.bfs_steps import (
 )
 from repro_torch.core.heavy import HeavyCore
 from repro_torch.core.hybrid_bfs import (
-    ENGINES, MAX_LEVELS, SENTINEL_OK, BFSResult, _run_batch, _run_bitmap_impl,
-    bottom_up_tail, stack_results,
+    MAX_LEVELS, SENTINEL_OK, BFSResult, _run_batch, _run_bitmap_impl,
+    _run_legacy, bottom_up_tail, stack_results,
+)
+from repro_torch.core.kernels import kernel_spec, validate_result_batch
+from repro_torch.core.sssp_steps import (
+    _run_sssp_batch, _run_sssp_impl, bucket_width, sssp_max_rounds,
 )
 from repro_torch.core.teps import Graph500Run, traversed_edges
-from repro_torch.core.validate import failure_report, validate_batch
+from repro_torch.core.validate import failure_report
 from repro_torch.util import resolve_device
 
 VALID_LAYOUTS = (
@@ -46,12 +53,6 @@ VALID_LAYOUTS = (
     ("group", "member"),
     ("root", "group", "member"),
 )
-#: The JAX package's vocabularies: values outside them are ValueErrors,
-#: values inside them that are not ported yet are NotImplementedErrors.
-KERNELS = ("bfs", "sssp")
-SHARD_EXCHANGES = ("hier_or", "hier_gather", "flat", "hier_or_packed",
-                   "hier_or_sieve")
-SSSP_EXCHANGES = ("hier_min", "flat")
 PARTITIONS = ("block", "word_cyclic")
 
 _TODO = "not ported yet: see ROADMAP.md Queue 1, item"
@@ -112,33 +113,57 @@ class TraversalPlan:
 BFSPlan = TraversalPlan
 
 
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
 def validate_plan(plan: TraversalPlan) -> None:
-    """Unknown values are ValueErrors (as in the JAX package); known values
-    that this port does not run yet are NotImplementedErrors."""
-    if plan.kernel not in KERNELS:
-        raise ValueError(f"unknown kernel {plan.kernel!r}; expected one of {KERNELS}")
-    engines = ENGINES if plan.kernel == "bfs" else ("bitmap",)
-    if plan.engine not in engines:
+    """The JAX package's field checks, all ValueErrors, with the engine and
+    exchange vocabularies from the plan's kernel row; then the layouts this
+    port does not run yet are NotImplementedErrors."""
+    spec = kernel_spec(plan.kernel)     # rejects unknown kernels
+    if plan.engine not in spec.engines:
         raise ValueError(f"unknown engine {plan.engine!r} for kernel "
-                         f"{plan.kernel!r}; expected one of {engines}")
+                         f"{plan.kernel!r}; expected one of {spec.engines}")
     if plan.layout not in VALID_LAYOUTS:
         raise ValueError(f"unknown layout {plan.layout!r}; expected one of "
                          f"{VALID_LAYOUTS}")
-    exchanges = SHARD_EXCHANGES if plan.kernel == "bfs" else SSSP_EXCHANGES
-    if plan.exchange not in exchanges:
+    if plan.exchange not in spec.shard_exchanges:
         raise ValueError(f"unknown exchange {plan.exchange!r} for kernel "
-                         f"{plan.kernel!r}; expected one of {exchanges}")
+                         f"{plan.kernel!r}; expected one of {spec.shard_exchanges}")
     if plan.partition not in PARTITIONS:
         raise ValueError(f"unknown partition {plan.partition!r}; expected "
                          f"one of {PARTITIONS}")
+    if plan.partition != "block" and "member" not in plan.layout:
+        raise ValueError(f"partition={plan.partition!r} requires a "
+                         f"vertex-sharded layout (a 'member' axis)")
+    if plan.layout and plan.engine != "bitmap":
+        raise ValueError(f"mesh layout {plan.layout} requires engine='bitmap' "
+                         f"(got {plan.engine!r}); the legacy engines are "
+                         f"single-device")
+    if "root" in plan.layout and not plan.batch_roots:
+        raise ValueError("layout with a 'root' axis requires batch_roots=True")
+    if plan.batch_roots and plan.engine != "bitmap":
+        raise ValueError(f"batch_roots=True requires engine='bitmap' (got "
+                         f"{plan.engine!r}); use batch_roots=False for "
+                         f"per-root runs")
+    if plan.mesh_shape is not None:
+        if not plan.layout:
+            raise ValueError("mesh_shape given but layout is () (single "
+                             "device has no mesh)")
+        if len(plan.mesh_shape) != len(plan.layout):
+            raise ValueError(f"mesh_shape {plan.mesh_shape} does not match "
+                             f"layout {plan.layout} (need one size per axis)")
+        if any(s < 1 for s in plan.mesh_shape):
+            raise ValueError(f"mesh_shape sizes must be >= 1, got "
+                             f"{plan.mesh_shape}")
+        if "member" in plan.layout and not _is_pow2(
+                plan.mesh_shape[plan.layout.index("member")]):
+            raise ValueError(f"member axis size of {plan.mesh_shape} is not "
+                             f"a power of two")
     if plan.n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {plan.n_chunks}")
-    if plan.kernel != "bfs":
-        raise _not_ported(f"kernel={plan.kernel!r}", "SSSP")
-    if plan.engine != "bitmap":
-        raise _not_ported(f"engine={plan.engine!r}",
-                          "Reference and legacy engines")
-    if plan.layout or plan.mesh_shape is not None or plan.partition != "block":
+    if plan.layout:
         raise _not_ported(f"layout={plan.layout!r}", "Multi-device layouts")
 
 
@@ -172,9 +197,14 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
     """Validate ``plan`` and prepare the graph for it on ``device``.
 
     ``device=None`` means the card, and raises without one; the graph's
-    tensors must already lie on the resolved device.
+    tensors must already lie on the resolved device.  The SSSP kernel
+    needs the weight plane on ``built.ev`` (``with_edge_weights``); its
+    bucket width comes from the largest weight.
     """
     validate_plan(plan)
+    if fault is not None and plan.engine != "bitmap":
+        raise ValueError(f"fault injection requires engine='bitmap' (got "
+                         f"{plan.engine!r}); the legacy engines have no hooks")
     if fault is not None:
         raise _not_ported("fault injection", "Faults and checked execution")
     dev = resolve_device(device)
@@ -186,17 +216,34 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
         raise ValueError("plan needs built.ev (an EdgeView)")
     if pg.degree is None:
         raise ValueError("plan needs built.degree")
+    needs_w = kernel_spec(plan.kernel).needs_weights
+    if needs_w and pg.ev.weight is None:
+        raise ValueError(f"kernel={plan.kernel!r} needs edge weights: attach "
+                         f"them with with_edge_weights(ev) before compiling "
+                         f"the plan")
     for name, t in (("ev.src", pg.ev.src), ("degree", pg.degree),
                     ("core.a_core", pg.core.a_core if pg.core else None)):
         if t is not None and t.device.type != dev.type:
             raise ValueError(f"built.{name} lies on {t.device}, the plan runs "
                              f"on {dev}: build the graph on the same device")
-    if pg.chunks is None or pg.chunks.n_chunks != plan.n_chunks:
+    if plan.engine == "bitmap" and (
+            pg.chunks is None or pg.chunks.n_chunks != plan.n_chunks
+            or (needs_w and pg.chunks.weight is None)):
         pg.chunks = chunk_edge_view(pg.ev, plan.n_chunks)
+    # The dense core is a boolean-semiring step with no weight plane: only
+    # the BFS kernel consults it.
+    core = pg.core if plan.kernel == "bfs" else None
+    delta = max_rounds = 0
+    tail = None
+    if plan.kernel == "sssp":
+        delta = bucket_width(int(pg.ev.weight.max()))
+        max_rounds = sssp_max_rounds(plan.max_levels)
+    elif plan.engine == "bitmap":
+        tail = bottom_up_tail(pg.chunks, core)
     return CompiledBFS(
         plan=plan, graph=pg, device=dev, num_vertices=pg.ev.num_vertices,
-        n_active=int((pg.degree > 0).sum()),
-        tail=bottom_up_tail(pg.chunks, pg.core))
+        n_active=int((pg.degree > 0).sum()), core=core, tail=tail,
+        delta=delta, max_rounds=max_rounds)
 
 
 @dataclass
@@ -208,22 +255,38 @@ class CompiledBFS:
     device: torch.device
     num_vertices: int
     n_active: int
-    tail: tuple
+    core: Optional[HeavyCore]   # the core the BFS engines consult, or None
+    tail: Optional[tuple]       # bottom_up_tail of the bitmap BFS engine
+    delta: int = 0              # SSSP bucket width
+    max_rounds: int = 0         # SSSP round bound
 
-    def _kw(self) -> dict:
-        return dict(alpha=self.plan.alpha, beta=self.plan.beta,
-                    max_levels=self.plan.max_levels, tail=self.tail)
+    def _traverse(self, root: int) -> BFSResult:
+        """One traversal of the plan's kernel and engine from ``root``."""
+        g, p = self.graph, self.plan
+        if p.kernel == "sssp":
+            return _run_sssp_impl(g.chunks, g.degree, root, delta=self.delta,
+                                  max_rounds=self.max_rounds)
+        if p.engine == "bitmap":
+            return _run_bitmap_impl(g.chunks, g.degree, self.n_active, root,
+                                    self.core, alpha=p.alpha, beta=p.beta,
+                                    max_levels=p.max_levels, tail=self.tail)
+        return _run_legacy(g.ev, g.degree, self.n_active, root, self.core,
+                           engine=p.engine, alpha=p.alpha, beta=p.beta,
+                           max_levels=p.max_levels)
 
     def bfs(self, roots) -> BFSResult:
         """Raw traversal(s): a root vector under ``batch_roots`` (leaves
         come back ``[R, ...]``), else one scalar root."""
-        g = self.graph
-        if self.plan.batch_roots:
-            roots = [int(r) for r in np.asarray(roots).reshape(-1)]
-            return _run_batch(g.chunks, g.degree, self.n_active, roots,
-                              g.core, **self._kw())
-        return _run_bitmap_impl(g.chunks, g.degree, self.n_active,
-                                int(roots), g.core, **self._kw())
+        if not self.plan.batch_roots:
+            return self._traverse(int(roots))
+        g, p = self.graph, self.plan
+        roots = [int(r) for r in np.asarray(roots).reshape(-1)]
+        if p.kernel == "sssp":
+            return _run_sssp_batch(g.chunks, g.degree, roots, delta=self.delta,
+                                   max_rounds=self.max_rounds)
+        return _run_batch(g.chunks, g.degree, self.n_active, roots, self.core,
+                          alpha=p.alpha, beta=p.beta, max_levels=p.max_levels,
+                          tail=self.tail)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -235,14 +298,17 @@ class CompiledBFS:
 
         Batched plans time the whole root batch and attribute
         wall-clock / n_roots to each search; per-root plans time each
-        search.  The warm-up is one traversal of the first root, outside
-        the timed region (it builds and loads the kernels).
+        search.  The warm-up is one traversal of the first root by the
+        plan's kernel and engine, outside the timed region (it builds and
+        loads the kernels).
 
         ``check``: ``"off"`` (no checks, ``all_valid`` reports False),
-        ``"post"`` (the five spec checks on every root, with per-check
-        counts) or ``"full"`` (``"post"`` plus the in-loop sentinel trace
-        as the ``"sentinel"`` check).  ``retries``/``fallback`` (recovery
-        of failing roots) are not ported yet and raise.
+        ``"post"`` (the kernel's five spec checks on every root, with
+        per-check counts) or ``"full"`` (``"post"`` plus the in-loop
+        sentinel trace as the ``"sentinel"`` check, for the engines that
+        carry one).  ``retries``/``fallback`` (recovery of failing roots)
+        are not ported yet and raise.  For SSSP the ``level`` rows hold
+        the distances.
         """
         if check not in ("off", "post", "full"):
             raise ValueError(f"check must be 'off', 'post' or 'full' (got {check!r})")
@@ -256,8 +322,7 @@ class CompiledBFS:
         if n == 0:
             return Graph500Result(np.zeros((0, v), np.int32),
                                   np.zeros((0, v), np.int32), g500, self.plan)
-        _run_bitmap_impl(self.graph.chunks, self.graph.degree, self.n_active,
-                         int(roots_np[0]), self.graph.core, **self._kw())
+        self._traverse(int(roots_np[0]))
         self._sync()
 
         if self.plan.batch_roots:
@@ -283,7 +348,7 @@ class CompiledBFS:
 
         counts, failures = _check_batch(
             self.graph.ev, res.parent, res.level, roots_np, check,
-            res.stats.sentinel)
+            res.stats.sentinel, kernel=self.plan.kernel)
         g500.check_counts = dict(counts)
         g500.check_failures = {int(roots_np[i]): list(names)
                                for i, names in failures.items()}
@@ -293,14 +358,16 @@ class CompiledBFS:
                               g500, self.plan)
 
 
-def _check_batch(ev, parents, levels, roots, check, sent):
+def _check_batch(ev, parents, levels, roots, check, sent, kernel="bfs"):
     """Per-check failure counts (zeros included whenever the spec checks
-    ran) and a row-index -> failed-check-names map.  ``sent`` is the
-    per-row in-loop sentinel trace, applied under ``check="full"``."""
+    ran) and a row-index -> failed-check-names map.  The checks are the
+    kernel's; ``sent`` is the per-row in-loop sentinel trace, applied under
+    ``check="full"`` (None for the engines without one)."""
     counts: dict[str, int] = {}
     failures: dict[int, list[str]] = {}
     if check != "off":
-        counts, failures = failure_report(validate_batch(ev, parents, levels, roots))
+        counts, failures = failure_report(
+            validate_result_batch(kernel, ev, parents, levels, roots))
     if check == "full" and sent is not None:
         sent = sent.cpu().numpy()
         bad = np.any((sent != -1) & (sent != SENTINEL_OK), axis=-1)

@@ -258,11 +258,14 @@ def test_plan_dict_round_trip_matches_jax():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(engine="legacy"), NotImplementedError),
-    (dict(engine="reference"), NotImplementedError),
+    # the legacy engines run per root: with the default batch_roots=True
+    # the plan is refused, as in JAX
+    (dict(engine="legacy"), ValueError),
+    (dict(engine="reference"), ValueError),
     (dict(layout=("root",)), NotImplementedError),
     (dict(layout=("group", "member")), NotImplementedError),
-    (dict(kernel="sssp"), NotImplementedError),
+    # SSSP on a graph without a weight plane, as in JAX
+    (dict(kernel="sssp"), ValueError),
     (dict(engine="warp"), ValueError),
     (dict(layout=("rows",)), ValueError),
     (dict(exchange="smoke"), ValueError),
@@ -283,6 +286,14 @@ def test_unported_run_options_raise():
         compile_plan(BFSPlan(), tb, device="cpu", fault=object())
     with pytest.raises(ValueError, match="check must be"):
         c.run(roots, check="half")
-    for rung in ("pre-g500-legacy", "pre-g500-mesh", "pre-g500-tuned", "th2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        compile_plan(BFSPlan(kernel="sssp"), tb, device="cpu", fault=object())
+    for rung in ("pre-g500-mesh", "pre-g500-tuned"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pipeline.Graph500Config.ladder(rung)
+    # the legacy and TH-2 rungs are ported: they lower to per-root plans of
+    # their engines, as in JAX
+    for rung, engine in (("pre-g500-legacy", "legacy"), ("th2", "reference")):
+        plan = pipeline.Graph500Config.ladder(rung).to_plan()
+        assert (plan.engine, plan.batch_roots) == (engine, False)
+        assert plan.to_dict() == jpipe.Graph500Config.ladder(rung).to_plan().to_dict()

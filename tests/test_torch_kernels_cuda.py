@@ -211,6 +211,68 @@ def test_bitmap_engine_on_card_matches_cpu(cuda, batch):
     assert runs[0].run.edges == runs[1].run.edges
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["reference-3.0.0", "pre-g500-legacy"])
+def test_legacy_engines_on_card_match_cpu(cuda, rung):
+    # the reference and legacy engines on the card (the legacy one through
+    # the core_spmv kernel, one launch a bottom-up level) equal their CPU
+    # runs on one graph
+    from repro_torch.core import pipeline
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.core.kronecker import EdgeList
+    from repro_torch.core.plan import compile_plan
+    rng = np.random.default_rng(12)
+    src = torch.from_numpy(rng.integers(0, 4096, 40000).astype(np.int32))
+    dst = torch.from_numpy((rng.pareto(1.5, 40000) * 40).astype(np.int64)
+                           .clip(0, 4095).astype(np.int32))
+    keys = src[:3].numpy()
+    runs = []
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.Graph500Config.ladder(rung, scale=12, n_roots=3, device=dev)
+        built = pipeline.build(cfg, edges=EdgeList(src.to(dev), dst.to(dev), 4096))
+        roots = pipeline.search_keys(cfg, built, keys)
+        compiled = compile_plan(cfg.to_plan(), built, device=dev)
+        before = ops.launch_counts()["core_spmv"]
+        res = compiled.run(roots, check="full")
+        launches = ops.launch_counts()["core_spmv"] - before
+        assert res.run.all_valid and not any(res.run.check_counts.values())
+        runs.append(res)
+    np.testing.assert_array_equal(runs[0].parent, runs[1].parent)
+    np.testing.assert_array_equal(runs[0].level, runs[1].level)
+    if rung == "pre-g500-legacy":
+        # timed traversals plus the warm-up of the first root
+        n_bu = sum(int((compiled.bfs(int(r)).stats.direction == BOTTOM_UP).sum())
+                   for r in [roots[0], *roots])
+        assert launches == n_bu > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["grid", "erdos_renyi"])
+@pytest.mark.parametrize("batch", [False, True])
+def test_sssp_on_card_matches_oracle(cuda, family, batch):
+    from repro_torch.core import (build_csr, edge_view, sssp_oracle,
+                                  with_edge_weights)
+    from repro_torch.core.plan import PreparedGraph, TraversalPlan, compile_plan
+    from repro_torch.data.graphs import erdos_renyi_graph, grid_graph
+    el = (grid_graph(64, seed=5, device=cuda) if family == "grid"
+          else erdos_renyi_graph(4096, seed=7, device=cuda))
+    g = build_csr(el)
+    ev = with_edge_weights(edge_view(g), seed=2)
+    roots = np.array([0, 7], np.int64)
+    res = compile_plan(TraversalPlan(kernel="sssp", batch_roots=batch),
+                       PreparedGraph(ev=ev, degree=g.degree), device=cuda)
+    rows = (res.bfs(roots) if batch else None)
+    args = (ev.src.cpu().numpy(), ev.dst.cpu().numpy(), ev.valid.cpu().numpy(),
+            ev.weight.cpu().numpy(), g.num_vertices)
+    for i, r in enumerate(roots):
+        got = res.bfs(int(r)) if not batch else None
+        parent = rows.parent[i] if batch else got.parent
+        dist = rows.level[i] if batch else got.level
+        p, d = sssp_oracle(*args, int(r))
+        np.testing.assert_array_equal(parent.cpu().numpy(), p)
+        np.testing.assert_array_equal(dist.cpu().numpy(), d)
+
+
 # ---------------------------------------------------------------------------
 # spmv_mxu and cin_layer
 # ---------------------------------------------------------------------------

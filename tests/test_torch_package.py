@@ -26,6 +26,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.models.recsys, repro_torch.train.train_step\n"
         "import repro_torch.configs, repro_torch.data.synthetic\n"
+        "import repro_torch.data.graphs, repro_torch.core.sssp_steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
