@@ -60,9 +60,33 @@ non-zero and no result line is printed:
      distances, every stats trace) equal the per-root rows; hmean TEPS,
      rounds per root, δ, and a profile of one root; parents and distances
      equal to ``sssp_oracle`` on ``grid_graph(256)`` and on a scale-14
-     Kronecker graph built on the card, 2 roots each.
+     Kronecker graph built on the card, 2 roots each;
+ 13. checked execution on phase 5's graph and keys: a persistent parent
+     fault on one root through ``pre-g500-batch`` (``check="full"``,
+     ``retries=1``, ``fallback=True``): only that root detected, one
+     retry, no fallback (the plan is the degraded shape), that root
+     quarantined, the other 15 rows equal to phase 5's parents and the
+     hmean over them; through the per-root plan one fallback; a clean run
+     with recovery armed (no retry, no fallback, all valid); SSSP with a
+     parent-offset fault on 4 roots: all quarantined, ``tree_dist``
+     counted;
+ 14. BFS serving through ``pipeline.serve`` on phase 5's graph
+     (``ServeConfig(batch_size=8, max_wait_s=0.05, cache_capacity=128,
+     check="post", max_requeues=2)``), traces ``serve_steady`` (2 qps,
+     Zipf 1.4) and ``serve_burst`` (2,000 qps, Zipf 1.1), 64 queries
+     each, the cache reset between them: every answer equal to the
+     offline run bit for bit, none failed, both kernels launched while
+     serving; latency p50/p99/p99.9, qps, hit rate, occupancy and service
+     ms per batch; a faulted engine (a persistent parent fault on the
+     burst trace's hottest root): every query for it failed after the
+     requeues, every other answer equal to the clean run; an SSSP engine
+     on 16 queries equal to the offline SSSP run.
 
-The last two lines are the kernel JSON and the result JSON.  Without a
+The kernel JSON's ``launches`` sum the counts of every path that drives a
+kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
+of phase 13 and the serving of phase 14), each counted from 0 just before
+its run and read just after; ``launches_by_path`` lists them.  The last
+two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
 exits non-zero.
 """
@@ -108,6 +132,17 @@ SSSP_SEED = 42
 GRID_SIDE = 256
 GRID_MAX_LEVELS = 2048
 SCALE_ORACLE = 14
+# phase 13: the root its faults target (an index into phase 5's keys) and
+# the SSSP roots of its quarantine leg
+FAULT_ROOT_INDEX = 3
+FAULT_SSSP_ROOTS = 4
+# phase 14: the serving configuration of benchmarks/bfs_serve.py and its two
+# traces; cut the query counts, never the graph, to save time
+SERVE_CFG = dict(batch_size=8, max_wait_s=0.05, cache_capacity=128, check="post",
+                 max_requeues=2)
+SERVE_TRACES = (("serve_steady", 2.0, 1.4), ("serve_burst", 2000.0, 1.1))
+SERVE_QUERIES = 64
+SERVE_SSSP_QUERIES = 16
 
 
 def log(msg: str) -> None:
@@ -922,6 +957,212 @@ def sssp_phase(device) -> None:
                         device, 2, True, 64)
 
 
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def checked_execution(cfg_b, built, roots, parents, device) -> dict:
+    """Phase 13: a persistent parent fault on one root through the batched
+    and the per-root plan (detected, retried, quarantined; the per-root plan
+    falls back once), a clean run with recovery armed, and the SSSP kernel
+    with a parent-offset fault on every root.  Returns the kernel launches
+    of the faulted and clean BFS runs and the weighted graph for phase 14."""
+    from repro_torch.core import with_edge_weights
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.plan import PreparedGraph, TraversalPlan, compile_plan
+    from repro_torch.core.teps import Graph500Run
+    from repro_torch.kernels import ops
+    bad_i = FAULT_ROOT_INDEX
+    bad = int(roots[bad_i])
+    keep = [i for i in range(len(roots)) if i != bad_i]
+    fault = FaultSpec("parent", "self", level=1, persistent=True, root=bad)
+    log(f"    fault {fault.describe()}")
+    plan_b = cfg_b.to_plan()
+    launches: dict = {}
+    for name, plan, want_fb in (("pre-g500-batch", plan_b, 0),
+                                ("per-root", dataclasses.replace(plan_b, batch_roots=False), 1)):
+        compiled = compile_plan(plan, built, device=device, fault=fault)
+        sync(device)
+        ops.reset_launch_counts()
+        res = compiled.run(roots, check="full", retries=1, fallback=True)
+        sync(device)
+        for k, n in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        g = res.run
+        log(f"    {name}: check_counts {g.check_counts}, check_failures "
+            f"{g.check_failures}, retries {g.retries}, fallbacks {g.fallbacks}, "
+            f"quarantined {g.quarantined}, validated {g.validated.count(True)} of "
+            f"{len(g.validated)}, hmean TEPS {g.harmonic_mean_teps:.6e} over "
+            f"{sum(t > 0 for t in g.teps)} roots")
+        if set(g.check_failures) != {bad} or "depth" not in g.check_failures[bad]:
+            raise AssertionError(f"{name}: the fault on root {bad} was detected as "
+                                 f"{g.check_failures}")
+        if (g.retries, g.fallbacks, g.quarantined) != (1, want_fb, [bad]):
+            raise AssertionError(f"{name}: retries {g.retries}, fallbacks "
+                                 f"{g.fallbacks}, quarantined {g.quarantined}")
+        if not np.array_equal(res.parent[keep], parents[keep]):
+            raise AssertionError(f"{name}: the {len(keep)} clean rows differ from "
+                                 f"phase 5's parents")
+        if g.teps[bad_i] != 0.0 or sum(t > 0 for t in g.teps) != len(keep) or \
+                g.harmonic_mean_teps != Graph500Run(
+                    teps=[g.teps[i] for i in keep]).harmonic_mean_teps:
+            raise AssertionError(f"{name}: the hmean is not over the {len(keep)} "
+                                 f"clean roots")
+        if np.array_equal(res.parent[bad_i], parents[bad_i]):
+            raise AssertionError(f"{name}: the quarantined row is not corrupted")
+    log(f"    the {len(keep)} clean rows equal phase 5's parents bit for bit")
+    ops.reset_launch_counts()
+    clean = compile_plan(plan_b, built, device=device).run(
+        roots, check="full", retries=2, fallback=True)
+    sync(device)
+    for k, n in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + n
+    g = clean.run
+    if not g.all_valid or g.retries or g.fallbacks or g.quarantined \
+            or any(g.check_counts.values()):
+        raise AssertionError(f"clean run with recovery armed: {g}")
+    log(f"    clean, check='full', retries=2, fallback=True: all valid, retries "
+        f"{g.retries}, fallbacks {g.fallbacks}, hmean TEPS "
+        f"{g.harmonic_mean_teps:.6e}; launches of the three runs {launches}")
+    if launches["frontier_update"] <= 0 or launches["core_spmv"] <= 0:
+        raise AssertionError(f"checked execution launched {launches}")
+
+    t0 = time.perf_counter()
+    wev = with_edge_weights(built.ev, seed=SSSP_SEED, max_weight=SSSP_MAX_WEIGHT)
+    sync(device)
+    log(f"    SSSP weight plane on phase 5's graph: {time.perf_counter() - t0:.6f} s")
+    weighted = PreparedGraph(ev=wev, degree=built.degree)
+    sfault = FaultSpec("parent", "offset", level=1, persistent=True)
+    sroots = roots[:FAULT_SSSP_ROOTS]
+    run = compile_plan(TraversalPlan(kernel="sssp", batch_roots=True), weighted,
+                       device=device, fault=sfault).run(
+        sroots, check="post", retries=1, fallback=True).run
+    log(f"    SSSP, fault {sfault.describe()}: check_counts {run.check_counts}, "
+        f"retries {run.retries}, fallbacks {run.fallbacks}, quarantined "
+        f"{run.quarantined}, hmean TEPS {run.harmonic_mean_teps}")
+    n = len(sroots)
+    if run.check_counts.get("tree_dist") != n or run.quarantined != \
+            [int(r) for r in sroots] or (run.retries, run.fallbacks) != (n, 0) \
+            or run.harmonic_mean_teps != 0.0:
+        raise AssertionError("SSSP: the parent fault was not quarantined on every root")
+    return dict(launches=launches, weighted=weighted)
+
+
+def serve_summary(name: str, report) -> None:
+    s = report.summary()
+    svc = np.asarray([b.service_s for b in report.batches]) * 1e3
+    full = np.asarray([b.service_s for b in report.batches if b.n_pad == 0]) * 1e3
+    log(f"    {name}: {s['n_queries']} queries, kinds {s['kinds']}, "
+        f"{s['n_batches']} batches; latency p50 {s['latency_p50_s'] * 1e3:.6f} ms, "
+        f"p99 {s['latency_p99_s'] * 1e3:.6f} ms, p99.9 "
+        f"{s['latency_p999_s'] * 1e3:.6f} ms; qps {s['qps']:.6f}; cache hit rate "
+        f"{s['cache']['hit_rate']:.6f}; mean occupancy {s['occupancy_mean']:.6f} "
+        f"(histogram {s['occupancy_hist']}); service ms per batch: mean "
+        f"{svc.mean():.6f}, median {np.median(svc):.6f}, max {svc.max():.6f}"
+        + (f", full batches (8 real roots) {full.mean():.6f}" if full.size else ""))
+
+
+def check_answers(name: str, report, rows: dict, failed_root=None) -> None:
+    """Every answer equals its root's offline row in ``rows``; only
+    ``failed_root`` may come back failed, and then every time."""
+    for a in report.answers:
+        if a.root == failed_root:
+            if a.kind != "failed" or a.parent is not None:
+                raise AssertionError(f"{name}: root {a.root} answered ({a.kind}) "
+                                     f"despite its fault")
+            continue
+        if a.kind == "failed":
+            raise AssertionError(f"{name}: query {a.qid} (root {a.root}) failed")
+        want_p, want_l = rows[a.root]
+        if not (np.array_equal(a.parent, want_p) and np.array_equal(a.level, want_l)):
+            raise AssertionError(f"{name}: query {a.qid} ({a.kind}, root {a.root}) "
+                                 f"differs from the offline run")
+
+
+def offline_rows(compiled, roots) -> dict:
+    uniq = sorted({int(r) for r in roots})
+    if not uniq:
+        return {}
+    res = compiled.run(np.asarray(uniq), warmup=False, check="post")
+    if not res.run.all_valid:
+        raise AssertionError(f"offline run invalid: {res.run.check_counts}")
+    return {r: (res.parent[i], res.level[i]) for i, r in enumerate(uniq)}
+
+
+def serving_phase(cfg_b, built, weighted, device) -> dict:
+    """Phase 14: BFS serving through ``pipeline.serve`` on two traces (every
+    answer equal to the offline run, the kernels launched), a faulted engine
+    (a hot root fails, nothing else changes) and a short SSSP engine."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.data.query_trace import synth_trace
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine, ServeConfig
+    scfg = ServeConfig(**SERVE_CFG)
+    t0 = time.perf_counter()
+    _, eng = pipeline.serve(cfg_b, scfg, built=built)
+    sync(device)
+    log(f"    engine up (compile + warm-up batch of root 0) in "
+        f"{time.perf_counter() - t0:.6f} s; plan {eng.plan.to_dict()}")
+    launches: dict = {}
+    reports = {}
+    for name, rate, zipf in SERVE_TRACES:
+        trace = synth_trace(7, SERVE_QUERIES, built.n_vertices, rate_qps=rate,
+                            zipf_s=zipf, degree=built.degree)
+        eng.reset_cache()
+        sync(device)
+        ops.reset_launch_counts()
+        reports[name] = eng.serve(trace)
+        sync(device)
+        got = ops.launch_counts()
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        if got["frontier_update"] <= 0 or got["core_spmv"] <= 0:
+            raise AssertionError(f"{name}: serving launched {got}")
+        serve_summary(name, reports[name])
+        log(f"      launches while serving {got}")
+    roots = [a.root for r in reports.values() for a in r.answers]
+    rows = offline_rows(eng.compiled, roots)
+    for name, report in reports.items():
+        check_answers(name, report, rows)
+        kinds = report.summary()["kinds"]
+        log(f"    {name}: all {len(report.answers)} answers ({kinds}) equal the "
+            f"offline run bit for bit")
+
+    trace = synth_trace(7, SERVE_QUERIES, built.n_vertices, rate_qps=SERVE_TRACES[1][1],
+                        zipf_s=SERVE_TRACES[1][2], degree=built.degree)
+    uniq, n = np.unique(trace.roots, return_counts=True)
+    hot = int(uniq[np.argmax(n)])
+    fault = FaultSpec("parent", "self", level=1, persistent=True, root=hot)
+    feng = Engine(built, plan=eng.plan, config=scfg, fault=fault, device=device)
+    report = feng.serve(trace)
+    rows.update(offline_rows(eng.compiled, [r for r in uniq if r not in rows]))
+    check_answers("faulted engine", report, rows, failed_root=hot)
+    failed = [a for a in report.answers if a.kind == "failed"]
+    if len(failed) != int(n.max()) or any(a.attempts != scfg.max_requeues + 1
+                                          for a in failed):
+        raise AssertionError(f"faulted engine: {len(failed)} failed answers for the "
+                             f"{int(n.max())} queries of root {hot}")
+    s = report.summary()
+    log(f"    faulted engine ({fault.describe()}) on serve_burst: kinds {s['kinds']}, "
+        f"check_counts {s['check_counts']}, fallback batches "
+        f"{s['fallback_batches']}; all {len(failed)} queries of root {hot} failed "
+        f"after {scfg.max_requeues} requeues, the other answers equal the clean "
+        f"offline run")
+
+    seng = Engine(weighted, config=scfg, kernel="sssp", device=device)
+    trace = synth_trace(7, SERVE_SSSP_QUERIES, built.n_vertices, rate_qps=2000.0,
+                        zipf_s=1.1, degree=built.degree)
+    report = seng.serve(trace)
+    check_answers("sssp engine", report,
+                  offline_rows(seng.compiled, [a.root for a in report.answers]))
+    serve_summary("sssp engine", report)
+    log("    sssp engine: every answer (parents and distances) equals the offline "
+        "SSSP run")
+    return dict(launches=launches)
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -955,6 +1196,7 @@ def main() -> int:
     from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
     from repro_torch.core.plan import compile_plan
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1120,17 +1362,34 @@ def main() -> int:
     log(f"[12] Graph500 SSSP at scale {SCALE_MAIN}, {SSSP_ROOTS} roots")
     sssp_phase(device)
 
+    log(f"[13] checked execution at scale {SCALE_MAIN} (phase 5's graph and keys)")
+    t0 = time.perf_counter()
+    checked = checked_execution(cfg_b, built, roots, res_root.parent, device)
+    log(f"    phase 13 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[14] BFS serving at scale {SCALE_MAIN} (pipeline.serve, {SERVE_CFG})")
+    t0 = time.perf_counter()
+    served = serving_phase(cfg_b, built, checked["weighted"], device)
+    log(f"    phase 14 took {time.perf_counter() - t0:.3f} s; the script so far "
+        f"{time.perf_counter() - t_start:.3f} s")
+    by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
+                          serving=served["launches"][name])
+               for name in ("frontier_update", "core_spmv")}
+    by_path["core_spmv"]["pre-g500-legacy"] = legacy_launches
+
     kernels = [
         dict(name="frontier_update", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier_update.cu",
              replaces="src/repro/kernels/bitmap_ops.py:62",
-             launches=launches["frontier_update"], max_abs_err=fu_err,
+             launches=sum(by_path["frontier_update"].values()),
+             launches_by_path=by_path["frontier_update"], max_abs_err=fu_err,
              ms=fu_ms, plain_ms=fu_plain, bound_ms=fu_bound[0],
              bound_by=fu_bound[1], library_ms=None, device_ms=fu_device_ms),
         dict(name="core_spmv", route="cuda",
              source="src/repro_torch/kernels/csrc/core_spmv.cu",
              replaces="src/repro/kernels/frontier_spmv.py:74",
-             launches=launches["core_spmv"] + legacy_launches, max_abs_err=cs_err,
+             launches=sum(by_path["core_spmv"].values()),
+             launches_by_path=by_path["core_spmv"], max_abs_err=cs_err,
              ms=cs_ms, plain_ms=cs_plain, bound_ms=cs_bound[0],
              bound_by=cs_bound[1], library_ms=None),
         dict(name="spmv_mxu", route="cuda",

@@ -11,8 +11,11 @@ validation layers.  The xDeepFM serving path
 (``models.recsys``, ``train.train_step``) runs its CIN layers through the
 hand-written ``cin_layer`` kernel, and ``kernels.ops.multi_source_spmv``
 advances many BFS frontiers over the heavy core with the ``spmv_mxu``
-kernel.  Entry points run on the card unless the caller passes
-``device="cpu"``.  The package imports neither ``jax`` nor anything of
+kernel.  Checked execution (``core.faults``: deterministic fault
+injection; ``CompiledBFS.run``'s retry -> fallback -> quarantine) and the
+BFS/SSSP serving engine (``serve``: coalescer, hot-root cache, checked
+batches; ``core.pipeline.serve``) run on the same plans.  Entry points run
+on the card unless the caller passes ``device="cpu"``.  The package imports neither ``jax`` nor anything of
 ``repro``.
 """
 from repro_torch import core, kernels

@@ -1,5 +1,5 @@
-"""The single-device Graph500 BFS and SSSP kernels in PyTorch (counterpart of
-repro.core)."""
+"""The single-device Graph500 BFS and SSSP kernels in PyTorch, with checked
+execution and fault injection (counterpart of repro.core)."""
 from repro_torch.core.kronecker import EdgeList, generate_edges, sample_roots
 from repro_torch.core.graph_build import (
     DEFAULT_MAX_WEIGHT, CSRGraph, build_csr, edge_weights,
@@ -12,6 +12,7 @@ from repro_torch.core.bfs_steps import (
     ChunkedEdgeView, EdgeView, chunk_edge_view, edge_view, masked_relax_step,
     relax_step, with_edge_weights,
 )
+from repro_torch.core.faults import FAULT_CLASSES, FaultSpec
 from repro_torch.core.hybrid_bfs import BFSResult, BFSStats
 from repro_torch.core.sssp_steps import (
     INF_U32, bucket_width, sssp_max_rounds, sssp_oracle,
@@ -23,10 +24,10 @@ from repro_torch.core.validate import (
 from repro_torch.core.kernels import KernelSpec, kernel_spec, rekernel_plan
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.plan import (
-    BFSPlan, CompiledBFS, Graph500Result, PreparedGraph, TraversalPlan,
-    compile_plan,
+    BFSPlan, CompiledBFS, Graph500Result, PreparedGraph, ServeBatch,
+    TraversalPlan, compile_plan,
 )
-from repro_torch.core.pipeline import BuiltGraph, Graph500Config, build, run
+from repro_torch.core.pipeline import BuiltGraph, Graph500Config, build, run, serve
 
 __all__ = [
     "EdgeList", "generate_edges", "sample_roots", "CSRGraph", "build_csr",
@@ -40,5 +41,6 @@ __all__ = [
     "BFSResult", "BFSStats", "CHECK_NAMES", "validate", "validate_batch",
     "Graph500Run", "traversed_edges", "BFSPlan", "CompiledBFS",
     "Graph500Result", "PreparedGraph", "TraversalPlan", "compile_plan",
-    "BuiltGraph", "Graph500Config", "build", "run",
+    "BuiltGraph", "Graph500Config", "build", "run", "serve", "FAULT_CLASSES",
+    "FaultSpec", "ServeBatch",
 ]

@@ -39,6 +39,7 @@ from repro_torch.core.bfs_steps import (
     ChunkedEdgeView, EdgeView, chunk_frontier_mask, frontier_edge_count,
     masked_relax_step, relax_step, unvisited_edge_count,
 )
+from repro_torch.core.faults import corrupt_parent, fires
 from repro_torch.core.heavy import HeavyCore, pack_bitmap, padded_bitmap_words, testbit
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import BIG, popcount_u32
@@ -242,9 +243,11 @@ def _relax_edges(sc, dc, vc, frontier_bm, visited_bm, parent_ext, v: int) -> Non
 def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                      n_active: int, root: int, core: HeavyCore | None, *,
                      alpha: float, beta: float, max_levels: int,
-                     tail) -> BFSResult:
+                     tail, fault=None) -> BFSResult:
     """One bitmap-resident traversal from ``root`` (host loop, one sync a
-    level).  ``tail`` is :func:`bottom_up_tail` of the graph."""
+    level).  ``tail`` is :func:`bottom_up_tail` of the graph; ``fault`` a
+    :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
+    corrupts the level's epilogue (None: the clean traversal)."""
     v = chunks.num_vertices
     dev = degree.device
     i32 = torch.int32
@@ -304,6 +307,11 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
         # Epilogue: pack the newly-found delta, then the fused kernel does
         # mask / merge / popcount in one pass, into the idle pair.
         newly = (parent_ext[:v] != v) & unvisited
+        if fires(fault, "parent", level=lvl, root=root):
+            # the frontier still comes from the uncorrupted delta
+            parent_ext[:v] = corrupt_parent(
+                fault, parent_ext[:v], newly,
+                torch.arange(v, dtype=i32, device=dev), v, level=lvl, root=root)
         found = pack_bitmap(newly, w)
         next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
         kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
@@ -340,7 +348,8 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
 
 def _run_batch(chunks, degree, n_active, roots, core, **kw) -> BFSResult:
     """The roots one after another through the per-root engine, stacked into
-    one batched result ([R, ...] leaves)."""
+    one batched result ([R, ...] leaves); a ``fault=`` keyword reaches every
+    traversal, each with its own root for the fault's root predicate."""
     results = [_run_bitmap_impl(chunks, degree, n_active, int(r), core, **kw)
                for r in roots]
     return stack_results(results)

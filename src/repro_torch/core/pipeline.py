@@ -16,7 +16,9 @@ four of Fig. 18 and two more:
                     one batch (wall-clock / n per search).
 
 ``kernel="sssp"`` runs Graph500's second kernel, δ-stepping SSSP, on the
-same graph with a weight plane seeded from ``seed``.  The mesh and tuned
+same graph with a weight plane seeded from ``seed``.  ``retries`` and
+``fallback`` arm the checked run's recovery; :func:`serve` stands up the
+serving engine on the same graph and plan.  The mesh and tuned
 rungs need a device mesh or a tuned plan table; asking for them raises
 ``NotImplementedError``.  Everything runs on the card unless
 ``Graph500Config.device`` says ``"cpu"``.
@@ -73,6 +75,11 @@ class Graph500Config:
     beta: float = 24.0
     batched: bool = False                  # time the root batch as one
     check: str = "post"                    # "off" | "post" | "full"
+    # Checked-execution recovery: the per-root retry budget, and whether
+    # still-failing roots re-run on the degraded single-device plan before
+    # quarantine.
+    retries: int = 0
+    fallback: bool = False
     # Graph500 kernel: "bfs" or "sssp".  Under "sssp" the build attaches the
     # symmetric weight plane (seeded from ``seed``, uniform in
     # [1, max_weight]) and the plan runs the δ-stepping engine.
@@ -159,4 +166,27 @@ def run(cfg: Graph500Config, built: BuiltGraph | None = None,
     :func:`search_keys`."""
     built = built or build(cfg)
     compiled = compile_plan(cfg.to_plan(), built, device=cfg.device)
-    return built, compiled.run(search_keys(cfg, built, roots), check=cfg.check).run
+    return built, compiled.run(search_keys(cfg, built, roots), check=cfg.check,
+                               retries=cfg.retries, fallback=cfg.fallback).run
+
+
+def serve(cfg: Graph500Config, serve_cfg=None, built: BuiltGraph | None = None,
+          fault=None):
+    """Stand up the persistent serving engine on this config's graph and
+    plan: build once, compile once; returns ``(built, engine)``, and traces
+    go to ``engine.serve``.
+
+    ``serve_cfg`` is a :class:`repro_torch.serve.engine.ServeConfig`
+    (defaults apply when None, with ``cfg.check``/``cfg.retries``).  The
+    plan is :meth:`Graph500Config.to_plan` with ``batch_roots`` forced on
+    by the engine; it runs on ``cfg.device``.  ``fault`` is threaded into
+    every traversal (:mod:`repro_torch.core.faults`).
+    """
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    built = built or build(cfg)
+    if serve_cfg is None:
+        serve_cfg = ServeConfig(check=cfg.check, retries=cfg.retries)
+    engine = Engine(built, plan=cfg.to_plan(), config=serve_cfg, fault=fault,
+                    device=cfg.device)
+    return built, engine

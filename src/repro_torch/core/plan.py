@@ -12,21 +12,25 @@ Counterpart of ``repro.core.plan`` for the slice of it that is ported:
      warm-up outside the timed region, spec validation, harmonic-mean TEPS.
 
 Ported: ``layout=()`` with every engine of the BFS kernel (``bitmap``,
-``reference``, ``legacy``) and the SSSP kernel (``bitmap``), and ``check``
-in off|post|full.  The kernel's row of :mod:`repro_torch.core.kernels`
-gives its engines, exchanges, weight needs and validation.  Every other
-layout, fault injection and the retry/fallback recovery raise
-``NotImplementedError`` naming the ``ROADMAP.md`` queue item that ports
-them.  ``batch_roots=True`` (bitmap engine only, as in the JAX package)
-runs the roots one after another through the per-root engine and keeps
-the batched timing convention (wall-clock / n).
+``reference``, ``legacy``) and the SSSP kernel (``bitmap``), and checked
+execution: ``check`` in off|post|full, fault injection
+(``compile_plan(fault=)``, :mod:`repro_torch.core.faults`) and the
+detect -> retry -> degraded fallback -> quarantine recovery of
+:meth:`CompiledBFS.run`, with its untimed serving primitive
+:meth:`CompiledBFS.serve_batch`.  The kernel's row of
+:mod:`repro_torch.core.kernels` gives its engines, exchanges, weight needs
+and validation.  Every other layout raises ``NotImplementedError`` naming
+the ``ROADMAP.md`` queue item that ports it.  ``batch_roots=True`` (bitmap
+engine only, as in the JAX package) runs the roots one after another
+through the per-root engine and keeps the batched timing convention
+(wall-clock / n).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -178,6 +182,18 @@ class PreparedGraph:
     chunks: Optional[ChunkedEdgeView] = None
 
 
+class ServeBatch(NamedTuple):
+    """Checked, untimed solve of one root batch for the serving engine:
+    numpy rows in batch order plus the detection report.  ``failures``
+    maps batch-row index -> failed check names for the rows still failing
+    after any retry/fallback recovery."""
+
+    parent: np.ndarray          # [B, V] int32
+    level: np.ndarray           # [B, V] int32
+    counts: dict                # check name -> failing rows at detection
+    failures: dict              # row index -> failed check names (final)
+
+
 @dataclass
 class Graph500Result:
     """Uniform runner output."""
@@ -199,14 +215,15 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
     ``device=None`` means the card, and raises without one; the graph's
     tensors must already lie on the resolved device.  The SSSP kernel
     needs the weight plane on ``built.ev`` (``with_edge_weights``); its
-    bucket width comes from the largest weight.
+    bucket width comes from the largest weight.  ``fault`` is a
+    :class:`~repro_torch.core.faults.FaultSpec` threaded into every
+    traversal of the plan (the legacy engines have no injection sites and
+    reject one); ``None`` runs the clean traversal.
     """
     validate_plan(plan)
     if fault is not None and plan.engine != "bitmap":
         raise ValueError(f"fault injection requires engine='bitmap' (got "
                          f"{plan.engine!r}); the legacy engines have no hooks")
-    if fault is not None:
-        raise _not_ported("fault injection", "Faults and checked execution")
     dev = resolve_device(device)
     pg = PreparedGraph(ev=getattr(built, "ev", None),
                        degree=getattr(built, "degree", None),
@@ -243,7 +260,7 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
     return CompiledBFS(
         plan=plan, graph=pg, device=dev, num_vertices=pg.ev.num_vertices,
         n_active=int((pg.degree > 0).sum()), core=core, tail=tail,
-        delta=delta, max_rounds=max_rounds)
+        delta=delta, max_rounds=max_rounds, fault=fault)
 
 
 @dataclass
@@ -259,17 +276,20 @@ class CompiledBFS:
     tail: Optional[tuple]       # bottom_up_tail of the bitmap BFS engine
     delta: int = 0              # SSSP bucket width
     max_rounds: int = 0         # SSSP round bound
+    fault: Any = None           # the FaultSpec of every traversal, or None
+    _fallback: Any = field(default=None, repr=False)  # degraded-plan CompiledBFS
 
     def _traverse(self, root: int) -> BFSResult:
         """One traversal of the plan's kernel and engine from ``root``."""
         g, p = self.graph, self.plan
         if p.kernel == "sssp":
             return _run_sssp_impl(g.chunks, g.degree, root, delta=self.delta,
-                                  max_rounds=self.max_rounds)
+                                  max_rounds=self.max_rounds, fault=self.fault)
         if p.engine == "bitmap":
             return _run_bitmap_impl(g.chunks, g.degree, self.n_active, root,
                                     self.core, alpha=p.alpha, beta=p.beta,
-                                    max_levels=p.max_levels, tail=self.tail)
+                                    max_levels=p.max_levels, tail=self.tail,
+                                    fault=self.fault)
         return _run_legacy(g.ev, g.degree, self.n_active, root, self.core,
                            engine=p.engine, alpha=p.alpha, beta=p.beta,
                            max_levels=p.max_levels)
@@ -283,38 +303,119 @@ class CompiledBFS:
         roots = [int(r) for r in np.asarray(roots).reshape(-1)]
         if p.kernel == "sssp":
             return _run_sssp_batch(g.chunks, g.degree, roots, delta=self.delta,
-                                   max_rounds=self.max_rounds)
+                                   max_rounds=self.max_rounds, fault=self.fault)
         return _run_batch(g.chunks, g.degree, self.n_active, roots, self.core,
                           alpha=p.alpha, beta=p.beta, max_levels=p.max_levels,
-                          tail=self.tail)
+                          tail=self.tail, fault=self.fault)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, roots, *, check: str = "post", retries: int = 0,
+    def _solve_roots(self, roots_np):
+        """Untimed re-solve of the given roots: ``[n, V]`` parent and level
+        rows on the plan's device and the per-root sentinel trace (None for
+        the engines without one)."""
+        roots_np = np.asarray(roots_np, np.int64).reshape(-1)
+        if self.plan.batch_roots:
+            res = self.bfs(roots_np)
+        else:
+            res = stack_results([self.bfs(int(r)) for r in roots_np])
+        return res.parent, res.level, res.stats.sentinel
+
+    def _fallback_compiled(self):
+        """The degraded recovery plan: the batched single-device bitmap
+        traversal of the plan's kernel on the same device, compiled lazily
+        and cached; ``None`` when this plan already is that shape.  The
+        fault rides along: recovery routes around a broken exchange, it
+        does not un-break the engine, so a fault whose site exists on the
+        degraded path persists."""
+        if self._fallback is not None:
+            return self._fallback
+        p = self.plan
+        if not p.layout and p.engine == "bitmap" and p.batch_roots:
+            return None
+        fb_plan = TraversalPlan(engine="bitmap", layout=(), batch_roots=True,
+                                alpha=p.alpha, beta=p.beta,
+                                max_levels=p.max_levels, n_chunks=p.n_chunks,
+                                kernel=p.kernel)
+        g = self.graph
+        self._fallback = compile_plan(
+            fb_plan, PreparedGraph(ev=g.ev, degree=g.degree, core=g.core,
+                                   chunks=g.chunks),
+            device=self.device, fault=self.fault)
+        return self._fallback
+
+    def _recover(self, roots_np, parent, level, failures, check, retries,
+                 fallback, on_patch=None) -> tuple[int, int]:
+        """Retry, then the degraded fallback, for the rows in ``failures``.
+
+        A re-solved row that passes the checks replaces its row of
+        ``parent``/``level`` in place (``on_patch(i, parent_row)`` is told)
+        and leaves ``failures``; a row still failing keeps its newest check
+        names.  Returns the rows re-solved by retry and by fallback.
+        """
+        kernel = self.plan.kernel
+
+        def attempt(idx, solver):
+            p2, l2, s2 = solver(roots_np[idx])
+            f2 = _recheck_rows(self.graph.ev, p2, l2, roots_np[idx], check, s2,
+                               kernel=kernel)
+            for j, i in enumerate(idx):
+                if j in f2:
+                    failures[i] = f2[j]
+                    continue
+                parent[i] = p2[j]
+                level[i] = l2[j]
+                if on_patch is not None:
+                    on_patch(i, p2[j])
+                del failures[i]
+
+        n_retried = n_fallback = 0
+        for _ in range(max(0, int(retries))):
+            if not failures:
+                break
+            idx = sorted(failures)
+            n_retried += len(idx)
+            attempt(idx, self._solve_roots)
+        if failures and fallback:
+            fb = self._fallback_compiled()
+            if fb is not None:
+                idx = sorted(failures)
+                n_fallback += len(idx)
+                attempt(idx, fb._solve_roots)
+        return n_retried, n_fallback
+
+    def run(self, roots, *, warmup: bool = True, do_validate: bool = True,
+            check: Optional[str] = None, retries: int = 0,
             fallback: bool = False) -> Graph500Result:
-        """Graph500 steps 3 + 4 under this plan.
+        """Graph500 steps 3 + 4 under this plan, with checked execution.
 
         Batched plans time the whole root batch and attribute
         wall-clock / n_roots to each search; per-root plans time each
-        search.  The warm-up is one traversal of the first root by the
-        plan's kernel and engine, outside the timed region (it builds and
-        loads the kernels).
+        search.  The warm-up (``warmup=True``) is one traversal of the first
+        root by the plan's kernel and engine, outside the timed region (it
+        builds and loads the kernels).
 
         ``check``: ``"off"`` (no checks, ``all_valid`` reports False),
         ``"post"`` (the kernel's five spec checks on every root, with
         per-check counts) or ``"full"`` (``"post"`` plus the in-loop
         sentinel trace as the ``"sentinel"`` check, for the engines that
-        carry one).  ``retries``/``fallback`` (recovery of failing roots)
-        are not ported yet and raise.  For SSSP the ``level`` rows hold
-        the distances.
+        carry one); ``None`` maps ``do_validate`` onto ``"post"`` /
+        ``"off"``.  For SSSP the ``level`` rows hold the distances.
+
+        Recovery: roots failing any check are re-solved untimed up to
+        ``retries`` times, then (``fallback=True``) on the degraded plan of
+        :meth:`_fallback_compiled`.  A recovered root keeps its first time
+        and takes the edge count of its new parents.  Roots still failing
+        are **quarantined**: TEPS 0.0, so the harmonic mean excludes them,
+        and their ids in ``run.quarantined``.  ``run.retries`` /
+        ``run.fallbacks`` count the roots re-solved per stage.
         """
+        if check is None:
+            check = "post" if do_validate else "off"
         if check not in ("off", "post", "full"):
             raise ValueError(f"check must be 'off', 'post' or 'full' (got {check!r})")
-        if retries or fallback:
-            raise _not_ported("retries/fallback recovery",
-                              "Faults and checked execution")
         roots_np = np.asarray(roots, np.int64).reshape(-1)
         n = len(roots_np)
         v = self.num_vertices
@@ -322,8 +423,9 @@ class CompiledBFS:
         if n == 0:
             return Graph500Result(np.zeros((0, v), np.int32),
                                   np.zeros((0, v), np.int32), g500, self.plan)
-        self._traverse(int(roots_np[0]))
-        self._sync()
+        if warmup:
+            self._traverse(int(roots_np[0]))
+            self._sync()
 
         if self.plan.batch_roots:
             t0 = time.perf_counter()
@@ -340,29 +442,71 @@ class CompiledBFS:
                 rows.append(row)
             res = stack_results(rows)
 
-        edges = traversed_edges(self.graph.degree, res.parent).cpu().numpy()
+        degree = self.graph.degree
+        parent, level = res.parent, res.level   # fresh stacks: patched in place
+        edges = traversed_edges(degree, parent).cpu().numpy()
         g500.times_s = [float(dt) for dt in times]
         g500.edges = [int(m) for m in edges]
         g500.teps = [m / dt if dt > 0 else 0.0
                      for m, dt in zip(g500.edges, times)]
 
         counts, failures = _check_batch(
-            self.graph.ev, res.parent, res.level, roots_np, check,
-            res.stats.sentinel, kernel=self.plan.kernel)
+            self.graph.ev, parent, level, roots_np, check, res.stats.sentinel,
+            kernel=self.plan.kernel)
         g500.check_counts = dict(counts)
         g500.check_failures = {int(roots_np[i]): list(names)
                                for i, names in failures.items()}
+
+        def patched(i, row):
+            m = int(traversed_edges(degree, row))
+            g500.edges[i] = m
+            g500.teps[i] = m / times[i] if times[i] > 0 else 0.0
+
+        g500.retries, g500.fallbacks = self._recover(
+            roots_np, parent, level, failures, check, retries, fallback,
+            on_patch=patched)
+        for i in sorted(failures):
+            g500.teps[i] = 0.0      # quarantined: excluded from the hmean
+            g500.quarantined.append(int(roots_np[i]))
         if counts:
             g500.validated = [i not in failures for i in range(n)]
-        return Graph500Result(res.parent.cpu().numpy(), res.level.cpu().numpy(),
+        return Graph500Result(parent.cpu().numpy(), level.cpu().numpy(),
                               g500, self.plan)
+
+    def serve_batch(self, roots, *, check: str = "post", retries: int = 0,
+                    fallback: bool = False) -> ServeBatch:
+        """One checked, untimed root-batch solve: the serving primitive.
+
+        The detect -> retry -> degraded-fallback machinery of :meth:`run`
+        without its harness (warm-up, clock, TEPS, quarantine): the serving
+        engine owns the clock and the recovery policy, so rows still failing
+        come back in ``failures`` for the caller to re-queue.  Rows are in
+        batch order and lie on the host when this returns.
+        """
+        if check not in ("off", "post", "full"):
+            raise ValueError(f"check must be 'off', 'post' or 'full' (got {check!r})")
+        roots_np = np.asarray(roots, np.int64).reshape(-1)
+        if roots_np.size == 0:
+            v = self.num_vertices
+            return ServeBatch(np.zeros((0, v), np.int32),
+                              np.zeros((0, v), np.int32), {}, {})
+        parent, level, sent = self._solve_roots(roots_np)
+        counts, failures = _check_batch(self.graph.ev, parent, level, roots_np,
+                                        check, sent, kernel=self.plan.kernel)
+        self._recover(roots_np, parent, level, failures, check, retries, fallback)
+        return ServeBatch(parent.cpu().numpy(), level.cpu().numpy(), counts,
+                          failures)
 
 
 def _check_batch(ev, parents, levels, roots, check, sent, kernel="bfs"):
-    """Per-check failure counts (zeros included whenever the spec checks
-    ran) and a row-index -> failed-check-names map.  The checks are the
-    kernel's; ``sent`` is the per-row in-loop sentinel trace, applied under
-    ``check="full"`` (None for the engines without one)."""
+    """Detection pass shared by :meth:`CompiledBFS.run`,
+    :meth:`CompiledBFS.serve_batch` and the recovery rechecks.
+
+    Per-check failure counts (zeros included whenever the spec checks ran)
+    and a row-index -> failed-check-names map, for any rows and their
+    roots.  The checks are the kernel's; ``sent`` is the per-row in-loop
+    sentinel trace, applied under ``check="full"`` (None for the engines
+    without one)."""
     counts: dict[str, int] = {}
     failures: dict[int, list[str]] = {}
     if check != "off":
@@ -375,3 +519,9 @@ def _check_batch(ev, parents, levels, roots, check, sent, kernel="bfs"):
         for j in np.nonzero(bad)[0]:
             failures.setdefault(int(j), []).append("sentinel")
     return counts, failures
+
+
+def _recheck_rows(ev, parents, levels, roots, check, sent, kernel="bfs"):
+    """Failure map (row index -> failed check names) of rows re-solved
+    during recovery: the same checks as the first pass."""
+    return _check_batch(ev, parents, levels, roots, check, sent, kernel=kernel)[1]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bfs_steps import ChunkedEdgeView
+from repro_torch.core.faults import corrupt_parent, fires
 from repro_torch.core.hybrid_bfs import BFSResult, BFSStats, stack_results
 
 #: Exchange wirings of the SSSP kernel (the JAX package's vocabulary; the
@@ -60,14 +61,16 @@ def sssp_max_rounds(max_levels: int) -> int:
 
 
 def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
-                   delta: int, max_rounds: int) -> BFSResult:
+                   delta: int, max_rounds: int, fault=None) -> BFSResult:
     """One δ-stepping SSSP from ``root`` over the flat edge view (the
     chunked layout reshaped back, as the JAX engine does: which chunks a
     bucket touches depends on the weights, not the degree order).
 
     Inactive lanes scatter the pass's neutral value into their own
     destination rather than into slot ``V``: ``INF_U32`` in pass A, ``V`` in
-    pass B, each at least every entry it meets.
+    pass B, each at least every entry it meets.  ``fault`` (a
+    :class:`~repro_torch.core.faults.FaultSpec`) with the ``parent`` site
+    corrupts the improved vertices' parents after pass B, by round.
     """
     if chunks.weight is None:
         raise ValueError("SSSP needs a weighted ChunkedEdgeView")
@@ -121,6 +124,10 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
         won = active & (cand == new_dist_ext[dst])
         parent_ext = pext.scatter_reduce(0, dst, torch.where(won, src, v),
                                          "amin", include_self=True)
+        if fires(fault, "parent", level=rnd, root=root):
+            parent_ext[:v] = corrupt_parent(
+                fault, parent_ext[:v], improved,
+                torch.arange(v, dtype=i32, device=dev), v, level=rnd, root=root)
 
         changed = (changed & ~front) | improved
         n_changed_t = changed.sum()
@@ -153,10 +160,11 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
 
 
 def _run_sssp_batch(chunks: ChunkedEdgeView, degree: torch.Tensor, roots, *,
-                    delta: int, max_rounds: int) -> BFSResult:
+                    delta: int, max_rounds: int, fault=None) -> BFSResult:
     """The roots one after another, stacked into ``[R, ...]`` leaves."""
     return stack_results([
-        _run_sssp_impl(chunks, degree, int(r), delta=delta, max_rounds=max_rounds)
+        _run_sssp_impl(chunks, degree, int(r), delta=delta, max_rounds=max_rounds,
+                       fault=fault)
         for r in roots])
 
 

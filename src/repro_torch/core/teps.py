@@ -35,7 +35,13 @@ class Graph500Run:
     # Checked-execution bookkeeping: ``check_counts`` maps check name ->
     # number of roots failing it (zeros included when checks ran; empty
     # when check="off"); ``check_failures`` maps failing root id -> failed
-    # check names.
+    # check names.  ``retries`` / ``fallbacks`` count roots re-solved per
+    # recovery stage; ``quarantined`` lists root ids still failing
+    # afterwards (their TEPS is forced to 0.0, excluding them from the
+    # hmean).
+    retries: int = 0
+    fallbacks: int = 0
+    quarantined: list[int] = field(default_factory=list)
     check_counts: dict[str, int] = field(default_factory=dict)
     check_failures: dict[int, list[str]] = field(default_factory=dict)
 

@@ -1,1 +1,2 @@
-"""Synthetic data streams of the port."""
+"""Synthetic data streams of the port: graphs, recsys batches and serving
+query traces."""

@@ -28,6 +28,7 @@ from repro_torch.core.hybrid_bfs import BFSResult, _switch_direction
 from repro_torch.core.plan import BFSPlan, compile_plan
 from repro_torch.core.teps import batch_harmonic_mean_teps
 from repro_torch.core.validate import failure_report, validate, validate_batch
+from repro_torch.serve.engine import resolve_serve_plan
 
 torch.set_num_threads(2)
 
@@ -280,14 +281,16 @@ def test_unported_plans_raise(kw, err):
 def test_unported_run_options_raise():
     _, tb, roots = graphs(10)
     c = compile_plan(BFSPlan(), tb, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        c.run(roots, retries=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_plan(BFSPlan(), tb, device="cpu", fault=object())
+    # checked execution is ported (tests/test_torch_faults.py): recovery
+    # armed on a clean plan finds nothing to do
+    run = c.run(roots, retries=1, fallback=True).run
+    assert run.all_valid and (run.retries, run.fallbacks, run.quarantined) == (0, 0, [])
     with pytest.raises(ValueError, match="check must be"):
         c.run(roots, check="half")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_plan(BFSPlan(kernel="sssp"), tb, device="cpu", fault=object())
+    with pytest.raises(NotImplementedError, match="'Multi-device layouts'"):
+        compile_plan(BFSPlan(layout=("root",)), tb, device="cpu")
+    with pytest.raises(NotImplementedError, match="'Tuning'"):
+        resolve_serve_plan(10)
     for rung in ("pre-g500-mesh", "pre-g500-tuned"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pipeline.Graph500Config.ladder(rung)

@@ -7,6 +7,8 @@ runs on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -403,7 +405,6 @@ def test_new_kernel_wrappers_refuse_bad_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_cin_kernel", [False, True])
 def test_xdeepfm_serve_on_card_matches_cpu(cuda, use_cin_kernel):
-    import dataclasses
     from repro_torch.configs import get
     from repro_torch.models import recsys
     from repro_torch.train import train_step as ts
@@ -427,3 +428,82 @@ def test_xdeepfm_serve_on_card_matches_cpu(cuda, use_cin_kernel):
         got_feat = recsys.cin_features(params, recsys.embed(params, ids.to(cuda), cfg)[1],
                                        cfg)
     torch.testing.assert_close(got_feat.cpu(), feat, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Checked execution and serving on the card
+# ---------------------------------------------------------------------------
+
+def _scale12_on_both(cuda):
+    """The same scale-12 edge list built on the CPU and on the card, with
+    its search keys (in the edge list's labels) and built graphs."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.kronecker import EdgeList, generate_edges
+    e = generate_edges(5, 12, device="cpu")
+    keys = e.src[e.src != e.dst][:4].numpy()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.Graph500Config.ladder("pre-g500-batch", scale=12, n_roots=4,
+                                             device=dev)
+        built = pipeline.build(cfg, edges=EdgeList(e.src.to(dev), e.dst.to(dev),
+                                                   e.num_vertices))
+        out[dev] = (cfg, built, pipeline.search_keys(cfg, built, keys))
+    return out
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_offline_and_cpu(cuda):
+    # a Zipf trace served through the engine on the card: every answer, hit
+    # or miss, equals the offline run, and the card's serving equals the CPU's
+    from repro_torch.core import pipeline
+    from repro_torch.data.query_trace import synth_trace
+    from repro_torch.serve.engine import ServeConfig
+    reports = []
+    for dev, (cfg, built, _) in _scale12_on_both(cuda).items():
+        _, eng = pipeline.serve(cfg, ServeConfig(batch_size=4, max_wait_s=0.01,
+                                                 cache_capacity=16), built=built)
+        assert eng.compiled.device.type == dev
+        trace = synth_trace(7, 24, built.n_vertices, rate_qps=50.0, zipf_s=1.3,
+                            degree=built.degree)
+        before = ops.launch_counts()
+        report = eng.serve(trace)
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        if dev == "cuda":
+            assert launched["frontier_update"] > 0 and launched["core_spmv"] > 0
+        assert all(a.kind != "failed" for a in report.answers)
+        uniq = sorted({a.root for a in report.answers})
+        res = eng.compiled.run(np.asarray(uniq), warmup=False, check="post")
+        assert res.run.all_valid
+        idx = {r: i for i, r in enumerate(uniq)}
+        for a in report.answers:
+            np.testing.assert_array_equal(a.parent, res.parent[idx[a.root]])
+            np.testing.assert_array_equal(a.level, res.level[idx[a.root]])
+        reports.append({a.root: a.parent for a in report.answers})
+    assert reports[0].keys() == reports[1].keys()
+    for r in reports[0]:
+        np.testing.assert_array_equal(reports[0][r], reports[1][r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [True, False])
+def test_parent_fault_quarantined_on_card(cuda, batch):
+    # a persistent parent fault on one root: detected, retried, quarantined
+    # (the per-root plan also falls back once); the other rows are clean
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.plan import compile_plan
+    cfg, built, roots = _scale12_on_both(cuda)["cuda"]
+    plan = dataclasses.replace(cfg.to_plan(), batch_roots=batch)
+    bad = int(roots[1])
+    fault = FaultSpec("parent", "self", level=1, persistent=True, root=bad)
+    run = compile_plan(plan, built, fault=fault).run(roots, check="full", retries=1,
+                                                      fallback=True)
+    clean = compile_plan(plan, built).run(roots, check="full")
+    assert clean.run.all_valid
+    g = run.run
+    assert set(g.check_failures) == {bad} and "depth" in g.check_failures[bad]
+    assert (g.retries, g.fallbacks) == (1, 0 if batch else 1)
+    assert g.quarantined == [bad] and g.teps[1] == 0.0
+    assert g.validated == [True, False, True, True]
+    keep = [0, 2, 3]
+    np.testing.assert_array_equal(run.parent[keep], clean.parent[keep])
+    assert not np.array_equal(run.parent[1], clean.parent[1])

@@ -3,6 +3,7 @@ anything of ``repro``, its entry points run on the card unless asked for
 the CPU, and ``chip_smoke.py`` refuses to run without a card or without
 the repository beside it."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -27,6 +28,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.models.recsys, repro_torch.train.train_step\n"
         "import repro_torch.configs, repro_torch.data.synthetic\n"
         "import repro_torch.data.graphs, repro_torch.core.sssp_steps\n"
+        "import repro_torch.core.faults, repro_torch.serve.engine\n"
+        "import repro_torch.data.query_trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -92,6 +95,11 @@ def test_entry_points_need_cuda_unless_cpu():
     assert built.ev.src.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compile_plan(BFSPlan(), built)
+    from repro_torch.serve.engine import Engine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(built)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.serve(dataclasses.replace(cfg, device=None), built=built)
     _, run = pipeline.run(cfg, built)
     assert run.all_valid and len(run.teps) == 2
 

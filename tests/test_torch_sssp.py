@@ -372,9 +372,11 @@ def test_sssp_requires_weight_plane():
 def test_sssp_unported_options_still_raise():
     _, tp, roots = weighted("erdos_renyi")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_plan(TraversalPlan(kernel="sssp"), tp, device="cpu", fault=object())
+        compile_plan(TraversalPlan(kernel="sssp", layout=("group", "member")), tp,
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         compile_plan(TraversalPlan(kernel="sssp", layout=("root",)), tp, device="cpu")
+    # checked execution is ported for SSSP too (tests/test_torch_faults.py)
     c = compile_plan(TraversalPlan(kernel="sssp"), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        c.run(roots, retries=1)
+    run = c.run(roots, retries=1, fallback=True).run
+    assert run.all_valid and (run.retries, run.fallbacks, run.quarantined) == (0, 0, [])
