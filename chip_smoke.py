@@ -80,12 +80,23 @@ non-zero and no result line is printed:
      ms per batch; a faulted engine (a persistent parent fault on the
      burst trace's hottest root): every query for it failed after the
      requeues, every other answer equal to the clean run; an SSSP engine
-     on 16 queries equal to the offline SSSP run.
+     on 16 queries equal to the offline SSSP run;
+ 15. the plan auto-tuner: ``tune.sweep`` at scale 20 under the ``full``
+     budget (12 candidates on one card: α/β x ``n_chunks``), 16 roots, 3
+     reps, on the card: its ranked table, every candidate accepted and
+     bitwise identical to the oracle, both kernels launched during the
+     sweep, the winner against the default plan (α 14, β 24, 64 chunks);
+     the sweep's table saved to a temporary file (never into the
+     repository) and read through ``REPRO_TORCH_TUNED_PLANS``: the
+     ``pre-g500-tuned`` rung on phase 5's graph runs the winner, valid;
+     ``resolve_serve_plan(scale=20)`` returns the winner, batched; with
+     the table missing both fall back to the untuned plan.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
-of phase 13 and the serving of phase 14), each counted from 0 just before
-its run and read just after; ``launches_by_path`` lists them.  The last
+of phase 13, the serving of phase 14, and the sweep and the tuned rung of
+phase 15), each counted from 0 just before its run and read just after;
+``launches_by_path`` lists them.  The last
 two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
 exits non-zero.
@@ -143,6 +154,10 @@ SERVE_CFG = dict(batch_size=8, max_wait_s=0.05, cache_capacity=128, check="post"
 SERVE_TRACES = (("serve_steady", 2.0, 1.4), ("serve_burst", 2000.0, 1.1))
 SERVE_QUERIES = 64
 SERVE_SSSP_QUERIES = 16
+# phase 15: the sweep the plan auto-tuner runs for a scale-20 table
+TUNE_BUDGET = "full"
+TUNE_REPS = 3
+TUNE_DEFAULT = dict(alpha=14.0, beta=24.0, n_chunks=64)
 
 
 def log(msg: str) -> None:
@@ -1163,6 +1178,93 @@ def serving_phase(cfg_b, built, weighted, device) -> dict:
     return dict(launches=launches)
 
 
+def tuning_phase(built, run_b, device) -> dict:
+    """Phase 15: the plan auto-tuner's sweep on the card (every candidate
+    accepted bitwise, both kernels launched), then its table through the
+    ``pre-g500-tuned`` rung and the serving plan, and their fallback with
+    no table."""
+    import os
+    import tempfile
+    from repro_torch.core import pipeline, tune
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import resolve_serve_plan
+
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = tune.sweep(SCALE_MAIN, budget=TUNE_BUDGET, n_roots=N_ROOTS, reps=TUNE_REPS,
+                     device=device.type, log=lambda msg: None)
+    sync(device)
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = ops.launch_counts()
+    for line in rep.table().splitlines():
+        log(f"    {line}")
+    log(f"    sweep of {len(rep.results) + len(rep.skipped)} candidates in "
+        f"{sweep_s:.6f} s (graph build, oracle and each candidate's parity pass "
+        f"included); launches during the sweep {sweep_launches}")
+    if rep.skipped or len(rep.results) != len(tune.enumerate_plans(
+            rep.n_devices, tune.BUDGETS[TUNE_BUDGET])):
+        raise AssertionError(f"sweep: {[(r.status, r.reason) for r in rep.skipped]}")
+    if not all(r.identical for r in rep.results):
+        raise AssertionError("sweep: an accepted candidate is not bitwise identical")
+    if sweep_launches["frontier_update"] <= 0 or sweep_launches["core_spmv"] <= 0:
+        raise AssertionError(f"sweep launched {sweep_launches}")
+    win = rep.winner
+    default = [r for r in rep.results
+               if all(getattr(r.plan, k) == v for k, v in TUNE_DEFAULT.items())][0]
+    log(f"    winner alpha {win.plan.alpha:g} beta {win.plan.beta:g} n_chunks "
+        f"{win.plan.n_chunks}: {win.per_root_us:.6f} us per root, hmean TEPS "
+        f"{win.harmonic_mean_teps:.6e}; default (alpha 14, beta 24, 64 chunks): "
+        f"{default.per_root_us:.6f} us per root, hmean TEPS "
+        f"{default.harmonic_mean_teps:.6e}; default / winner "
+        f"{default.per_root_us / win.per_root_us:.6f}")
+
+    old_env = os.environ.get(tune.TABLE_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ[tune.TABLE_ENV] = tune.save_tuned(
+                rep, os.path.join(tmp, "TUNED_PLANS_torch.json"))
+            cfg = pipeline.Graph500Config.ladder(
+                "pre-g500-tuned", scale=SCALE_MAIN, n_roots=N_ROOTS, check="full",
+                device=device.type)
+            if cfg.to_plan() != win.plan:
+                raise AssertionError(f"pre-g500-tuned runs {cfg.to_plan()}, the "
+                                     f"winner is {win.plan}")
+            sync(device)
+            ops.reset_launch_counts()
+            _, run_t = pipeline.run(cfg, built)
+            sync(device)
+            tuned_launches = ops.launch_counts()
+            check_valid("pre-g500-tuned", run_t)
+            if tuned_launches["frontier_update"] <= 0 or tuned_launches["core_spmv"] <= 0:
+                raise AssertionError(f"pre-g500-tuned launched {tuned_launches}")
+            served = resolve_serve_plan(scale=SCALE_MAIN, device=device.type)
+            if served != dataclasses.replace(win.plan, batch_roots=True):
+                raise AssertionError(f"resolve_serve_plan(scale={SCALE_MAIN}) gave "
+                                     f"{served}")
+            log(f"    pre-g500-tuned on phase 5's graph runs the winner: hmean TEPS "
+                f"{run_t.harmonic_mean_teps:.6e} (phase 5's pre-g500-batch "
+                f"{run_b.harmonic_mean_teps:.6e}), mean time/root "
+                f"{run_t.mean_time_s * 1e3:.6f} ms, all_valid {run_t.all_valid}, "
+                f"launches {tuned_launches}; resolve_serve_plan(scale={SCALE_MAIN}) "
+                f"serves the winner, batched")
+            os.environ[tune.TABLE_ENV] = os.path.join(tmp, "missing.json")
+            untuned = pipeline.Graph500Config.ladder(
+                "pre-g500-batch", device=device.type).to_plan()
+            if (cfg.to_plan() != untuned or resolve_serve_plan(
+                    scale=SCALE_MAIN, device=device.type) != resolve_serve_plan()):
+                raise AssertionError("with no table the tuned plans are not the "
+                                     "untuned ones")
+            log("    with the table missing, pre-g500-tuned and the serving plan "
+                "fall back to the untuned batched plan")
+    finally:
+        if old_env is None:
+            os.environ.pop(tune.TABLE_ENV, None)
+        else:
+            os.environ[tune.TABLE_ENV] = old_env
+    return dict(sweep=sweep_launches, tuned=tuned_launches)
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -1372,8 +1474,17 @@ def main() -> int:
     served = serving_phase(cfg_b, built, checked["weighted"], device)
     log(f"    phase 14 took {time.perf_counter() - t0:.3f} s; the script so far "
         f"{time.perf_counter() - t_start:.3f} s")
+
+    log(f"[15] the plan auto-tuner at scale {SCALE_MAIN} (budget {TUNE_BUDGET}, "
+        f"{N_ROOTS} roots, {TUNE_REPS} reps)")
+    t0 = time.perf_counter()
+    tuned = tuning_phase(built, run_b, device)
+    log(f"    phase 15 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
-                          serving=served["launches"][name])
+                          serving=served["launches"][name],
+                          tuning_sweep=tuned["sweep"][name],
+                          **{"pre-g500-tuned": tuned["tuned"][name]})
                for name in ("frontier_update", "core_spmv")}
     by_path["core_spmv"]["pre-g500-legacy"] = legacy_launches
 

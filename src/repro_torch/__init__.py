@@ -14,10 +14,16 @@ advances many BFS frontiers over the heavy core with the ``spmv_mxu``
 kernel.  Checked execution (``core.faults``: deterministic fault
 injection; ``CompiledBFS.run``'s retry -> fallback -> quarantine) and the
 BFS/SSSP serving engine (``serve``: coalescer, hot-root cache, checked
-batches; ``core.pipeline.serve``) run on the same plans.  Entry points run
-on the card unless the caller passes ``device="cpu"``.  The package imports neither ``jax`` nor anything of
-``repro``.
+batches; ``core.pipeline.serve``) run on the same plans.  The plan
+auto-tuner (``core.tune``) sweeps the plan space on the card, accepts a
+candidate only when its parents equal the single-device plan's bit for
+bit, and persists the winner per (scale, devices, backend) in
+``TUNED_PLANS_torch.json``, which the ``pre-g500-tuned`` rung and the
+serving engine read; ``comms.topology`` plans the monitor groups and the
+(group, member) mesh split.  Entry points run on the card unless the
+caller passes ``device="cpu"``.  The package imports neither ``jax`` nor
+anything of ``repro``.
 """
-from repro_torch import core, kernels
+from repro_torch import comms, core, kernels
 
-__all__ = ["core", "kernels"]
+__all__ = ["comms", "core", "kernels"]

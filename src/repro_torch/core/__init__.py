@@ -1,10 +1,13 @@
 """The single-device Graph500 BFS and SSSP kernels in PyTorch, with checked
-execution and fault injection (counterpart of repro.core)."""
+execution, fault injection and the plan auto-tuner (counterpart of
+repro.core)."""
 from repro_torch.core.kronecker import EdgeList, generate_edges, sample_roots
 from repro_torch.core.graph_build import (
     DEFAULT_MAX_WEIGHT, CSRGraph, build_csr, edge_weights,
 )
-from repro_torch.core.reorder import Reordering, degree_reorder, reorder_graph
+from repro_torch.core.reorder import (
+    Reordering, degree_reorder, reorder_graph, sort_host,
+)
 from repro_torch.core.heavy import (
     HeavyCore, build_heavy_core, pack_bitmap, padded_bitmap_words, unpack_bitmap,
 )
@@ -29,6 +32,19 @@ from repro_torch.core.plan import (
 )
 from repro_torch.core.pipeline import BuiltGraph, Graph500Config, build, run, serve
 
+# The tuner loads lazily, as in the JAX package: ``python -m
+# repro_torch.core.tune`` must find it unimported when it runs it.
+_TUNE_EXPORTS = ("TuneReport", "TuneResult", "enumerate_plans",
+                 "load_table", "save_tuned", "sweep", "tuned_plan")
+
+
+def __getattr__(name):
+    if name in _TUNE_EXPORTS:
+        from repro_torch.core import tune
+        return getattr(tune, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "EdgeList", "generate_edges", "sample_roots", "CSRGraph", "build_csr",
     "DEFAULT_MAX_WEIGHT", "edge_weights", "with_edge_weights", "relax_step",
@@ -42,5 +58,5 @@ __all__ = [
     "Graph500Run", "traversed_edges", "BFSPlan", "CompiledBFS",
     "Graph500Result", "PreparedGraph", "TraversalPlan", "compile_plan",
     "BuiltGraph", "Graph500Config", "build", "run", "serve", "FAULT_CLASSES",
-    "FaultSpec", "ServeBatch",
+    "FaultSpec", "ServeBatch", "sort_host", *_TUNE_EXPORTS,
 ]

@@ -1,7 +1,7 @@
 """End-to-end Graph500 pipeline (steps 1-4) with the paper's option ladder.
 
 Counterpart of ``repro.core.pipeline`` for the single-device rungs, the
-four of Fig. 18 and two more:
+four of Fig. 18 and three more:
 
   reference-3.0.0 : no sort, no core, the reference engine;
   th2             : degree sort (T2a), the reference engine;
@@ -13,14 +13,18 @@ four of Fig. 18 and two more:
                     bottom-up level for the ``core_spmv`` kernel, every
                     edge scanned top-down), the measured "before";
   pre-g500-batch  : the bitmap engine over the whole root batch, timed as
-                    one batch (wall-clock / n per search).
+                    one batch (wall-clock / n per search);
+  pre-g500-tuned  : the auto-tuner's winner for (scale, devices, backend)
+                    from the port's tuned-plan table
+                    (:mod:`repro_torch.core.tune`), ``pre-g500-batch``'s
+                    plan when the table has no matching entry.
 
 ``kernel="sssp"`` runs Graph500's second kernel, δ-stepping SSSP, on the
 same graph with a weight plane seeded from ``seed``.  ``retries`` and
 ``fallback`` arm the checked run's recovery; :func:`serve` stands up the
-serving engine on the same graph and plan.  The mesh and tuned
-rungs need a device mesh or a tuned plan table; asking for them raises
-``NotImplementedError``.  Everything runs on the card unless
+serving engine on the same graph and plan.  The mesh rungs
+(``pre-g500-mesh``, ``pre-g500-mesh3``) need a device mesh; asking for
+them raises ``NotImplementedError``.  Everything runs on the card unless
 ``Graph500Config.device`` says ``"cpu"``.
 """
 from __future__ import annotations
@@ -53,12 +57,13 @@ _PORTED_RUNGS = {
     "pre-g500": dict(degree_sort=True, heavy_threshold=100, engine="bitmap"),
     "pre-g500-batch": dict(degree_sort=True, heavy_threshold=100,
                            engine="bitmap", batched=True),
+    "pre-g500-tuned": dict(degree_sort=True, heavy_threshold=100,
+                           engine="bitmap", batched=True, tuned=True),
 }
 #: JAX ladder rungs not ported yet -> the ROADMAP.md queue item that ports them.
 _PENDING_RUNGS = {
     "pre-g500-mesh": "Multi-device layouts",
     "pre-g500-mesh3": "Multi-device layouts",
-    "pre-g500-tuned": "Tuning",
 }
 
 
@@ -74,6 +79,23 @@ class Graph500Config:
     alpha: float = 14.0
     beta: float = 24.0
     batched: bool = False                  # time the root batch as one
+    # Mesh sharding: root_devices shards the root batch over a ("root",)
+    # mesh of that many devices (0: all visible); layout/mesh_shape give
+    # the plan's layout explicitly (None keeps the knob derivation, ()
+    # forces one device).  Mesh layouts are not ported yet: their plans
+    # raise in compile_plan.  partition is the vertex-ownership map of
+    # the sharded engine ("block" | "word_cyclic").
+    root_devices: Optional[int] = None
+    layout: Optional[tuple] = None
+    mesh_shape: Optional[tuple] = None
+    exchange: str = "hier_or"
+    partition: str = "block"
+    # Auto-tuned plan: start from the tuned-plan table's winner for
+    # (scale, the devices of ``device``, backend).  An explicit layout /
+    # mesh_shape / root_devices bypasses the table; non-default
+    # engine/exchange/partition/alpha/beta knobs override those fields of
+    # the tuned plan; with no matching entry the untuned derivation holds.
+    tuned: bool = False
     check: str = "post"                    # "off" | "post" | "full"
     # Checked-execution recovery: the per-root retry budget, and whether
     # still-failing roots re-run on the degraded single-device plan before
@@ -97,9 +119,46 @@ class Graph500Config:
         return Graph500Config(**{**_PORTED_RUNGS[rung], **kw})
 
     def to_plan(self) -> BFSPlan:
-        return BFSPlan(engine=self.engine, layout=(), alpha=self.alpha,
-                       beta=self.beta, batch_roots=self.batched,
-                       kernel=self.kernel)
+        """Lower the config knobs onto the declarative plan axes.
+
+        With ``tuned=True`` the plan starts from the tuned-plan table's
+        winner: an explicit layout / mesh_shape / root_devices bypasses
+        the table entirely, non-default engine/exchange/partition/alpha/
+        beta knobs replace those fields, and the table's ``batch_roots``
+        is kept (tuned winners are batched plans).
+        """
+        if (self.tuned and self.layout is None and self.mesh_shape is None
+                and self.root_devices is None):
+            from repro_torch.core.tune import device_view, tuned_plan
+
+            defaults = Graph500Config()
+            overrides = {
+                f: getattr(self, f)
+                for f in ("engine", "exchange", "partition", "alpha", "beta")
+                if getattr(self, f) != getattr(defaults, f)
+            }
+            n_devices, backend = device_view(self.device)
+            base = tuned_plan(self.scale, n_devices, backend,
+                              overrides=overrides, kernel=self.kernel)
+            if base is not None:
+                return base
+        if self.layout is not None:
+            layout, mesh_shape = tuple(self.layout), self.mesh_shape
+        elif self.root_devices is not None:
+            if not self.batched:
+                raise ValueError(
+                    "root_devices requires batched=True (the mesh shards "
+                    "the batched harness's root vector)")
+            layout = ("root",)
+            mesh_shape = (self.root_devices,) if self.root_devices else None
+        else:
+            layout, mesh_shape = (), None
+        return BFSPlan(
+            engine=self.engine, layout=layout, mesh_shape=mesh_shape,
+            exchange=self.exchange, partition=self.partition,
+            alpha=self.alpha, beta=self.beta,
+            batch_roots=self.batched, kernel=self.kernel,
+        )
 
 
 @dataclass
@@ -179,7 +238,8 @@ def serve(cfg: Graph500Config, serve_cfg=None, built: BuiltGraph | None = None,
     ``serve_cfg`` is a :class:`repro_torch.serve.engine.ServeConfig`
     (defaults apply when None, with ``cfg.check``/``cfg.retries``).  The
     plan is :meth:`Graph500Config.to_plan` with ``batch_roots`` forced on
-    by the engine; it runs on ``cfg.device``.  ``fault`` is threaded into
+    by the engine (the tuned winner under ``cfg.tuned``, as offline); it
+    runs on ``cfg.device``.  ``fault`` is threaded into
     every traversal (:mod:`repro_torch.core.faults`).
     """
     from repro_torch.serve.engine import Engine, ServeConfig

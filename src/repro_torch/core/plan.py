@@ -19,15 +19,17 @@ detect -> retry -> degraded fallback -> quarantine recovery of
 :meth:`CompiledBFS.run`, with its untimed serving primitive
 :meth:`CompiledBFS.serve_batch`.  The kernel's row of
 :mod:`repro_torch.core.kernels` gives its engines, exchanges, weight needs
-and validation.  Every other layout raises ``NotImplementedError`` naming
-the ``ROADMAP.md`` queue item that ports it.  ``batch_roots=True`` (bitmap
-engine only, as in the JAX package) runs the roots one after another
-through the per-root engine and keeps the batched timing convention
-(wall-clock / n).
+and validation.  A mesh layout is checked against the visible devices as
+in the JAX package (too few is a ``ValueError``); one that fits raises
+``NotImplementedError`` naming the ``ROADMAP.md`` queue item that ports
+it.  ``batch_roots=True`` (bitmap engine only, as in the JAX package)
+runs the roots one after another through the per-root engine and keeps
+the batched timing convention (wall-clock / n).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
@@ -35,6 +37,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.comms.topology import plan_device_mesh
 from repro_torch.core.bfs_steps import (
     DEFAULT_CHUNKS, ChunkedEdgeView, EdgeView, chunk_edge_view,
 )
@@ -121,10 +124,47 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
-def validate_plan(plan: TraversalPlan) -> None:
+def visible_devices(device) -> int:
+    """The devices a plan on ``device`` can lay a mesh over: every visible
+    card on ``cuda``, one on ``cpu``."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def _mesh_shape(plan: TraversalPlan, n_avail: int) -> tuple:
+    """The mesh shape of a layout plan on ``n_avail`` devices: the plan's
+    own, else the one JAX's ``compile_plan`` derives (all devices on the
+    root axis; :func:`plan_device_mesh`'s (group, member) split under one
+    root lane).  ValueErrors, with JAX's texts, when the planner's member
+    axis is not a power of two or the shape needs more devices than there
+    are."""
+    shape = plan.mesh_shape
+    if shape is None:
+        if plan.layout == ("root",):
+            shape = (n_avail,)
+        elif plan.layout == ("group", "member"):
+            shape = plan_device_mesh(n_avail)
+        else:   # composed 3-axis: one root lane over the planned vertex mesh
+            shape = (1,) + plan_device_mesh(n_avail)
+        if "member" in plan.layout:
+            m = shape[plan.layout.index("member")]
+            if not _is_pow2(m):
+                raise ValueError(
+                    f"plan_device_mesh({n_avail}) yields a member axis of "
+                    f"{m} (not a power of two); pass an explicit "
+                    f"mesh_shape for this device count")
+    need = math.prod(shape)
+    if need > n_avail:
+        raise ValueError(
+            f"plan layout {plan.layout} with mesh shape {shape} needs "
+            f"{need} devices, have {n_avail} — shrink mesh_shape")
+    return shape
+
+
+def validate_plan(plan: TraversalPlan, n_devices: int = 1) -> None:
     """The JAX package's field checks, all ValueErrors, with the engine and
-    exchange vocabularies from the plan's kernel row; then the layouts this
-    port does not run yet are NotImplementedErrors."""
+    exchange vocabularies from the plan's kernel row, and its mesh-size
+    check against ``n_devices`` visible devices; then the layouts this port
+    does not run yet are NotImplementedErrors."""
     spec = kernel_spec(plan.kernel)     # rejects unknown kernels
     if plan.engine not in spec.engines:
         raise ValueError(f"unknown engine {plan.engine!r} for kernel "
@@ -161,13 +201,17 @@ def validate_plan(plan: TraversalPlan) -> None:
         if any(s < 1 for s in plan.mesh_shape):
             raise ValueError(f"mesh_shape sizes must be >= 1, got "
                              f"{plan.mesh_shape}")
-        if "member" in plan.layout and not _is_pow2(
-                plan.mesh_shape[plan.layout.index("member")]):
-            raise ValueError(f"member axis size of {plan.mesh_shape} is not "
-                             f"a power of two")
+        if "member" in plan.layout:
+            m = plan.mesh_shape[plan.layout.index("member")]
+            if not _is_pow2(m):
+                raise ValueError(
+                    f"member axis size {m} is not a power of two; the "
+                    f"plan API requires pow2 members so the two-phase "
+                    f"monitor collectives halve cleanly")
     if plan.n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {plan.n_chunks}")
     if plan.layout:
+        _mesh_shape(plan, n_devices)
         raise _not_ported(f"layout={plan.layout!r}", "Multi-device layouts")
 
 
@@ -212,7 +256,8 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
                  fault=None) -> "CompiledBFS":
     """Validate ``plan`` and prepare the graph for it on ``device``.
 
-    ``device=None`` means the card, and raises without one; the graph's
+    ``device=None`` means the card, and raises without one; a mesh layout
+    is sized against that device's :func:`visible_devices`; the graph's
     tensors must already lie on the resolved device.  The SSSP kernel
     needs the weight plane on ``built.ev`` (``with_edge_weights``); its
     bucket width comes from the largest weight.  ``fault`` is a
@@ -220,11 +265,11 @@ def compile_plan(plan: TraversalPlan, built, *, device=None,
     traversal of the plan (the legacy engines have no injection sites and
     reject one); ``None`` runs the clean traversal.
     """
-    validate_plan(plan)
+    dev = resolve_device(device)
+    validate_plan(plan, visible_devices(dev))
     if fault is not None and plan.engine != "bitmap":
         raise ValueError(f"fault injection requires engine='bitmap' (got "
                          f"{plan.engine!r}); the legacy engines have no hooks")
-    dev = resolve_device(device)
     pg = PreparedGraph(ev=getattr(built, "ev", None),
                        degree=getattr(built, "degree", None),
                        core=getattr(built, "core", None),

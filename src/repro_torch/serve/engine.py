@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.kernels import rekernel_plan
-from repro_torch.core.plan import BFSPlan, _not_ported, compile_plan
+from repro_torch.core.plan import BFSPlan, compile_plan
 from repro_torch.serve.cache import ParentCache
 from repro_torch.serve.coalescer import BatchOutcome, CoalescePolicy, replay
 from repro_torch.serve.metrics import ServeReport
@@ -60,16 +60,22 @@ class ServeConfig:
 
 
 def resolve_serve_plan(scale: Optional[int] = None,
-                       overrides: Optional[dict] = None) -> BFSPlan:
-    """The serving plan: the single-device batched bitmap plan with
-    ``overrides`` applied; ``batch_roots=True`` is forced (the coalescer's
-    whole job is building root batches).  A ``scale`` asks for the tuned
-    plan of that scale, which needs the tuned-plan table, not ported yet."""
+                       overrides: Optional[dict] = None,
+                       *, batch_size: int = 8, device=None) -> BFSPlan:
+    """The serving plan: the tuned-plan table's winner for ``scale`` on
+    ``device``'s devices (None: the card) when available, the
+    single-device batched bitmap plan otherwise; ``overrides`` always win
+    (explicit > tuned > default).  ``batch_roots=True`` is forced (the
+    coalescer's whole job is building root batches)."""
+    plan = None
     if scale is not None:
-        raise _not_ported(f"the tuned serving plan (scale={scale})", "Tuning")
-    plan = BFSPlan(engine="bitmap", layout=(), batch_roots=True)
-    if overrides:
-        plan = dataclasses.replace(plan, **overrides)
+        from repro_torch.core.tune import device_view, tuned_plan
+        n_devices, backend = device_view(device)
+        plan = tuned_plan(scale, n_devices, backend, overrides=overrides)
+    if plan is None:
+        plan = BFSPlan(engine="bitmap", layout=(), batch_roots=True)
+        if overrides:
+            plan = dataclasses.replace(plan, **overrides)
     if not plan.batch_roots:
         plan = dataclasses.replace(plan, batch_roots=True)
     return plan
@@ -81,7 +87,8 @@ class Engine:
     ``built`` is a :class:`~repro_torch.core.pipeline.BuiltGraph` (or any
     ``PreparedGraph``-compatible object) on ``device`` (None: the card);
     ``plan`` an explicit :class:`BFSPlan`, else resolved by
-    :func:`resolve_serve_plan` from ``scale``/``plan_overrides``; ``kernel``
+    :func:`resolve_serve_plan` from ``scale``/``plan_overrides`` (the tuned
+    plan of ``scale`` on ``device``'s devices); ``kernel``
     retargets the plan through ``rekernel_plan``.  ``fault`` threads a
     :class:`~repro_torch.core.faults.FaultSpec` into every traversal, to
     exercise the checked-serving path.
@@ -94,7 +101,9 @@ class Engine:
                  fault=None, kernel: Optional[str] = None, device=None):
         self.config = config or ServeConfig()
         if plan is None:
-            plan = resolve_serve_plan(scale, plan_overrides)
+            plan = resolve_serve_plan(scale, plan_overrides,
+                                      batch_size=self.config.batch_size,
+                                      device=device)
         elif not plan.batch_roots:
             plan = dataclasses.replace(plan, batch_roots=True)
         if kernel is not None:

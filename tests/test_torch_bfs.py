@@ -278,7 +278,7 @@ def test_unported_plans_raise(kw, err):
         compile_plan(BFSPlan(**kw), tb, device="cpu")
 
 
-def test_unported_run_options_raise():
+def test_unported_run_options_raise(monkeypatch, tmp_path):
     _, tb, roots = graphs(10)
     c = compile_plan(BFSPlan(), tb, device="cpu")
     # checked execution is ported (tests/test_torch_faults.py): recovery
@@ -289,9 +289,17 @@ def test_unported_run_options_raise():
         c.run(roots, check="half")
     with pytest.raises(NotImplementedError, match="'Multi-device layouts'"):
         compile_plan(BFSPlan(layout=("root",)), tb, device="cpu")
-    with pytest.raises(NotImplementedError, match="'Tuning'"):
-        resolve_serve_plan(10)
-    for rung in ("pre-g500-mesh", "pre-g500-tuned"):
+    # a plan needing more devices than there are is JAX's ValueError
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        compile_plan(BFSPlan(layout=("root",), mesh_shape=(4,)), tb, device="cpu")
+    # tuning is ported (tests/test_torch_tune.py): with no table entry the
+    # tuned serving plan and the tuned rung are the untuned batched plan
+    monkeypatch.setenv("REPRO_TORCH_TUNED_PLANS", str(tmp_path / "missing.json"))
+    assert resolve_serve_plan(10, device="cpu") == resolve_serve_plan()
+    tuned = pipeline.Graph500Config.ladder("pre-g500-tuned", device="cpu")
+    assert tuned.to_plan() == pipeline.Graph500Config.ladder(
+        "pre-g500-batch").to_plan()
+    for rung in ("pre-g500-mesh", "pre-g500-mesh3"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pipeline.Graph500Config.ladder(rung)
     # the legacy and TH-2 rungs are ported: they lower to per-root plans of

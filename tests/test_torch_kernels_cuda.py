@@ -507,3 +507,22 @@ def test_parent_fault_quarantined_on_card(cuda, batch):
     keep = [0, 2, 3]
     np.testing.assert_array_equal(run.parent[keep], clean.parent[keep])
     assert not np.array_equal(run.parent[1], clean.parent[1])
+
+
+@pytest.mark.cuda
+def test_tune_sweep_on_card_identical_winner(cuda, tmp_path):
+    # a scale-10 small sweep on the card: backend "cuda", the one candidate
+    # accepted bitwise against the oracle, both kernels launched, and the
+    # saved winner read back under the card's key
+    from repro_torch.core import tune
+    before = ops.launch_counts()
+    rep = tune.sweep(10, budget="small", n_roots=4, reps=1, log=lambda s: None)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert (rep.backend, rep.n_devices, rep.interpret_mode) == (
+        "cuda", torch.cuda.device_count(), False)
+    assert rep.winner is not None and rep.winner.identical
+    assert rep.winner.per_root_us > 0 and rep.winner.harmonic_mean_teps > 0
+    assert launched["frontier_update"] > 0 and launched["core_spmv"] > 0
+    path = tune.save_tuned(rep, str(tmp_path / "t.json"))
+    got = tune.tuned_plan(10, path=path)
+    assert got == rep.winner.plan

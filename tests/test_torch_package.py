@@ -29,7 +29,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.configs, repro_torch.data.synthetic\n"
         "import repro_torch.data.graphs, repro_torch.core.sssp_steps\n"
         "import repro_torch.core.faults, repro_torch.serve.engine\n"
-        "import repro_torch.data.query_trace\n"
+        "import repro_torch.data.query_trace, repro_torch.core.tune\n"
+        "import repro_torch.comms.topology\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

@@ -443,12 +443,26 @@ def test_resolve_serve_plan_equal_to_jax(overrides):
     assert BFSPlan(**p.to_dict()) == p
 
 
-def test_resolve_serve_plan_with_scale_waits_for_tuning():
-    with pytest.raises(NotImplementedError, match="'Tuning'"):
-        engine.resolve_serve_plan(12)
+def test_resolve_serve_plan_with_scale_waits_for_tuning(monkeypatch, tmp_path):
+    # tuning is ported: a scale with no table entry serves the untuned
+    # plan, as JAX's does; one with an entry serves it, batched
+    # (tests/test_torch_tune.py holds the table against JAX's)
+    monkeypatch.setenv("REPRO_TORCH_TUNED_PLANS", str(tmp_path / "missing.json"))
+    monkeypatch.setenv("REPRO_TUNED_PLANS", str(tmp_path / "missing.json"))
+    want = jengine.resolve_serve_plan(12).to_dict()
+    assert engine.resolve_serve_plan(12, device="cpu").to_dict() == want
     _, tb = graphs("scale9")
-    with pytest.raises(NotImplementedError, match="'Tuning'"):
-        engine.Engine(tb, scale=12, device="cpu")
+    cfg = engine.ServeConfig(warmup=False)
+    assert engine.Engine(tb, scale=12, device="cpu", config=cfg).plan.to_dict() == want
+    from repro_torch.core import tune
+    tuned = BFSPlan(batch_roots=False, alpha=8.0, n_chunks=16)
+    tune.save_tuned(tune.TuneReport(
+        12, 1, "cpu", True, "small", 1, 2, 1,
+        results=[tune.TuneResult(tuned, "ok", per_root_us=1.0, identical=True)]),
+        str(tmp_path / "t.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNED_PLANS", str(tmp_path / "t.json"))
+    eng = engine.Engine(tb, scale=12, device="cpu", config=cfg)
+    assert eng.plan == dataclasses.replace(tuned, batch_roots=True)
 
 
 def test_faulted_engine_fails_that_root_only_like_jax():
