@@ -90,12 +90,31 @@ non-zero and no result line is printed:
      repository) and read through ``REPRO_TORCH_TUNED_PLANS``: the
      ``pre-g500-tuned`` rung on phase 5's graph runs the winner, valid;
      ``resolve_serve_plan(scale=20)`` returns the winner, batched; with
-     the table missing both fall back to the untuned plan.
+     the table missing both fall back to the untuned plan;
+ 16. the mesh layouts at scale 20 on phase 5's graph and keys, every mesh
+     virtual (all its shards on the one card, run in lockstep):
+     ``pre-g500-mesh`` through ``pipeline`` on the 1-card mesh, ``("root",)``
+     on (4,), ``("group", "member")`` on (2, 2) for both partitions and the
+     five exchanges (16 keys for ``hier_or``, 4 for the others) and the
+     composed (2, 2, 2): every run valid, its parents sha-equal to phase 5's
+     ``pre-g500`` rows, both kernels launched on every vertex-sharded run;
+     hmean TEPS, ms per traversal, ``shard_edge_skew`` and the launches of
+     each; ``frontier_update`` at the owned-word shape (W_loc = 8,192)
+     against its plain version; a profile of one (2, 2) traversal;
+ 17. sharded SSSP (``hier_min``, ``flat``) on (2, 2), 4 roots, equal to
+     phase 12's rows; on (2, 2), a persistent ``exchange``/``zero`` fault
+     detected, retried and answered by the single-device fallback (rows
+     equal to phase 5's), a ``codec`` and an ``inter_group`` fault detected;
+ 18. the multi-process launcher on the card: 2 gloo processes x 2 shards at
+     scale 18 (W_loc = 2,048), staged through the host; parent digests
+     equal to the oracle and an in-process virtual (2, 2) run; the measured
+     exchange per level beside ``modeled_wire_bytes``.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
-of phase 13, the serving of phase 14, and the sweep and the tuned rung of
-phase 15), each counted from 0 just before its run and read just after;
+of phase 13, the serving of phase 14, the sweep and the tuned rung of
+phase 15, the mesh runs of phases 16–17 and rank 0 of phase 18), each
+counted from 0 just before its run and read just after;
 ``launches_by_path`` lists them.  The last
 two lines are the kernel JSON and the result JSON.  Without a
 CUDA device, or without the rest of the repository beside it, the script
@@ -158,6 +177,13 @@ SERVE_SSSP_QUERIES = 16
 TUNE_BUDGET = "full"
 TUNE_REPS = 3
 TUNE_DEFAULT = dict(alpha=14.0, beta=24.0, n_chunks=64)
+# phases 16-17: the keys of every (2, 2) exchange but hier_or (which runs all
+# N_ROOTS) and of the fault runs, and the SSSP roots held against phase 12
+MESH_KEYS = 4
+MESH_SSSP_ROOTS = 4
+# phase 18: the launcher's graph (W_loc = 2048 over 4 shards) and roots
+MP_SCALE = 18
+MP_ROOTS = 4
 
 
 def log(msg: str) -> None:
@@ -918,8 +944,9 @@ def sssp_against_oracle(name: str, el, device, n_roots: int, degree_sort: bool,
         f"sssp_oracle (its Dijkstra {oracle_s:.3f} s on the host)")
 
 
-def sssp_phase(device) -> None:
-    """Phase 12: Graph500 SSSP at scale 20, per root and batched."""
+def sssp_phase(device) -> dict:
+    """Phase 12: Graph500 SSSP at scale 20, per root and batched.  Returns
+    the first roots' keys, parents and distances (on the host)."""
     from repro_torch.core import kronecker, pipeline
     from repro_torch.core.plan import compile_plan
     from repro_torch.data.graphs import grid_graph
@@ -961,6 +988,10 @@ def sssp_phase(device) -> None:
         f"{time_validation('sssp', built.ev, rows, keys):.6f} ms per root")
     log(f"    profile of one root's SSSP (root {int(keys[0])}, {rounds[0]} rounds)")
     profile_window(lambda: per_root.bfs(int(keys[0])), ())
+    # phase 17 holds the sharded SSSP against these rows
+    first = dict(keys=keys[:MESH_SSSP_ROOTS],
+                 parent=torch.stack([r.parent for r in rows[:MESH_SSSP_ROOTS]]).cpu(),
+                 level=torch.stack([r.level for r in rows[:MESH_SSSP_ROOTS]]).cpu())
     del rows, batch, per_root, built
     torch.cuda.empty_cache()
     sssp_against_oracle(f"grid_graph({GRID_SIDE})", grid_graph(GRID_SIDE, seed=5,
@@ -970,6 +1001,7 @@ def sssp_phase(device) -> None:
                         kronecker.generate_edges(SSSP_SEED, SCALE_ORACLE,
                                                  device=device),
                         device, 2, True, 64)
+    return first
 
 
 def sync(device) -> None:
@@ -1265,6 +1297,250 @@ def tuning_phase(built, run_b, device) -> dict:
     return dict(sweep=sweep_launches, tuned=tuned_launches)
 
 
+VERTEX = ("group", "member")
+
+
+def virtual_mesh(shape, names=VERTEX):
+    from repro_torch.comms.mesh import make_mesh
+    return make_mesh(shape, names, device="cuda", virtual=True)
+
+
+def mesh_run(name: str, compiled, keys, parents, n_keys: int) -> dict:
+    """One checked run of a mesh plan on phase 5's keys: valid, parents
+    sha-equal to phase 5's rows, the kernel launches counted from 0 just
+    before and read just after.  Returns the run's numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.multiprocess import parent_digest
+    keys = keys[:n_keys]
+    sync(compiled.device)
+    ops.reset_launch_counts()
+    res = compiled.run(keys, check="full")
+    sync(compiled.device)
+    launches = ops.launch_counts()
+    check_valid(name, res.run)
+    got, want = parent_digest(res.parent), parent_digest(parents[:n_keys])
+    if got != want:
+        raise AssertionError(f"{name}: parents sha {got[:16]} != phase 5's {want[:16]}")
+    ms = res.run.mean_time_s * 1e3
+    log(f"    {name}: {n_keys} keys, hmean TEPS {res.run.harmonic_mean_teps:.6e}, "
+        f"{ms:.6f} ms per traversal, parents sha256 {got[:16]} = phase 5's, "
+        f"mesh {res.mesh_axes}, launches frontier_update "
+        f"{launches['frontier_update']} core_spmv {launches['core_spmv']}")
+    return dict(launches=launches, teps=res.run.harmonic_mean_teps, ms=ms)
+
+
+def mesh_phase(built, roots, parents, device) -> dict:
+    """Phase 16: the mesh layouts at scale 20 on phase 5's graph and keys:
+    ``pre-g500-mesh`` through ``pipeline`` on the 1-card mesh, ``("root",)``
+    on a virtual (4,) mesh, ``("group", "member")`` on a virtual (2, 2) mesh
+    for both partitions and the five exchanges, the composed (2, 2, 2) mesh,
+    ``frontier_update`` at the sharded path's shape against its plain version,
+    and a profile of one (2, 2) traversal."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.distributed_bfs import shard_edge_skew, shard_graph
+    from repro_torch.core.hybrid_bfs import SHARD_EXCHANGES
+    from repro_torch.core.plan import BFSPlan, PreparedGraph, compile_plan
+    from repro_torch.kernels import bitmap_ops, ops, ref
+    launches = {"frontier_update": 0, "core_spmv": 0}
+    vertex_runs = []
+
+    def add(n):
+        for k in launches:
+            launches[k] += n[k]
+
+    cfg = pipeline.Graph500Config.ladder("pre-g500-mesh", scale=SCALE_MAIN,
+                                         n_roots=N_ROOTS, check="full")
+    sync(device)
+    ops.reset_launch_counts()
+    _, run = pipeline.run(cfg, built)
+    sync(device)
+    n = ops.launch_counts()
+    add(n)
+    check_valid("pre-g500-mesh", run)
+    log(f"    pre-g500-mesh through pipeline (plan {cfg.to_plan().layout}, mesh of "
+        f"the {torch.cuda.device_count()} visible card): hmean TEPS "
+        f"{run.harmonic_mean_teps:.6e}, {run.mean_time_s * 1e3:.6f} ms per traversal, "
+        f"launches {n}")
+    add(mesh_run("pre-g500-mesh parents", compile_plan(cfg.to_plan(), built, device=device), roots,
+                 parents, N_ROOTS)["launches"])
+    add(mesh_run("('root',) on a virtual (4,) mesh",
+                 compile_plan(BFSPlan(layout=("root",)), built, device=device,
+                              mesh=virtual_mesh((4,), ("root",))),
+                 roots, parents, N_ROOTS)["launches"])
+
+    shards = {}
+    for part in ("block", "word_cyclic"):
+        t0 = time.perf_counter()
+        sg = shard_graph(built.ev.src, built.ev.dst, built.ev.valid, built.n_vertices,
+                         4, partition=part, device=device)
+        sync(device)
+        skew = shard_edge_skew(sg)
+        shards[part] = sg
+        log(f"    shard_graph {part} over 4 shards: {time.perf_counter() - t0:.6f} s, "
+            f"W_loc {sg.w_loc}, chunk_size {sg.chunk_size}, edge arrays "
+            f"{(sg.src.numel() * 9) / 2**30:.6f} GiB, shard_edge_skew "
+            f"max_over_mean {skew['max_over_mean']:.6f} per_shard "
+            f"{skew['per_shard_edges']}")
+        prepared = PreparedGraph(ev=built.ev, degree=built.degree, core=built.core,
+                                 sharded=sg)
+        for ex in SHARD_EXCHANGES:
+            c = compile_plan(BFSPlan(layout=VERTEX, partition=part, exchange=ex),
+                             prepared, device=device, mesh=virtual_mesh((2, 2)))
+            r = mesh_run(f"(2, 2) {part} {ex}", c, roots, parents,
+                         N_ROOTS if ex == "hier_or" else MESH_KEYS)
+            for k in ("frontier_update", "core_spmv"):
+                if r["launches"][k] <= 0:
+                    raise AssertionError(f"(2, 2) {part} {ex}: {k} was not launched")
+            add(r["launches"])
+            vertex_runs.append((part, ex, r))
+    composed = compile_plan(
+        BFSPlan(layout=("root",) + VERTEX), PreparedGraph(
+            ev=built.ev, degree=built.degree, core=built.core, sharded=shards["block"]),
+        device=device, mesh=virtual_mesh((2, 2, 2), ("root",) + VERTEX))
+    r = mesh_run("composed (2, 2, 2)", composed, roots, parents, N_ROOTS)
+    if r["launches"]["frontier_update"] <= 0 or r["launches"]["core_spmv"] <= 0:
+        raise AssertionError(f"composed: launches {r['launches']}")
+    add(r["launches"])
+
+    # frontier_update at the sharded path's shape (the owned words)
+    w_loc = shards["block"].w_loc
+    gen = torch.Generator(device=device).manual_seed(16)
+    found, visited = (rand_words(gen, (w_loc,), 0.05, device),
+                      rand_words(gen, (w_loc,), 0.5, device))
+    err = max(assert_equal(f"frontier_update W_loc={w_loc} {part}", got, want)
+              for got, want, part in zip(bitmap_ops.frontier_update(found, visited),
+                                         ref.frontier_update_ref(found, visited),
+                                         ("next", "visited", "count")))
+    fu_ms = time_ms(lambda: bitmap_ops.frontier_update(found, visited), 30, 20)
+    log(f"    frontier_update at the sharded shape W_loc={w_loc}: bit-exact against "
+        f"the plain version (max abs err {err}), {fu_ms:.6f} ms per call")
+
+    c = compile_plan(BFSPlan(layout=VERTEX), PreparedGraph(
+        ev=built.ev, degree=built.degree, core=built.core, sharded=shards["block"]),
+        device=device, mesh=virtual_mesh((2, 2)))
+    lv = int(c.bfs([int(roots[1])]).levels[0])
+    log(f"    profile of one (2, 2) block hier_or traversal (root 1, {lv} levels)")
+    prof = profile_complete(
+        lambda: c.bfs([int(roots[1])]), ("frontier_update_kernel", "core_spmv_kernel"),
+        lambda p: p["kernels"]["frontier_update_kernel"][1] < 4 * lv)
+    if prof is not None:
+        log(f"    (2, 2) traversal: idle share {prof['idle_share']:.6f}, device busy "
+            f"{prof['busy_ms']:.6f} ms of {prof['wall_ms']:.6f} ms wall")
+    return dict(launches=launches, runs=vertex_runs, shards=shards)
+
+
+def mesh_faults_phase(built, roots, parents, sssp_rows, weighted, shards, device) -> dict:
+    """Phase 17: sharded SSSP (``hier_min``, ``flat``) on a virtual (2, 2)
+    mesh against phase 12's single-device rows; a persistent exchange fault
+    detected, retried and answered by the single-device fallback; a codec
+    and an inter-group fault detected."""
+    from repro_torch.core.distributed_bfs import shard_graph
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.plan import BFSPlan, PreparedGraph, compile_plan
+    from repro_torch.kernels import ops
+    launches = {"frontier_update": 0, "core_spmv": 0}
+    keys = sssp_rows["keys"]
+    t0 = time.perf_counter()
+    sgw = shard_graph(weighted.ev.src, weighted.ev.dst, weighted.ev.valid,
+                      built.n_vertices, 4, partition="word_cyclic",
+                      weight=weighted.ev.weight, device=device)
+    log(f"    weighted shard_graph (word_cyclic, 4 shards): "
+        f"{time.perf_counter() - t0:.6f} s")
+    pw = PreparedGraph(ev=weighted.ev, degree=weighted.degree, sharded=sgw)
+    v = built.n_vertices
+    for ex in ("hier_min", "flat"):
+        c = compile_plan(BFSPlan(layout=VERTEX, kernel="sssp", exchange=ex,
+                                 partition="word_cyclic"), pw, device=device,
+                         mesh=virtual_mesh((2, 2)))
+        sync(device)
+        t0 = time.perf_counter()
+        res = c.run(keys, check="full")
+        check_valid(f"sharded SSSP {ex}", res.run)
+        raw = c.bfs(keys)
+        for f in ("parent", "level"):
+            if not torch.equal(getattr(raw, f)[:, :v].cpu(), sssp_rows[f]):
+                raise AssertionError(f"sharded SSSP {ex}: {f} rows differ from phase 12's")
+        log(f"    sharded SSSP {ex} on (2, 2) word_cyclic, {len(keys)} roots: parents "
+            f"and distances equal phase 12's rows; hmean TEPS "
+            f"{res.run.harmonic_mean_teps:.6e}, {res.run.mean_time_s * 1e3:.6f} ms per "
+            f"root, rounds {raw.levels.tolist()} ({time.perf_counter() - t0:.6f} s)")
+
+    fkeys = roots[:MESH_KEYS]
+    for name, ex, part, fault, recover in (
+            ("exchange", "hier_or", "block",
+             FaultSpec("exchange", "zero", level=1, persistent=True), True),
+            ("codec", "hier_or_packed", "block",
+             FaultSpec("codec", "wrong_mode", level=1), False),
+            # word_cyclic: group 1 owns words of every frontier
+            ("inter_group", "hier_or", "word_cyclic",
+             FaultSpec("inter_group", "drop", level=1), False)):
+        prepared = PreparedGraph(ev=built.ev, degree=built.degree, core=built.core,
+                                 sharded=shards[part])
+        c = compile_plan(BFSPlan(layout=VERTEX, exchange=ex, partition=part), prepared,
+                         device=device, mesh=virtual_mesh((2, 2)), fault=fault)
+        sync(device)
+        ops.reset_launch_counts()
+        kw = dict(retries=1, fallback=True) if recover else {}
+        res = c.run(fkeys, check="full", **kw)
+        sync(device)
+        for k, n in ops.launch_counts().items():
+            if k in launches:
+                launches[k] += n
+        g = res.run
+        log(f"    {fault.describe()} on (2, 2) {part} {ex}: check_counts {g.check_counts}, "
+            f"failures {g.check_failures}, retries {g.retries}, fallbacks "
+            f"{g.fallbacks}, quarantined {g.quarantined}")
+        if not g.check_failures or not g.check_counts.get("sentinel"):
+            raise AssertionError(f"{name} fault was not detected")
+        if recover:
+            n_bad = len(g.check_failures)
+            if (g.retries, g.fallbacks, g.quarantined) != (n_bad, n_bad, []) \
+                    or not np.array_equal(res.parent, parents[:MESH_KEYS]):
+                raise AssertionError(f"{name}: not answered by the fallback")
+            log(f"    the {n_bad} failing roots were retried and answered by the "
+                f"single-device fallback: rows equal phase 5's parents")
+    return dict(launches=launches)
+
+
+def launcher_phase(device) -> dict:
+    """Phase 18: the multi-process launcher on the card, 2 gloo processes x
+    2 member shards at scale 18, against an in-process virtual (2, 2) run."""
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    from repro_torch.core.tune import _build_inputs
+    from repro_torch.launch import multiprocess as mp
+    t0 = time.perf_counter()
+    payload = mp.launch(2, 2, scale=MP_SCALE, n_roots=MP_ROOTS, device="cuda",
+                        reps=3, timeout_s=600.0)
+    launch_s = time.perf_counter() - t0
+    rung = payload["rungs"]["mp_2x2"]
+    pg, _, keys, _ = _build_inputs(MP_SCALE, 1, 16, MP_ROOTS, device)
+    res = compile_plan(BFSPlan(layout=VERTEX), pg, device=device,
+                       mesh=virtual_mesh((2, 2))).run(keys, check="post")
+    local = mp.parent_digest(res.parent)
+    if not (payload["parents_bitwise_identical"] and rung["identical"]
+            and rung["parent_sha256"] == payload["oracle_sha256"] == local):
+        raise AssertionError(f"launcher: digests {rung['parent_sha256'][:16]} "
+                             f"(oracle {payload['oracle_sha256'][:16]}, in-process "
+                             f"virtual (2, 2) {local[:16]})")
+    n = rung["kernel_launches"]
+    if n["frontier_update"] <= 0:
+        raise AssertionError(f"launcher: rank 0 launched {n}")
+    log(f"    2 procs x 2 shards at scale {MP_SCALE}, {MP_ROOTS} roots, gloo staged "
+        f"through the host: {launch_s:.6f} s with spawn; parents sha256 "
+        f"{local[:16]} = oracle = in-process virtual (2, 2); hmean TEPS "
+        f"{rung['harmonic_mean_teps']:.6e}, {rung['per_root_us'] / 1e3:.6f} ms per "
+        f"root; rank 0 launches {n}")
+    exch, wire = rung["exchange_seconds"], rung["wire_bytes"]
+    for e, w in zip(exch["per_level"], wire["per_level"]):
+        log(f"      level {e['level']}: frontier {e['frontier']}, exchange "
+            f"{e['seconds'] * 1e3:.6f} ms measured; modeled inter raw "
+            f"{w['inter']['raw']} B, post_sieve {w['inter']['post_sieve']} B, "
+            f"post_codec {w['inter']['post_codec']} B, intra {w['intra']['raw']} B")
+    log(f"    exchange total {exch['total_seconds'] * 1e3:.6f} ms over {exch['levels']} "
+        f"levels; modeled totals {wire['totals']}")
+    return dict(launches={k: n[k] for k in ("frontier_update", "core_spmv")})
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -1462,7 +1738,7 @@ def main() -> int:
     legacy_launches = ladder_rungs(built, res_root, roots)
 
     log(f"[12] Graph500 SSSP at scale {SCALE_MAIN}, {SSSP_ROOTS} roots")
-    sssp_phase(device)
+    sssp_rows = sssp_phase(device)
 
     log(f"[13] checked execution at scale {SCALE_MAIN} (phase 5's graph and keys)")
     t0 = time.perf_counter()
@@ -1481,10 +1757,31 @@ def main() -> int:
     tuned = tuning_phase(built, run_b, device)
     log(f"    phase 15 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
+
+    log(f"[16] mesh layouts at scale {SCALE_MAIN} on phase 5's graph (virtual "
+        f"meshes: every shard on the one card)")
+    t0 = time.perf_counter()
+    meshed = mesh_phase(built, roots, res_root.parent, device)
+    log(f"    phase 16 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[17] sharded SSSP and exchange faults at scale {SCALE_MAIN}")
+    t0 = time.perf_counter()
+    mesh_faults = mesh_faults_phase(built, roots, res_root.parent, sssp_rows,
+                                    checked["weighted"], meshed.pop("shards"), device)
+    log(f"    phase 17 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[18] the multi-process launcher on the card (scale {MP_SCALE})")
+    t0 = time.perf_counter()
+    launched = launcher_phase(device)
+    log(f"    phase 18 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
                           serving=served["launches"][name],
                           tuning_sweep=tuned["sweep"][name],
-                          **{"pre-g500-tuned": tuned["tuned"][name]})
+                          **{"pre-g500-tuned": tuned["tuned"][name]},
+                          mesh_layouts=meshed["launches"][name],
+                          mesh_faults=mesh_faults["launches"][name],
+                          multiprocess_rank0=launched["launches"][name])
                for name in ("frontier_update", "core_spmv")}
     by_path["core_spmv"]["pre-g500-legacy"] = legacy_launches
 

@@ -20,10 +20,15 @@ candidate only when its parents equal the single-device plan's bit for
 bit, and persists the winner per (scale, devices, backend) in
 ``TUNED_PLANS_torch.json``, which the ``pre-g500-tuned`` rung and the
 serving engine read; ``comms.topology`` plans the monitor groups and the
-(group, member) mesh split.  Entry points run on the card unless the
-caller passes ``device="cpu"``.  The package imports neither ``jax`` nor
-anything of ``repro``.
+(group, member) mesh split.  The multi-device layouts (root-parallel,
+vertex-sharded with the T3 monitor exchange of ``comms.hierarchical``, and
+both composed) run on ``comms.mesh`` meshes: virtual meshes of several
+shards on one device, one shard per card, or one process per monitor group
+over ``torch.distributed`` (``launch.multiprocess``); their sharded engines
+launch both BFS kernels on every shard.  Entry points run on the card
+unless the caller passes ``device="cpu"``.  The package imports neither
+``jax`` nor anything of ``repro``.
 """
-from repro_torch import comms, core, kernels
+from repro_torch import comms, core, kernels, launch
 
-__all__ = ["comms", "core", "kernels"]
+__all__ = ["comms", "core", "kernels", "launch"]

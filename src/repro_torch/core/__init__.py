@@ -1,6 +1,6 @@
-"""The single-device Graph500 BFS and SSSP kernels in PyTorch, with checked
-execution, fault injection and the plan auto-tuner (counterpart of
-repro.core)."""
+"""The Graph500 BFS and SSSP kernels in PyTorch, on one device and on
+meshes (root-parallel, vertex-sharded and composed), with checked execution,
+fault injection and the plan auto-tuner (counterpart of repro.core)."""
 from repro_torch.core.kronecker import EdgeList, generate_edges, sample_roots
 from repro_torch.core.graph_build import (
     DEFAULT_MAX_WEIGHT, CSRGraph, build_csr, edge_weights,
@@ -16,7 +16,11 @@ from repro_torch.core.bfs_steps import (
     relax_step, with_edge_weights,
 )
 from repro_torch.core.faults import FAULT_CLASSES, FaultSpec
-from repro_torch.core.hybrid_bfs import BFSResult, BFSStats
+from repro_torch.core.hybrid_bfs import BFSResult, BFSStats, SHARD_EXCHANGES
+from repro_torch.core.distributed_bfs import (
+    PARTITIONS, DistBFSResult, ShardedGraph, gather_result, modeled_wire_bytes,
+    owner_local_of, partition_permutation, shard_edge_skew, shard_graph,
+)
 from repro_torch.core.sssp_steps import (
     INF_U32, bucket_width, sssp_max_rounds, sssp_oracle,
 )
@@ -28,7 +32,7 @@ from repro_torch.core.kernels import KernelSpec, kernel_spec, rekernel_plan
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.plan import (
     BFSPlan, CompiledBFS, Graph500Result, PreparedGraph, ServeBatch,
-    TraversalPlan, compile_plan,
+    ShardedRun, TraversalPlan, compile_plan,
 )
 from repro_torch.core.pipeline import BuiltGraph, Graph500Config, build, run, serve
 
@@ -58,5 +62,8 @@ __all__ = [
     "Graph500Run", "traversed_edges", "BFSPlan", "CompiledBFS",
     "Graph500Result", "PreparedGraph", "TraversalPlan", "compile_plan",
     "BuiltGraph", "Graph500Config", "build", "run", "serve", "FAULT_CLASSES",
-    "FaultSpec", "ServeBatch", "sort_host", *_TUNE_EXPORTS,
+    "FaultSpec", "ServeBatch", "sort_host", "SHARD_EXCHANGES", "PARTITIONS",
+    "DistBFSResult", "ShardedGraph", "ShardedRun", "gather_result",
+    "modeled_wire_bytes", "owner_local_of", "partition_permutation",
+    "shard_edge_skew", "shard_graph", *_TUNE_EXPORTS,
 ]

@@ -1,6 +1,6 @@
 """Deterministic fault injection for the Graph500 engines (DESIGN.md §13).
 
-Counterpart of ``repro.core.faults`` for one device.  A :class:`FaultSpec`
+Counterpart of ``repro.core.faults``.  A :class:`FaultSpec`
 names one injection **site**, one **kind** of corruption and firing
 predicates (level / device / root); ``compile_plan(plan, built, fault=...)``
 threads it into every traversal of the compiled plan, so the checked
@@ -14,12 +14,27 @@ Python bool, and the corruption is one ``torch.where`` on the level's mask.
 A traversal with ``fault=None`` (or a fault of another site) makes exactly
 the device operations it made without the hook.
 
-Sites, as in the JAX package: ``parent`` (the parent epilogue of the bitmap
-BFS engine and of the SSSP engine; kinds ``self``: the vertices found become
-their own parent, ``offset``: their parent id is bumped +1 mod V) is the one
-with a hook on one device.  ``exchange``, ``codec``, ``inter_group`` and
-``sieve`` corrupt the multi-device exchange; a fault of those sites is
-accepted and, with no exchange to hook on one device, does nothing.
+Sites, as in the JAX package:
+
+  ``parent``      the parent epilogue of the bitmap BFS engines (one device
+                  and sharded) and of the SSSP engines; kinds ``self`` (the
+                  vertices found become their own parent) and ``offset``
+                  (their parent id is bumped +1 mod V);
+  ``exchange``    a shard's outgoing per-level delta words at the entry of
+                  the sharded engines' exchange (every wiring); kinds
+                  ``zero`` and ``flip`` (one bit XORed in);
+  ``codec``       a shard's encoded ``(mode, payload, count)`` wire triple
+                  on the inter-group leg of ``hier_or_packed`` /
+                  ``hier_or_sieve``; kinds ``payload_flip``,
+                  ``trunc_count`` and ``wrong_mode``;
+  ``inter_group`` the inter-group leg of the OR and min exchanges: every
+                  receiver keeps only group 0's contribution; kind ``drop``;
+  ``sieve``       the visited-sieve mask of ``hier_or_sieve`` marked
+                  all-ones; kind ``stale``.
+
+The last four act on the multi-device exchange: on one device there is none,
+and a fault of those sites is accepted and does nothing, as in the JAX
+package.  Their predicates see the flat vertex-shard index as ``device``.
 """
 from __future__ import annotations
 
@@ -116,3 +131,63 @@ def corrupt_parent(fault, parent: torch.Tensor, newly: torch.Tensor,
     else:  # offset: a wrong-but-plausible (in-range) parent id
         wrong = torch.where(parent + 1 >= sentinel, 0, parent + 1)
     return torch.where(newly, wrong, parent)
+
+
+def _wrap32(x: int) -> int:
+    """A 32-bit pattern as the int32 value of the same bits."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def _flip_mask(fault) -> int:
+    """Seed-derived 32-bit corruption mask (never zero), as int32 bits."""
+    m = ((fault.seed * 0x9E3779B1) ^ 0x5A5A5A5A) & 0xFFFFFFFF
+    return _wrap32(m or 0x5A5A5A5A)
+
+
+def corrupt_delta(fault, words: torch.Tensor, *, level, device=None,
+                  root=None) -> torch.Tensor:
+    """Site ``exchange``: corrupt a shard's outgoing int32 delta words (a
+    new tensor; ``words`` itself is left as it was)."""
+    if not fires(fault, "exchange", level=level, device=device, root=root):
+        return words
+    if fault.kind == "zero":
+        return torch.zeros_like(words)
+    bad = words.clone()
+    w = fault.word % words.shape[0]
+    bad[w] ^= _wrap32(1 << (fault.bit % 32))
+    return bad
+
+
+def corrupt_encoded(fault, mode: torch.Tensor, payload: torch.Tensor,
+                    count: torch.Tensor, *, level, device=None, root=None):
+    """Site ``codec``: corrupt a shard's ``(mode, payload, count)`` wire
+    triple between encode and decode."""
+    if not fires(fault, "codec", level=level, device=device, root=root):
+        return mode, payload, count
+    if fault.kind == "payload_flip":
+        bad = payload.clone()
+        w = fault.word % payload.shape[0]
+        bad[w] ^= _flip_mask(fault)
+        return mode, bad, count
+    if fault.kind == "trunc_count":
+        return mode, payload, count // 2
+    return 1 - mode, payload, count     # wrong_mode: sparse <-> dense
+
+
+def drop_peers(fault, combined: torch.Tensor, first_leg: torch.Tensor, *,
+               level, device=None, root=None) -> torch.Tensor:
+    """Site ``inter_group``: the combined inter-group result loses every
+    contribution but group 0's (``first_leg``)."""
+    if not fires(fault, "inter_group", level=level, device=device, root=root):
+        return combined
+    return first_leg
+
+
+def corrupt_known(fault, known: torch.Tensor, *, level, device=None,
+                  root=None) -> torch.Tensor:
+    """Site ``sieve``: a maximally stale visited-sieve mask (every bit
+    claimed known, so the sieve strips the whole delta)."""
+    if not fires(fault, "sieve", level=level, device=device, root=root):
+        return known
+    return torch.full_like(known, -1)

@@ -19,12 +19,21 @@ four of Fig. 18 and three more:
                     (:mod:`repro_torch.core.tune`), ``pre-g500-batch``'s
                     plan when the table has no matching entry.
 
+and the two mesh rungs:
+
+  pre-g500-mesh   : ``pre-g500-batch``'s roots split over a ``("root",)``
+                    mesh of every visible device (``root_devices`` sizes it);
+  pre-g500-mesh3  : the composed ``("root", "group", "member")`` layout, one
+                    root lane over the vertex-sharded mesh of
+                    ``plan_device_mesh`` unless ``mesh_shape`` is given.
+
 ``kernel="sssp"`` runs Graph500's second kernel, δ-stepping SSSP, on the
 same graph with a weight plane seeded from ``seed``.  ``retries`` and
 ``fallback`` arm the checked run's recovery; :func:`serve` stands up the
-serving engine on the same graph and plan.  The mesh rungs
-(``pre-g500-mesh``, ``pre-g500-mesh3``) need a device mesh; asking for
-them raises ``NotImplementedError``.  Everything runs on the card unless
+serving engine on the same graph and plan.  ``procs > 1`` hands
+:func:`run` to the multi-process launcher
+(:mod:`repro_torch.launch.multiprocess`); ``run(mesh=)`` runs the plan on a
+given mesh (a virtual one, say).  Everything runs on the card unless
 ``Graph500Config.device`` says ``"cpu"``.
 """
 from __future__ import annotations
@@ -38,10 +47,11 @@ import torch
 
 from repro_torch.core import kronecker
 from repro_torch.core.bfs_steps import EdgeView, edge_view, with_edge_weights
+from repro_torch.core.distributed_bfs import ShardedGraph, shard_graph
 from repro_torch.core.graph_build import DEFAULT_MAX_WEIGHT, build_csr
 from repro_torch.core.heavy import HeavyCore, build_heavy_core
 from repro_torch.core.kronecker import EdgeList
-from repro_torch.core.plan import BFSPlan, _not_ported, compile_plan
+from repro_torch.core.plan import BFSPlan, compile_plan
 from repro_torch.core.reorder import Reordering, degree_reorder, relabel_edges
 from repro_torch.core.teps import Graph500Run
 from repro_torch.util import resolve_device
@@ -57,13 +67,16 @@ _PORTED_RUNGS = {
     "pre-g500": dict(degree_sort=True, heavy_threshold=100, engine="bitmap"),
     "pre-g500-batch": dict(degree_sort=True, heavy_threshold=100,
                            engine="bitmap", batched=True),
+    # the roots over a ("root",) mesh of every visible device unless
+    # root_devices says otherwise
+    "pre-g500-mesh": dict(degree_sort=True, heavy_threshold=100,
+                          engine="bitmap", batched=True, root_devices=0),
+    # the root lanes outside the vertex-sharded traversal
+    "pre-g500-mesh3": dict(degree_sort=True, heavy_threshold=100,
+                           engine="bitmap", batched=True,
+                           layout=("root", "group", "member")),
     "pre-g500-tuned": dict(degree_sort=True, heavy_threshold=100,
                            engine="bitmap", batched=True, tuned=True),
-}
-#: JAX ladder rungs not ported yet -> the ROADMAP.md queue item that ports them.
-_PENDING_RUNGS = {
-    "pre-g500-mesh": "Multi-device layouts",
-    "pre-g500-mesh3": "Multi-device layouts",
 }
 
 
@@ -82,9 +95,8 @@ class Graph500Config:
     # Mesh sharding: root_devices shards the root batch over a ("root",)
     # mesh of that many devices (0: all visible); layout/mesh_shape give
     # the plan's layout explicitly (None keeps the knob derivation, ()
-    # forces one device).  Mesh layouts are not ported yet: their plans
-    # raise in compile_plan.  partition is the vertex-ownership map of
-    # the sharded engine ("block" | "word_cyclic").
+    # forces one device).  partition is the vertex-ownership map of the
+    # sharded engine ("block" | "word_cyclic").
     root_devices: Optional[int] = None
     layout: Optional[tuple] = None
     mesh_shape: Optional[tuple] = None
@@ -108,14 +120,18 @@ class Graph500Config:
     kernel: str = "bfs"
     max_weight: int = DEFAULT_MAX_WEIGHT
     device: Optional[str] = None           # None: the card ("cuda")
+    # Multi-process runtime: procs > 1 hands ``run`` to the launcher
+    # (repro_torch.launch.multiprocess), one gloo process per monitor group
+    # with devices_per_proc (None: 1) member shards each; only ``run``
+    # honours these.
+    procs: int = 1
+    devices_per_proc: Optional[int] = None
 
     @staticmethod
     def ladder(rung: str, **kw) -> "Graph500Config":
-        if rung in _PENDING_RUNGS:
-            raise _not_ported(f"ladder rung {rung!r}", _PENDING_RUNGS[rung])
         if rung not in _PORTED_RUNGS:
             raise ValueError(f"unknown rung {rung!r}; expected one of "
-                             f"{sorted({**_PORTED_RUNGS, **_PENDING_RUNGS})}")
+                             f"{sorted(_PORTED_RUNGS)}")
         return Graph500Config(**{**_PORTED_RUNGS[rung], **kw})
 
     def to_plan(self) -> BFSPlan:
@@ -171,11 +187,15 @@ class BuiltGraph:
     n_vertices: int
     nnz: int
     edges: EdgeList   # the input edge list, original labels (root sampling)
+    sharded: Optional[ShardedGraph] = None   # the partition of build(mesh=)
 
 
-def build(cfg: Graph500Config, edges: EdgeList | None = None) -> BuiltGraph:
+def build(cfg: Graph500Config, edges: EdgeList | None = None,
+          mesh=None) -> BuiltGraph:
     """Steps 1-2 on ``cfg.device`` (untimed for TEPS; construction time is
-    recorded).  ``edges`` replaces the generated Kronecker edge list."""
+    recorded).  ``edges`` replaces the generated Kronecker edge list.  A
+    ``mesh`` with a ``member`` axis also partitions the graph over its
+    vertex shards (``cfg.partition``), which ``compile_plan`` then uses."""
     device = resolve_device(cfg.device)
     t0 = time.perf_counter()
     if edges is None:
@@ -196,10 +216,17 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None) -> BuiltGraph:
         # the weights hash the relabelled endpoint ids, which the oracle and
         # every engine see alike
         ev = with_edge_weights(ev, seed=cfg.seed, max_weight=cfg.max_weight)
+    sharded = None
+    if mesh is not None and "member" in mesh.axis_names:
+        sharded = shard_graph(
+            ev.src, ev.dst, ev.valid, ev.num_vertices,
+            mesh.size("group") * mesh.size("member"), partition=cfg.partition,
+            weight=ev.weight if cfg.kernel == "sssp" else None, device=device)
     nnz = int(g.nnz)  # synchronises: construction ends here
     return BuiltGraph(ev=ev, degree=g.degree, core=core, reorder=reord,
                       construction_s=time.perf_counter() - t0,
-                      n_vertices=g.num_vertices, nnz=nnz, edges=edges)
+                      n_vertices=g.num_vertices, nnz=nnz, edges=edges,
+                      sharded=sharded)
 
 
 def search_keys(cfg: Graph500Config, built: BuiltGraph, roots=None) -> np.ndarray:
@@ -220,11 +247,25 @@ def search_keys(cfg: Graph500Config, built: BuiltGraph, roots=None) -> np.ndarra
 
 
 def run(cfg: Graph500Config, built: BuiltGraph | None = None,
-        roots=None) -> tuple[BuiltGraph, Graph500Run]:
-    """Steps 3-4: compile the config's plan and run the timed harness over
-    :func:`search_keys`."""
+        roots=None, mesh=None) -> tuple[BuiltGraph, Graph500Run]:
+    """Steps 3-4: compile the config's plan (on ``mesh`` when one is given)
+    and run the timed harness over :func:`search_keys`.
+
+    ``cfg.procs > 1`` delegates to the multi-process launcher: the traversal
+    runs on ``procs`` gloo processes, which build the graph and sample the
+    roots themselves from the config (so ``roots`` and ``mesh`` must be
+    None), and rank 0's :class:`Graph500Run` comes back beside ``built``.
+    """
+    if cfg.procs > 1:
+        if roots is not None or mesh is not None:
+            raise ValueError("procs > 1 runs the config in worker processes, "
+                             "which sample the roots and lay the mesh: pass "
+                             "neither roots nor mesh")
+        from repro_torch.launch.multiprocess import run_config
+
+        return run_config(cfg, built)
     built = built or build(cfg)
-    compiled = compile_plan(cfg.to_plan(), built, device=cfg.device)
+    compiled = compile_plan(cfg.to_plan(), built, device=cfg.device, mesh=mesh)
     return built, compiled.run(search_keys(cfg, built, roots), check=cfg.check,
                                retries=cfg.retries, fallback=cfg.fallback).run
 

@@ -32,12 +32,16 @@ import heapq
 import numpy as np
 import torch
 
+from repro_torch.comms import hierarchical as _hier
 from repro_torch.core.bfs_steps import ChunkedEdgeView
 from repro_torch.core.faults import corrupt_parent, fires
-from repro_torch.core.hybrid_bfs import BFSResult, BFSStats, stack_results
+from repro_torch.core.heavy import pack_bitmap, testbit
+from repro_torch.core.hybrid_bfs import (
+    BFSResult, BFSStats, _exchange_delta, _shared, stack_results,
+)
+from repro_torch.kernels.ref import popcount_u32
 
-#: Exchange wirings of the SSSP kernel (the JAX package's vocabulary; the
-#: sharded engine is not ported yet).
+#: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
 SSSP_EXCHANGES = ("hier_min", "flat")
 
 #: The unreached distance: the JAX package's uint32 all-ones.
@@ -166,6 +170,148 @@ def _run_sssp_batch(chunks: ChunkedEdgeView, degree: torch.Tensor, roots, *,
         _run_sssp_impl(chunks, degree, int(r), delta=delta, max_rounds=max_rounds,
                        fault=fault)
         for r in roots])
+
+
+def _run_sssp_sharded(shards: list, comm, sg, root: int, *, delta: int,
+                      max_rounds: int, exchange: str = "hier_min",
+                      fault=None) -> BFSResult:
+    """One vertex-sharded δ-stepping SSSP from ``root`` over this process's
+    ``shards`` (``hybrid_bfs.shard_inputs``, weighted), with the JAX sharded
+    engine's semantics.
+
+    The distance plane and the changed set are replicated (every shard's
+    copy; shared tensors while they agree); each shard relaxes its dst-owned
+    edges against the round's frontier (pass A distances, pass B parents, as
+    on one device) and the round ends in two exchanges: the distance plane by
+    element-wise min (``hier_min``: the two-phase
+    :func:`~repro_torch.comms.hierarchical.hierarchical_pmin`; ``flat``: one
+    phase over both axes) and the changed-set delta bitmap through
+    ``_exchange_delta`` (``hier_or_packed``, never the sieve: a vertex
+    re-enters the changed set after it was visited; ``flat`` under
+    ``flat``).  Sentinels: exchange conservation, replicated-vs-owned
+    distance agreement, bucket monotone within the round bound.  Returns the
+    padded global parents and distances (``level`` slot, -1 unreached) in
+    shard-major order, with the first local shard's stats.
+    """
+    from repro_torch.core.distributed_bfs import owner_local_of
+
+    if exchange not in SSSP_EXCHANGES:
+        raise ValueError(f"unknown SSSP exchange {exchange!r}; expected one of "
+                         f"{SSSP_EXCHANGES}")
+    n_dev, w_loc = sg.n_devices, sg.w_loc
+    v_loc = w_loc * 32
+    v_pad = n_dev * v_loc
+    w_pad = n_dev * w_loc
+    dev = comm.device
+    i32, i64 = torch.int32, torch.int64
+    root = int(root)
+    delta_wire = "flat" if exchange == "flat" else "hier_or_packed"
+    r_owner, r_slot = owner_local_of(root, n_dev, w_loc, sg.partition)
+    ids_full = torch.arange(v_pad, dtype=i64, device=dev)
+
+    parents = []
+    for sh in shards:
+        p = torch.full((v_loc,), v_pad, dtype=i32, device=sh.degree.device)
+        if sh.d == r_owner:
+            p[r_slot] = root
+        parents.append(p)
+    dist = torch.full((v_pad,), INF_U32, dtype=i64, device=dev)
+    dist[root] = 0
+    changed = pack_bitmap(ids_full == root, w_pad)
+    dists = [dist.to(sh.degree.device) for sh in shards]
+    changeds = [changed.to(sh.degree.device) for sh in shards]
+    edges = [(sh.src.reshape(-1), sh.dst.reshape(-1).long(), sh.valid.reshape(-1),
+              sh.weight.reshape(-1)) for sh in shards]
+    prev_b = torch.zeros((), dtype=i64, device=dev)
+
+    stats_b = torch.full((max_rounds,), -1, dtype=i32, device=dev)
+    stats_fs = torch.zeros(max_rounds, dtype=i32, device=dev)
+    stats_se = torch.zeros(max_rounds, dtype=i32, device=dev)
+    stats_ok = torch.full((max_rounds,), -1, dtype=i32, device=dev)
+
+    def bucket(ch, dfull):
+        # the round's frontier: the changed vertices in the minimum bucket
+        # (replicated work on replicated state)
+        is_ch = testbit(ch, ids_full.to(ch.device))
+        bkt = torch.where(is_ch, dfull // delta, INF_U32)
+        b = bkt.min()
+        front = pack_bitmap(is_ch & (bkt == b), w_pad)
+        return b, front, ch & ~front
+
+    n_changed, rnd = 1, 0
+    n_changed_t = None
+    while rnd < max_rounds:
+        if rnd > 0:
+            n_changed = int(n_changed_t)  # the round's one synchronisation
+        if n_changed == 0:
+            break
+        buckets = _shared(bucket, changeds, dists)
+
+        contribs, deltas, improveds, new_parents, new_locs = [], [], [], [], []
+        for sh, (src, dst, valid, wgt), p, dfull, (_, front, _) in zip(
+                shards, edges, parents, dists, buckets):
+            dist_loc = dfull[sh.gslots]
+            # pass A over dst-owned edges: distance scatter-min into owned slots
+            active = valid & testbit(front, src)
+            cand = torch.where(active, (dfull[src.clamp(max=v_pad - 1)] + wgt) & INF_U32,
+                               INF_U32)
+            new_loc = dist_loc.scatter_reduce(0, dst, cand, "amin", include_self=True)
+            improved = new_loc < dist_loc
+            # pass B: parent = min source achieving the post-relax distance
+            pbase = torch.where(improved, v_pad, p)
+            won = active & (cand == new_loc[dst])
+            np_ = pbase.scatter_reduce(0, dst, torch.where(won, src, v_pad), "amin",
+                                       include_self=True)
+            if fires(fault, "parent", level=rnd, device=sh.d, root=root):
+                np_ = corrupt_parent(fault, np_, improved, sh.gslots, v_pad,
+                                     level=rnd, device=sh.d, root=root)
+            contrib = torch.full((v_pad,), INF_U32, dtype=i64, device=dfull.device)
+            contrib[sh.gslots] = new_loc
+            contribs.append(contrib)
+            deltas.append(pack_bitmap(improved, w_loc))
+            new_parents.append(np_)
+            new_locs.append(new_loc)
+
+        # exchange 1, the distance plane; exchange 2, the changed-set delta
+        if exchange == "flat":
+            new_dists = _hier._min_all_reduce(comm, contribs, "flat", fault=fault,
+                                              level=rnd, root=root)
+        else:
+            new_dists = _hier.hierarchical_pmin(comm, contribs, fault=fault,
+                                                level=rnd, root=root)
+        changed_delta = _exchange_delta(comm, deltas, w_loc=w_loc, n_dev=n_dev,
+                                        exchange=delta_wire, partition=sg.partition,
+                                        fault=fault, level=rnd, root=root)
+        new_changeds = _shared(lambda bk, cd: bk[2] | cd, buckets, changed_delta)
+        n_changed_t = popcount_u32(new_changeds[0]).sum()
+
+        sums = [torch.stack([
+            popcount_u32(dl).sum(), (nd[sh.gslots] != loc).sum(),
+            torch.where(testbit(bk[1], sh.gslots), sh.degree, 0).sum()])
+            for sh, dl, nd, loc, bk in zip(shards, deltas, new_dists, new_locs, buckets)]
+        delta_sum, mism, scanned = comm.psum(sums).to(i32)
+        b, front = buckets[0][0], buckets[0][1]
+        s1 = popcount_u32(changed_delta[0]).sum().to(i32) == delta_sum
+        s2 = mism == 0
+        s3 = (b >= prev_b) & (rnd + 1 <= max_rounds)
+        stats_b[rnd] = b.clamp(max=0x7FFFFFFF).to(i32)
+        stats_fs[rnd] = popcount_u32(front).sum().to(i32)
+        stats_se[rnd] = scanned
+        stats_ok[rnd] = s1.to(i32) + 2 * s2.to(i32) + 4 * s3.to(i32)
+        parents, dists, changeds, prev_b = new_parents, new_dists, new_changeds, b
+        rnd += 1
+
+    parent = torch.cat(comm.all_rows(parents))
+    parent = torch.where(parent == v_pad, -1, parent)
+    own = [dfull[sh.gslots] for sh, dfull in zip(shards, dists)]
+    dist_i = torch.cat(comm.all_rows([torch.where(o == INF_U32, -1, o).to(i32)
+                                      for o in own]))
+    return BFSResult(
+        parent=parent, level=dist_i,
+        stats=BFSStats(
+            stats_b, stats_fs, stats_se, torch.tensor(rnd, dtype=i32, device=dev),
+            torch.full((max_rounds,), -1, dtype=i32, device=dev),
+            torch.tensor(0, dtype=i32, device=dev), stats_ok))
 
 
 # ---------------------------------------------------------------------------

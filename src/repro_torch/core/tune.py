@@ -14,9 +14,9 @@ tuning is a loop over :func:`~repro_torch.core.plan.compile_plan`:
      one device: α/β × ``n_chunks`` of ``layout=()``).
   2. **compile**  — each candidate goes through ``compile_plan``; a
      ``ValueError`` (too few devices, a non-power-of-two member axis) is
-     recorded as *skipped*.  So is a mesh layout that fits the visible
-     devices, which this port does not run yet (its
-     ``NotImplementedError`` names "Multi-device layouts").
+     recorded as *skipped*.  A mesh layout that fits the visible devices
+     compiles over them and is swept (on one device: the 1-shard root
+     mesh).
   3. **accept**   — a candidate's parents must be bitwise identical to the
      single-device batched bitmap plan's on the shared inputs before it is
      timed; divergence marks it *rejected*.
@@ -76,11 +76,6 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 DEFAULT_TABLE = os.path.join(_REPO_ROOT, "TUNED_PLANS_torch.json")
 TABLE_ENV = "REPRO_TORCH_TUNED_PLANS"
-
-# The one exception a sweep records as skipped besides compile_plan's
-# ValueErrors: a mesh layout that fits the devices but is not ported yet.
-_UNPORTED_LAYOUTS = "Multi-device layouts"
-
 
 def table_path(path: Optional[str] = None) -> str:
     """Resolve the tuned-plan table path: explicit arg, then the
@@ -338,10 +333,6 @@ def _evaluate(plan: BFSPlan, pg: PreparedGraph, roots: np.ndarray, v: int,
     try:
         compiled = compile_plan(plan, pg, device=device)
     except ValueError as e:
-        return TuneResult(plan, "skipped", reason=str(e))
-    except NotImplementedError as e:
-        if _UNPORTED_LAYOUTS not in str(e):
-            raise
         return TuneResult(plan, "skipped", reason=str(e))
     parent = compiled.bfs(roots).parent[:, :v]   # parity pass doubles as warmup
     if not torch.equal(parent, oracle_parent):

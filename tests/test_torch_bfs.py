@@ -263,8 +263,10 @@ def test_plan_dict_round_trip_matches_jax():
     # the plan is refused, as in JAX
     (dict(engine="legacy"), ValueError),
     (dict(engine="reference"), ValueError),
-    (dict(layout=("root",)), NotImplementedError),
-    (dict(layout=("group", "member")), NotImplementedError),
+    # mesh layouts are ported: too few devices and a non-pow2 member axis
+    # are JAX's ValueErrors
+    (dict(layout=("root",), mesh_shape=(4,)), ValueError),
+    (dict(layout=("group", "member"), mesh_shape=(2, 3)), ValueError),
     # SSSP on a graph without a weight plane, as in JAX
     (dict(kernel="sssp"), ValueError),
     (dict(engine="warp"), ValueError),
@@ -274,7 +276,7 @@ def test_plan_dict_round_trip_matches_jax():
 ])
 def test_unported_plans_raise(kw, err):
     _, tb, _ = graphs(10)
-    with pytest.raises(err, match="ROADMAP.md" if err is NotImplementedError else None):
+    with pytest.raises(err):
         compile_plan(BFSPlan(**kw), tb, device="cpu")
 
 
@@ -287,8 +289,10 @@ def test_unported_run_options_raise(monkeypatch, tmp_path):
     assert run.all_valid and (run.retries, run.fallbacks, run.quarantined) == (0, 0, [])
     with pytest.raises(ValueError, match="check must be"):
         c.run(roots, check="half")
-    with pytest.raises(NotImplementedError, match="'Multi-device layouts'"):
-        compile_plan(BFSPlan(layout=("root",)), tb, device="cpu")
+    # the 1-shard root mesh of one device is the single-device batch
+    mesh1 = compile_plan(BFSPlan(layout=("root",)), tb, device="cpu")
+    assert mesh1.mesh_axes == {"root": 1}
+    assert_results_equal(mesh1.bfs(roots), jax_compile(JaxPlan(), graphs(10)[0]).bfs(roots))
     # a plan needing more devices than there are is JAX's ValueError
     with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         compile_plan(BFSPlan(layout=("root",), mesh_shape=(4,)), tb, device="cpu")
@@ -299,9 +303,10 @@ def test_unported_run_options_raise(monkeypatch, tmp_path):
     tuned = pipeline.Graph500Config.ladder("pre-g500-tuned", device="cpu")
     assert tuned.to_plan() == pipeline.Graph500Config.ladder(
         "pre-g500-batch").to_plan()
+    # the mesh rungs are ported: they lower to JAX's plans
     for rung in ("pre-g500-mesh", "pre-g500-mesh3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.Graph500Config.ladder(rung)
+        assert pipeline.Graph500Config.ladder(rung).to_plan().to_dict() == \
+            jpipe.Graph500Config.ladder(rung).to_plan().to_dict()
     # the legacy and TH-2 rungs are ported: they lower to per-root plans of
     # their engines, as in JAX
     for rung, engine in (("pre-g500-legacy", "legacy"), ("th2", "reference")):

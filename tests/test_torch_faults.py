@@ -168,6 +168,87 @@ def test_corrupt_parent_equal_to_jax(kind, level):
 
 
 # ---------------------------------------------------------------------------
+# The exchange sites' helpers, on the same arrays as JAX's
+# ---------------------------------------------------------------------------
+
+def _words(n=48, seed=0):
+    w = np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint64)
+    w = w.astype(np.uint32)
+    w[::3] = 0
+    return w, torch.from_numpy(w.view(np.int32).copy())
+
+
+EXCHANGE_KW = [
+    dict(site="exchange", kind="zero", level=2),
+    dict(site="exchange", kind="flip", level=2, word=50, bit=31),
+    dict(site="exchange", kind="flip", level=-1, word=3, bit=0, device=1),
+    dict(site="exchange", kind="zero", level=1, persistent=True, root=5),
+]
+
+
+@pytest.mark.parametrize("kw", EXCHANGE_KW)
+@pytest.mark.parametrize("level,device,root", [(1, 0, 5), (2, 1, 5), (3, 1, 4)])
+def test_corrupt_delta_equal_to_jax(kw, level, device, root):
+    w, tw = _words()
+    want = jfaults.corrupt_delta(jfaults.FaultSpec(**kw), jnp.asarray(w), level=level,
+                                 device=device, root=root)
+    got = faults.corrupt_delta(faults.FaultSpec(**kw), tw, level=level, device=device,
+                               root=root)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    # the caller's words are never written
+    np.testing.assert_array_equal(tw.numpy().view(np.uint32), w)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(site="codec", kind="payload_flip", word=70, seed=2**33 + 5),
+    dict(site="codec", kind="trunc_count", level=2),
+    dict(site="codec", kind="wrong_mode", device=1),
+])
+@pytest.mark.parametrize("level,device", [(2, 0), (2, 1)])
+def test_corrupt_encoded_equal_to_jax(kw, level, device):
+    w, tw = _words()
+    mode, count = np.int32(1), np.int32(17)
+    want = jfaults.corrupt_encoded(jfaults.FaultSpec(**kw), jnp.int32(mode),
+                                   jnp.asarray(w.view(np.int32)), jnp.int32(count),
+                                   level=level, device=device)
+    got = faults.corrupt_encoded(faults.FaultSpec(**kw), torch.tensor(mode), tw,
+                                 torch.tensor(count), level=level, device=device)
+    assert int(got[0]) == int(want[0]) and int(got[2]) == int(want[2])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("level,device", [(0, 0), (1, 2), (1, 3)])
+def test_drop_peers_and_corrupt_known_equal_to_jax(level, device):
+    w, tw = _words(seed=1)
+    f, ft = _words(seed=2)
+    for kw in (dict(site="inter_group", kind="drop", level=1, device=2),
+               dict(site="inter_group", kind="drop", persistent=True, level=0)):
+        want = jfaults.drop_peers(jfaults.FaultSpec(**kw), jnp.asarray(w), jnp.asarray(f),
+                                  level=level, device=device)
+        got = faults.drop_peers(faults.FaultSpec(**kw), tw, ft, level=level, device=device)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    kw = dict(site="sieve", kind="stale", level=1)
+    want = jfaults.corrupt_known(jfaults.FaultSpec(**kw), jnp.asarray(w), level=level,
+                                 device=device)
+    got = faults.corrupt_known(faults.FaultSpec(**kw), tw, level=level, device=device)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(site="codec", kind="wrong_mode", level=1, persistent=True),
+    dict(site="inter_group", kind="drop", level=1, persistent=True),
+    dict(site="sieve", kind="stale", level=1, persistent=True),
+])
+def test_transport_sites_inert_on_one_device_like_jax(kw):
+    # one device has no exchange: the run is the clean one, in both packages
+    jc, tc = compile_both(kw, batch_roots=True)
+    want = jc.run(ROOTS, check="full", retries=1, fallback=True)
+    got = tc.run(ROOTS, check="full", retries=1, fallback=True)
+    assert_runs_equal(got, want)
+    assert got.run.all_valid and got.run.retries == 0
+
+
+# ---------------------------------------------------------------------------
 # The single-device legs of tests/test_faults.py on both packages
 # ---------------------------------------------------------------------------
 

@@ -526,3 +526,72 @@ def test_tune_sweep_on_card_identical_winner(cuda, tmp_path):
     path = tune.save_tuned(rep, str(tmp_path / "t.json"))
     got = tune.tuned_plan(10, path=path)
     assert got == rep.winner.plan
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layouts on virtual meshes of the card
+# ---------------------------------------------------------------------------
+
+_CARD_CACHE: dict = {}
+
+
+def _scale17_on_card(cuda):
+    from repro_torch.core import pipeline
+    if "s17" not in _CARD_CACHE:
+        cfg = pipeline.Graph500Config.ladder("pre-g500-batch", scale=17, n_roots=3)
+        built = pipeline.build(cfg)
+        _CARD_CACHE["s17"] = (cfg, built, pipeline.search_keys(cfg, built))
+    return _CARD_CACHE["s17"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partition", ["block", "word_cyclic"])
+def test_vertex_sharded_on_card_equals_single_device(cuda, partition):
+    # scale 17 over (2, 2): W_loc = 1024, so the epilogue launches
+    # frontier_update on every shard, and core_spmv runs on each
+    from repro_torch.comms.mesh import make_mesh
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    cfg, built, roots = _scale17_on_card(cuda)
+    base = compile_plan(cfg.to_plan(), built).run(roots, check="off")
+    c = compile_plan(BFSPlan(layout=("group", "member"), partition=partition), built,
+                     mesh=make_mesh((2, 2), ("group", "member"), virtual=True))
+    assert c.graph.sharded.w_loc == 1024
+    before = ops.launch_counts()
+    res = c.run(roots, check="full")
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert res.run.all_valid and not any(res.run.check_counts.values())
+    np.testing.assert_array_equal(res.parent, base.parent)
+    np.testing.assert_array_equal(res.level, base.level)
+    assert launched["frontier_update"] > 0 and launched["core_spmv"] > 0
+
+
+@pytest.mark.cuda
+def test_root_layout_on_card_equals_single_device(cuda):
+    from repro_torch.comms.mesh import make_mesh
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    cfg, built, roots = _scale17_on_card(cuda)
+    base = compile_plan(cfg.to_plan(), built).bfs(roots)
+    for mesh in (None, make_mesh((2,), ("root",), virtual=True)):
+        res = compile_plan(BFSPlan(layout=("root",)), built, mesh=mesh).bfs(roots)
+        assert torch.equal(res.parent, base.parent) and torch.equal(res.level, base.level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["hier_min", "flat"])
+def test_sharded_sssp_on_card_equals_single_device(cuda, exchange):
+    from repro_torch.comms.mesh import make_mesh
+    from repro_torch.core import pipeline
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    cfg = pipeline.Graph500Config.ladder("pre-g500-batch", scale=14, n_roots=2,
+                                         kernel="sssp")
+    built = pipeline.build(cfg)
+    roots = pipeline.search_keys(cfg, built)
+    base = compile_plan(cfg.to_plan(), built).bfs(roots)
+    c = compile_plan(BFSPlan(layout=("group", "member"), kernel="sssp",
+                             exchange=exchange, partition="word_cyclic"), built,
+                     mesh=make_mesh((2, 2), ("group", "member"), virtual=True))
+    res = c.bfs(roots)
+    v = built.n_vertices
+    assert torch.equal(res.parent[:, :v], base.parent)
+    assert torch.equal(res.level[:, :v], base.level)
+    assert c.run(roots, check="full").run.all_valid

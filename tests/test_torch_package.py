@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.data.graphs, repro_torch.core.sssp_steps\n"
         "import repro_torch.core.faults, repro_torch.serve.engine\n"
         "import repro_torch.data.query_trace, repro_torch.core.tune\n"
-        "import repro_torch.comms.topology\n"
+        "import repro_torch.comms.topology, repro_torch.comms.mesh\n"
+        "import repro_torch.comms.hierarchical, repro_torch.core.distributed_bfs\n"
+        "import repro_torch.launch.multiprocess\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

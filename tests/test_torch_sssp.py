@@ -371,12 +371,45 @@ def test_sssp_requires_weight_plane():
 
 def test_sssp_unported_options_still_raise():
     _, tp, roots = weighted("erdos_renyi")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_plan(TraversalPlan(kernel="sssp", layout=("group", "member")), tp,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_plan(TraversalPlan(kernel="sssp", layout=("root",)), tp, device="cpu")
+    # the mesh layouts are ported: on one device the 1-shard meshes give the
+    # single-device rows, and a mesh too large is JAX's ValueError
+    base = compile_plan(TraversalPlan(kernel="sssp"), tp, device="cpu").bfs(roots)
+    for layout in (("group", "member"), ("root",)):
+        res = compile_plan(TraversalPlan(kernel="sssp", layout=layout), tp,
+                           device="cpu").bfs(roots)
+        v = base.parent.shape[-1]
+        assert torch.equal(res.parent[:, :v], base.parent)
+        assert torch.equal(res.level[:, :v], base.level)
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        compile_plan(TraversalPlan(kernel="sssp", layout=("group", "member"),
+                                   mesh_shape=(2, 2)), tp, device="cpu")
     # checked execution is ported for SSSP too (tests/test_torch_faults.py)
     c = compile_plan(TraversalPlan(kernel="sssp"), tp, device="cpu")
     run = c.run(roots, retries=1, fallback=True).run
     assert run.all_valid and (run.retries, run.fallbacks, run.quarantined) == (0, 0, [])
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine on virtual CPU meshes, against JAX's single-device rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("partition", ["block", "word_cyclic"])
+@pytest.mark.parametrize("exchange", ["hier_min", "flat"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)])
+def test_sharded_sssp_equal_to_jax_single_device(shape, exchange, partition):
+    from repro_torch.comms.mesh import make_mesh
+    jp, tp, roots = weighted("kronecker")
+    want = jax_compile(JaxPlan(kernel="sssp"), jp).bfs(roots[:2])
+    c = compile_plan(TraversalPlan(kernel="sssp", layout=("group", "member"),
+                                   exchange=exchange, partition=partition), tp,
+                     device="cpu", mesh=make_mesh(shape, ("group", "member"),
+                                                  device="cpu", virtual=True))
+    got = c.bfs(roots[:2])
+    v = tp.ev.num_vertices
+    np.testing.assert_array_equal(got.parent[:, :v].numpy(), np.asarray(want.parent))
+    np.testing.assert_array_equal(got.level[:, :v].numpy(), np.asarray(want.level))
+    np.testing.assert_array_equal(got.levels.numpy(), np.asarray(want.stats.levels))
+    sent = got.sentinel.numpy()
+    assert np.all((sent == -1) | (sent == 7))
+    run = c.run(roots[:2], check="full")
+    assert run.run.all_valid and run.mesh_axes == {"group": shape[0], "member": shape[1]}

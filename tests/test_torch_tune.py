@@ -60,8 +60,8 @@ def jax_edges():
 
 def sweep_plans():
     """One device's full candidate set, plus one plan for each way a
-    candidate can be refused: too many devices, a non-pow2 member axis, and
-    (in the port only) a mesh layout that fits."""
+    candidate can be refused (too many devices, a non-pow2 member axis) and
+    the one mesh layout that fits one device, the 1-shard root mesh."""
     extra = [dict(layout=("group", "member"), mesh_shape=(16, 16)),
              dict(layout=("group", "member"), mesh_shape=(2, 3)),
              dict(layout=("root",), mesh_shape=(1,))]
@@ -184,12 +184,9 @@ def test_sweep_statuses_equal_to_jax():
                for r in jr.results + jr.skipped}
     assert len(status) == len(jstatus) == len(plans)
     fits = tune._plan_sort_key(BFSPlan(layout=("root",), mesh_shape=(1,)))
+    # the 1-device root mesh compiles and is swept, as in JAX
+    assert status[fits][0] == jstatus[fits][0] == "ok"
     for key, (st, why) in status.items():
-        if key == fits:
-            # the one difference by design: JAX runs the 1-device root mesh
-            assert jstatus[key][0] == "ok"
-            assert st == "skipped" and "'Multi-device layouts'" in why
-            continue
         assert st == jstatus[key][0], key
         if st == "skipped":
             # JAX's text, less what names JAX's means (XLA_FLAGS, mesh=)
@@ -197,13 +194,14 @@ def test_sweep_statuses_equal_to_jax():
     skipped = {r.plan.mesh_shape: r.reason for r in tr.skipped}
     assert "needs 256 devices, have 1" in skipped[(16, 16)]
     assert "power of two" in skipped[(2, 3)]
-    assert len(tr.results) == 12 and all(r.identical for r in tr.results)
+    assert len(tr.results) == 13 and all(r.identical for r in tr.results)
     assert (tr.n_devices, tr.backend, tr.interpret_mode) == (1, "cpu", True)
 
 
 def test_sweep_ranked_order_and_hmean_equal_to_jax():
     jr, tr = sweeps()
-    want = [r for r in jr.results if r.plan.layout == ()]
+    want = jr.results
+    assert [r.plan.layout for r in want].count(("root",)) == 1
     assert [r.plan.to_dict() for r in tr.results] == [r.plan.to_dict() for r in want]
     # the model ties α = 14's two β per n_chunks: the plan's JSON breaks them
     costs = [r.per_root_us for r in tr.results]
@@ -478,9 +476,12 @@ def test_mesh_config_knobs_lower_like_jax():
         assert got == jpipe.Graph500Config(**kw).to_plan().to_dict(), kw
     with pytest.raises(ValueError, match="root_devices requires batched=True"):
         pipeline.Graph500Config(root_devices=2).to_plan()
+    # the mesh rungs are ported: they lower to JAX's plans
     for rung in ("pre-g500-mesh", "pre-g500-mesh3"):
-        with pytest.raises(NotImplementedError, match="'Multi-device layouts'"):
-            pipeline.Graph500Config.ladder(rung)
+        for kw in ({}, dict(mesh_shape=(2, 2, 2)) if rung.endswith("3") else
+                   dict(root_devices=4)):
+            got = pipeline.Graph500Config.ladder(rung, **kw).to_plan().to_dict()
+            assert got == jpipe.Graph500Config.ladder(rung, **kw).to_plan().to_dict()
 
 
 def test_pipeline_tuned_rung_runs_valid_without_table(monkeypatch, tmp_path):
