@@ -108,12 +108,41 @@ non-zero and no result line is printed:
  18. the multi-process launcher on the card: 2 gloo processes x 2 shards at
      scale 18 (W_loc = 2,048), staged through the host; parent digests
      equal to the oracle and an in-process virtual (2, 2) run; the measured
-     exchange per level beside ``modeled_wire_bytes``.
+     exchange per level beside ``modeled_wire_bytes``;
+ 19. the tuner over a virtual mesh of 4 shards of the card:
+     ``tune.sweep(20, budget="small", devices=4, n_roots=4, reps=2)``, 15
+     candidates, every one accepted bitwise, both kernels launched by the
+     timed runs of every vertex-sharded candidate; the ranked table, and
+     its entry (``scale20/dev4/cuda``, ``"virtual": true``) written to a
+     temporary file through ``REPRO_TORCH_TUNED_PLANS`` and read back;
+ 20. mesh serving: ``Engine(built, plan=BFSPlan(layout=("group",
+     "member"), mesh_shape=(2, 2), partition=p), mesh=<virtual (2, 2)>)``
+     for both partitions on 16 queries of phase 14's ``serve_burst``
+     trace: every answer equal to the offline run of the same compiled
+     plan, every batch launching both kernels, ms a batch; a persistent
+     ``exchange``/``zero`` fault re-queued, answered by the single-device
+     fallback, equal to the clean batched plan's rows;
+ 21. the T3 collectives on a virtual (2, 4) mesh: ``psum_spmd``
+     hierarchical equal to flat bit for bit on integer-valued fp32, the
+     compressed psum within rtol 1e-2, ``all_to_all_spmd`` equal to the
+     flat one and an involution, and a data-parallel xDeepFM step (smoke
+     config, 8 shards, gradients summed by ``hierarchical_psum``) within
+     rtol 1e-5 of the single-shard step;
+ 22. xDeepFM training at full width (``xdeepfm_full``, TF32 off): one AdamW
+     step at B = 512 on the card and on the CPU from the same parameters
+     and batch (loss within rtol 1e-5, parameters within atol 1e-6);
+     ``launch.train --arch xdeepfm --full --steps 20 --batch 1024`` (B =
+     8,192), its loss falling from ~0.69, ``max_memory_allocated``; the
+     step at B = 8,192 split into forward+backward and the AdamW update
+     (CUDA events), samples/s and a profile of one step; the resume at the
+     smoke config (6 steps against 3, a checkpoint and 3 more, bit for
+     bit); ``launch.train --arch graph500 --scale 16``, valid.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
 of phase 13, the serving of phase 14, the sweep and the tuned rung of
-phase 15, the mesh runs of phases 16–17 and rank 0 of phase 18), each
+phase 15, the mesh runs of phases 16–17, rank 0 of phase 18, the virtual
+sweep of phase 19 and the mesh serving of phase 20), each
 counted from 0 just before its run and read just after;
 ``launches_by_path`` lists them.  The last
 two lines are the kernel JSON and the result JSON.  Without a
@@ -184,6 +213,24 @@ MESH_SSSP_ROOTS = 4
 # phase 18: the launcher's graph (W_loc = 2048 over 4 shards) and roots
 MP_SCALE = 18
 MP_ROOTS = 4
+# phase 19: the sweep over a virtual mesh of 4 shards of the card
+VSWEEP_DEVICES = 4
+VSWEEP_ROOTS = 4
+VSWEEP_REPS = 2
+# phase 20: the queries of phase 14's serve_burst trace served on (2, 2)
+MESH_SERVE_QUERIES = 16
+# phase 22: xDeepFM training (launch.train's schedule and batches of 8 x
+# TRAIN_BATCH rows), the card-vs-CPU step's batch and the timed steps
+TRAIN_STEPS = 20
+TRAIN_BATCH = 1024
+TRAIN_CHECK_ROWS = 512
+TRAIN_TIMED_STEPS = 5
+# the card's gradients against the CPU's: float32 sums in another order, so
+# each element within GRAD_RTOL of its CPU value plus GRAD_RTOL of its leaf's
+# largest |gradient| (an element that cancels has no scale of its own); a
+# TF32 product or a wrong backward is off by 1e-3 or more
+GRAD_RTOL = 1e-5
+TRAIN_GRAPH500_SCALE = 16
 
 
 def log(msg: str) -> None:
@@ -499,7 +546,7 @@ def serve_xdeepfm(device) -> dict:
             f"{float((feat - feat_plain).abs().max()):.6e}")
         _, emb = recsys.embed(params, ids_bulk, cfg)
         xl = emb
-        for i, w in enumerate(params.cin):
+        for i, w in enumerate(recsys.cin_weights(params)):
             out = ops.cin_layer(emb, xl, w)
             want = ref.cin_layer_ref(emb[rows], xl[rows], w)
             err = max(err, assert_close(
@@ -1541,6 +1588,375 @@ def launcher_phase(device) -> dict:
     return dict(launches={k: n[k] for k in ("frontier_update", "core_spmv")})
 
 
+def virtual_sweep_phase(device) -> dict:
+    """Phase 19: the tuner's sweep over a virtual mesh of 4 shards of the
+    card (every candidate accepted bitwise, both kernels launched by every
+    vertex-sharded candidate's timed runs), its table entry (``dev4``,
+    ``"virtual": true``) written to a temporary file and read back."""
+    import os
+    import tempfile
+    from repro_torch.core import tune
+    from repro_torch.kernels import ops
+
+    by_plan: dict = {}
+    marks = [time.perf_counter()]
+    spans: list = []          # (plan, s before its timed runs, s of them)
+
+    def measure(compiled, roots, reps):
+        before = ops.launch_counts()
+        t_m = time.perf_counter()
+        wall = tune._default_measure(compiled, roots, reps)
+        spans.append((compiled.plan, t_m - marks[-1], time.perf_counter() - t_m))
+        by_plan[tune._plan_sort_key(compiled.plan)] = (
+            compiled.plan, {k: n - before[k] for k, n in ops.launch_counts().items()})
+        return wall
+
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = tune.sweep(SCALE_MAIN, budget="small", devices=VSWEEP_DEVICES,
+                     n_roots=VSWEEP_ROOTS, reps=VSWEEP_REPS, device=device.type,
+                     measure=measure, log=lambda msg: marks.append(time.perf_counter()))
+    sync(device)
+    sweep_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for line in rep.table().splitlines():
+        log(f"    {line}")
+    n_plans = len(tune.enumerate_plans(VSWEEP_DEVICES, tune.BUDGETS["small"]))
+    if rep.skipped or len(rep.results) != n_plans or not rep.virtual:
+        raise AssertionError(f"virtual sweep: {[(r.status, r.reason) for r in rep.skipped]}")
+    if not all(r.identical for r in rep.results):
+        raise AssertionError("virtual sweep: an accepted candidate is not bitwise identical")
+    for plan, got in by_plan.values():
+        if "member" in plan.layout and (got["frontier_update"] <= 0 or got["core_spmv"] <= 0):
+            raise AssertionError(f"virtual sweep: {plan} launched {got}")
+    vertexy = [(p, got) for p, got in by_plan.values() if "member" in p.layout]
+    log(f"    build, oracle and first parity pass {spans[0][1]:.3f} s; per candidate, compile and "
+        f"parity pass / timed runs (s): " + "; ".join(
+            f"{'*'.join(p.layout) or 'single'} {'x'.join(map(str, p.mesh_shape or (1,)))} "
+            f"{p.exchange} {p.partition}: {a:.3f} / {b:.3f}" for p, a, b in spans[1:]))
+    log(f"    sweep of {n_plans} candidates over a virtual mesh of {VSWEEP_DEVICES} "
+        f"shards in {sweep_s:.6f} s (graph build, oracle and parity passes included); "
+        f"launches during the sweep {launches}; each of the {len(vertexy)} "
+        f"vertex-sharded candidates launched both kernels in its timed runs "
+        f"(frontier_update {min(g['frontier_update'] for _, g in vertexy)}-"
+        f"{max(g['frontier_update'] for _, g in vertexy)}, core_spmv "
+        f"{min(g['core_spmv'] for _, g in vertexy)}-"
+        f"{max(g['core_spmv'] for _, g in vertexy)} over {VSWEEP_REPS} reps)")
+    old_env = os.environ.get(tune.TABLE_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ[tune.TABLE_ENV] = tune.save_tuned(
+                rep, os.path.join(tmp, "TUNED_PLANS_torch.json"))
+            key = f"scale{SCALE_MAIN}/dev{VSWEEP_DEVICES}/{device.type}"
+            entry = tune.load_table()["entries"][key]
+            if entry.get("virtual") is not True or tune.tuned_plan(
+                    SCALE_MAIN, VSWEEP_DEVICES, device.type) != rep.winner.plan:
+                raise AssertionError(f"virtual sweep: table entry {key} is {entry}")
+            log(f"    table entry {key} written through {tune.TABLE_ENV}: virtual "
+                f"{entry['virtual']}, winner {entry['plan']['layout']} "
+                f"{entry['plan']['mesh_shape']} {entry['plan']['exchange']} "
+                f"{entry['plan']['partition']}, {entry['per_root_us']:.6f} us per root")
+    finally:
+        if old_env is None:
+            os.environ.pop(tune.TABLE_ENV, None)
+        else:
+            os.environ[tune.TABLE_ENV] = old_env
+    return dict(launches=launches, seconds=sweep_s)
+
+
+def mesh_serving_phase(built, device) -> dict:
+    """Phase 20: the serving engine on a virtual (2, 2) mesh of the card for
+    both partitions (every answer equal to the offline run of the same
+    compiled plan, both kernels launched by every batch), then a persistent
+    ``exchange``/``zero`` fault answered by the single-device fallback."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.plan import BFSPlan, compile_plan
+    from repro_torch.data.query_trace import synth_trace
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    _, rate, zipf = SERVE_TRACES[1]
+    trace = synth_trace(7, MESH_SERVE_QUERIES, built.n_vertices, rate_qps=rate,
+                        zipf_s=zipf, degree=built.degree)
+    roots = [int(r) for r in trace.roots]
+    launches: dict = {}
+    per_batch: list = []
+
+    def counted(eng):
+        solve = eng.solve_batch
+
+        def solve_counted(padded, n_real, use_fallback):
+            sync(device)
+            before = ops.launch_counts()
+            out = solve(padded, n_real, use_fallback)
+            sync(device)
+            per_batch.append((use_fallback, {k: n - before[k] for k, n in
+                                             ops.launch_counts().items()}))
+            return out
+
+        eng.solve_batch = solve_counted
+        return eng
+
+    def serve(name, eng):
+        per_batch.clear()
+        sync(device)
+        ops.reset_launch_counts()
+        report = counted(eng).serve(trace)
+        sync(device)
+        for k, n in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        serve_summary(name, report)
+        return report
+
+    for part in ("block", "word_cyclic"):
+        plan = BFSPlan(layout=VERTEX, mesh_shape=(2, 2), partition=part)
+        eng = Engine(built, plan=plan, config=ServeConfig(**SERVE_CFG),
+                     mesh=virtual_mesh((2, 2)), device=device)
+        report = serve(f"(2, 2) {part}", eng)
+        for fb, got in per_batch:
+            if got["frontier_update"] <= 0 or got["core_spmv"] <= 0:
+                raise AssertionError(f"(2, 2) {part}: a batch launched {got}")
+        check_answers(f"(2, 2) {part}", report, offline_rows(eng.compiled, roots))
+        svc = np.asarray([b.service_s for b in report.batches]) * 1e3
+        log(f"    (2, 2) {part}: every answer equals the offline run of the same "
+            f"compiled plan; {len(per_batch)} batches, each launching both kernels "
+            f"({[g['frontier_update'] for _, g in per_batch]} frontier_update, "
+            f"{[g['core_spmv'] for _, g in per_batch]} core_spmv); {svc.mean():.6f} "
+            f"ms a batch")
+
+    fault = FaultSpec("exchange", "zero", level=1, persistent=True)
+    feng = Engine(built, plan=BFSPlan(layout=VERTEX, mesh_shape=(2, 2)),
+                  config=ServeConfig(**SERVE_CFG), mesh=virtual_mesh((2, 2)),
+                  fault=fault, device=device)
+    report = serve("(2, 2) exchange fault", feng)
+    clean = compile_plan(BFSPlan(layout=(), batch_roots=True), built, device=device)
+    check_answers("(2, 2) exchange fault", report, offline_rows(clean, roots))
+    kinds = report.summary()["kinds"]
+    if "requeue" not in kinds or not any(b.used_fallback for b in report.batches) \
+            or not any(b.failed_roots for b in report.batches):
+        raise AssertionError(f"exchange fault: kinds {kinds}, no requeue or fallback")
+    log(f"    {fault.describe()} on (2, 2): kinds {kinds}, check_counts "
+        f"{report.summary()['check_counts']}; the re-queued roots were answered by the "
+        f"single-device fallback, every answer equal to the clean batched plan's rows")
+    return dict(launches=launches)
+
+
+def collectives_phase(device) -> dict:
+    """Phase 21: the T3 psum and all-to-all on a virtual (2, 4) mesh of the
+    card, and a data-parallel xDeepFM step over its 8 shards."""
+    from repro_torch.comms import hierarchical as hier
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+
+    mesh = virtual_mesh((2, 4))
+    x = torch.arange(8 * 4096, dtype=torch.float32, device=device).reshape(8, 4096)
+    flat = hier.psum_spmd(mesh, hierarchical=False)(x)
+    two = hier.psum_spmd(mesh)(x)
+    if not (torch.equal(two, flat) and torch.equal(flat[0], x.sum(0))):
+        raise AssertionError("hierarchical psum differs from the flat psum on "
+                             "integer-valued fp32")
+    gen = torch.Generator(device=device).manual_seed(3)
+    xf = torch.randn((8, 4096), generator=gen, device=device)
+    comp = hier.psum_spmd(mesh, compress=True)(xf)
+    ref_f = hier.psum_spmd(mesh, hierarchical=False)(xf)
+    err = float((comp - ref_f).abs().max())
+    if not torch.allclose(comp, ref_f, rtol=1e-2, atol=5e-2):
+        raise AssertionError(f"compressed psum: worst absolute error {err}")
+    y = torch.arange(64 * 16 * 8, dtype=torch.float32, device=device).reshape(64 * 16, 8)
+    a2a = hier.all_to_all_spmd(mesh)
+    once = a2a(y)
+    if not (torch.equal(once, hier.all_to_all_spmd(mesh, hierarchical=False)(y))
+            and torch.equal(a2a(once), y)):
+        raise AssertionError("hierarchical all-to-all differs from the flat one or is "
+                             "not an involution")
+    log(f"    (2, 4): psum_spmd hierarchical == flat bit for bit on [8, 4096] "
+        f"integer-valued fp32; compressed (bf16 inter-group leg) within rtol 1e-2 / "
+        f"atol 5e-2 of flat on N(0, 1) (worst absolute error {err:.6f}); all_to_all_spmd "
+        f"[1024, 8] equal to the flat one and an involution")
+
+    cfg = get("xdeepfm").make_smoke_config()
+    params = recsys.init_params(cfg, seed=3, device=device)
+    opt = AdamW(cosine(1e-3, 1, 10))
+    batch = recsys_batch(0, 0, TRAIN_CHECK_ROWS, cfg.n_sparse, cfg.rows_per_field,
+                         device=device)
+    p1, _, l1 = TS.make_xdeepfm_train_step(cfg, opt)(params, opt.init(params), batch)
+    p8, _, l8 = TS.make_xdeepfm_dp_train_step(cfg, opt, mesh)(params, opt.init(params),
+                                                              batch)
+    worst = max(float((p8[k] - p1[k]).abs().max()) for k in p1)
+    if not (abs(float(l8) - float(l1)) <= 1e-5 * abs(float(l1)) and all(
+            torch.allclose(p8[k], p1[k], rtol=1e-5, atol=1e-7) for k in p1)):
+        raise AssertionError(f"data-parallel step: loss {float(l8)} vs {float(l1)}, "
+                             f"worst parameter difference {worst}")
+    log(f"    data-parallel xDeepFM step (smoke config, {TRAIN_CHECK_ROWS} rows over 8 "
+        f"shards, hierarchical_psum of the gradients): loss {float(l8):.9f} vs the "
+        f"single-shard step's {float(l1):.9f}, parameters within {worst:.3e} (rtol "
+        f"1e-5, atol 1e-7)")
+    return {}
+
+
+def training_phase(device) -> dict:
+    """Phase 22: xDeepFM training at full width: one step on the card
+    against the CPU, ``launch.train`` for 20 steps at B = 8,192, the step's
+    split and idle share, the resume at the smoke config, and the graph500
+    branch of the launcher."""
+    import tempfile
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.loop import LoopConfig, run_loop
+
+    full = get("xdeepfm").make_config()
+    opt = AdamW(cosine(1e-3, 5, TRAIN_STEPS))
+    step = TS.make_xdeepfm_train_step(full, opt)
+
+    # (a) one batch's gradients on the card and on the CPU from the same
+    # parameters, then the AdamW step from each
+    t0 = time.perf_counter()
+    p_cpu = recsys.init_params(full, seed=0, device="cpu")
+    b_cpu = recsys_batch(0, 0, TRAIN_CHECK_ROWS, full.n_sparse, full.rows_per_field,
+                         device="cpu")
+    lc, gc = TS.xdeepfm_value_and_grad(p_cpu, b_cpu, full)
+    pc, _ = opt.update(gc, opt.init(p_cpu), p_cpu)
+    cpu_s = time.perf_counter() - t0
+    p_gpu = {k: v.to(device) for k, v in p_cpu.items()}
+    del p_cpu
+    lg, gg = TS.xdeepfm_value_and_grad(
+        p_gpu, {k: v.to(device) for k, v in b_cpu.items()}, full)
+    pg, _ = opt.update(gg, opt.init(p_gpu), p_gpu)
+    del p_gpu
+    grad_rel, grad_bad = {}, []
+    for k in gc:
+        want, got = gc[k], gg[k].cpu()
+        top = float(want.abs().max())
+        diff = (got - want).abs()
+        grad_rel[k] = float(diff.max()) / top if top else float(diff.max())
+        if bool((diff > GRAD_RTOL * want.abs() + GRAD_RTOL * top).any()):
+            grad_bad.append(k)
+    del gc, gg
+    worst = {k: float((pg[k] - pc[k].to(device)).abs().max()) for k in pc}
+    del pc, pg
+    if abs(float(lg) - float(lc)) > 1e-5 * abs(float(lc)) or grad_bad \
+            or max(worst.values()) > 1e-6:
+        raise AssertionError(f"full-width step: loss {float(lg)} (card) vs {float(lc)} "
+                             f"(CPU); gradients out of tolerance {grad_bad} (max "
+                             f"|diff| / max |CPU gradient| per leaf {grad_rel}); "
+                             f"parameter differences {worst}")
+    log(f"    one batch at full width, B = {TRAIN_CHECK_ROWS}: loss {float(lg):.9f} "
+        f"(card) vs {float(lc):.9f} (CPU); gradients within rtol {GRAD_RTOL} + "
+        f"{GRAD_RTOL} x the leaf's largest |gradient|, max |diff| / max |gradient| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grad_rel.items())
+        + f"; after one AdamW step the parameters within {max(worst.values()):.3e} "
+        f"(atol 1e-6; table {worst['table']:.3e}); the CPU half (init included) "
+        f"took {cpu_s:.3f} s")
+
+    # (b) the launcher's recsys path: 20 steps at B = 8,192
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    lines: list = []
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", "xdeepfm", "--full", "--steps", str(TRAIN_STEPS),
+                             "--batch", str(TRAIN_BATCH)], log=lines.append)
+    sync(device)
+    launch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = out["losses"]
+    for line in lines[1:]:
+        log(f"    {line}")
+    if not (abs(losses[0] - 0.69) < 0.05 and losses[-1] < losses[0]):
+        raise AssertionError(f"launch.train: the loss did not fall from ~0.69: {losses}")
+    log(f"    launch.train --arch xdeepfm --full --steps {TRAIN_STEPS} --batch "
+        f"{TRAIN_BATCH}: {launch_s:.6f} s in all (parameter init and the first "
+        f"step's warm-up included), loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"max_memory_allocated {peak / 2**30:.6f} GiB")
+
+    # (c) the step at B = 8,192, timed by part, and one profiled step
+    rows = 8 * TRAIN_BATCH
+    params = recsys.init_params(full, seed=0, device=device)
+    state = opt.init(params)
+    batches = [recsys_batch(0, i, rows, full.n_sparse, full.rows_per_field, device=device)
+               for i in range(TRAIN_TIMED_STEPS + 1)]
+    params, state, _ = step(params, state, batches[-1])
+    # the embedding backward sums each row's gradients in a fixed order: two
+    # calls on the same parameters and batch give the same bits
+    l1, g1 = TS.xdeepfm_value_and_grad(params, batches[0], full)
+    l2, g2 = TS.xdeepfm_value_and_grad(params, batches[0], full)
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    if differ or not torch.equal(l1, l2):
+        raise AssertionError(f"full-width gradients at B = {rows} differ between two "
+                             f"calls: {differ}, loss {float(l1)} vs {float(l2)}")
+    del g1, g2
+    log(f"    full-width loss and gradients at B = {rows}: two calls on the same "
+        f"parameters and batch equal bit for bit ({len(params)} leaves)")
+    fb_ms, up_ms = [], []
+    for b in batches[:-1]:
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss, grads = TS.xdeepfm_value_and_grad(params, b, full)
+        e[1].record()
+        params, state = opt.update(grads, state, params)
+        e[2].record()
+        e[2].synchronize()
+        del grads
+        fb_ms.append(e[0].elapsed_time(e[1]))
+        up_ms.append(e[1].elapsed_time(e[2]))
+    fb, up = statistics.median(fb_ms), statistics.median(up_ms)
+    log(f"    step at B = {rows} (CUDA events, median of {TRAIN_TIMED_STEPS}): "
+        f"forward+backward {fb:.6f} ms, AdamW update {up:.6f} ms, step "
+        f"{fb + up:.6f} ms, {rows / (fb + up) * 1e3:.6f} samples/s")
+    holder = [params, state]
+
+    def one_step():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batches[0])
+
+    log(f"    profile of one training step at B = {rows}")
+    prof = profile_window(one_step, ())
+    del holder, params, state, batches
+
+    # (d) resume at the smoke config: 6 steps straight against 3 + resume 3
+    smoke = get("xdeepfm").make_smoke_config()
+    sopt = AdamW(cosine(1e-3, 2, 6))
+    sstep = TS.make_xdeepfm_train_step(smoke, sopt)
+    data = [recsys_batch(0, i, 8 * 4, smoke.n_sparse, smoke.rows_per_field, device=device)
+            for i in range(6)]
+    p0 = recsys.init_params(smoke, seed=0, device=device)
+    quiet = lambda msg: None  # noqa: E731
+    straight, s_st, _ = run_loop(LoopConfig(total_steps=6, log_every=1), p0,
+                                 sopt.init(p0), sstep, data.__getitem__, log=quiet)
+    with tempfile.TemporaryDirectory() as tmp:
+        lc3 = LoopConfig(total_steps=3, ckpt_dir=tmp, ckpt_every=3, log_every=1)
+        run_loop(lc3, p0, sopt.init(p0), sstep, data.__getitem__, log=quiet)
+        msgs: list = []
+        resumed, s_re, _ = run_loop(dataclasses.replace(lc3, total_steps=6), p0,
+                                    sopt.init(p0), sstep, data.__getitem__,
+                                    log=msgs.append)
+    diff = max(float((resumed[k] - straight[k]).abs().max()) for k in straight)
+    same = all(torch.equal(resumed[k], straight[k]) and torch.equal(s_re.v[k], s_st.v[k])
+               for k in straight)
+    if not any("resumed from step 3" in m for m in msgs) or not same:
+        raise AssertionError(f"resume: parameters differ from the uninterrupted run "
+                             f"by {diff} ({msgs})")
+    log("    resume at the smoke config on the card: 3 steps, checkpoint, restore, 3 "
+        "more: parameters and AdamW state equal to the uninterrupted 6 steps bit for bit")
+
+    # (e) the launcher's graph500 branch
+    g_lines: list = []
+    g = launch_train.main(["--arch", "graph500", "--scale", str(TRAIN_GRAPH500_SCALE)],
+                          log=g_lines.append)
+    if not g["valid"] or g["harmonic_mean_teps"] <= 0:
+        raise AssertionError(f"launch.train --arch graph500: {g}")
+    log(f"    launch.train --arch graph500 --scale {TRAIN_GRAPH500_SCALE}: "
+        f"{g_lines[-1].split('] ', 1)[1]} (hmean TEPS {g['harmonic_mean_teps']:.6e})")
+    return dict(fb_ms=fb, update_ms=up, peak_gib=peak / 2**30,
+                idle=None if prof is None else prof["idle_share"])
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -1775,13 +2191,38 @@ def main() -> int:
     launched = launcher_phase(device)
     log(f"    phase 18 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
+
+    log(f"[19] the tuner over a virtual mesh of {VSWEEP_DEVICES} shards of the card "
+        f"(scale {SCALE_MAIN}, budget small, {VSWEEP_ROOTS} roots, {VSWEEP_REPS} reps)")
+    t0 = time.perf_counter()
+    vswept = virtual_sweep_phase(device)
+    log(f"    phase 19 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[20] mesh serving at scale {SCALE_MAIN}: a virtual (2, 2) engine, "
+        f"{MESH_SERVE_QUERIES} queries of serve_burst")
+    t0 = time.perf_counter()
+    mesh_served = mesh_serving_phase(built, device)
+    log(f"    phase 20 took {time.perf_counter() - t0:.3f} s")
+
+    log("[21] the T3 psum and all-to-all on a virtual (2, 4) mesh of the card")
+    t0 = time.perf_counter()
+    collectives_phase(device)
+    log(f"    phase 21 took {time.perf_counter() - t0:.3f} s")
+
+    log("[22] xDeepFM training at full width (xdeepfm_full)")
+    t0 = time.perf_counter()
+    training_phase(device)
+    log(f"    phase 22 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
                           serving=served["launches"][name],
                           tuning_sweep=tuned["sweep"][name],
                           **{"pre-g500-tuned": tuned["tuned"][name]},
                           mesh_layouts=meshed["launches"][name],
                           mesh_faults=mesh_faults["launches"][name],
-                          multiprocess_rank0=launched["launches"][name])
+                          multiprocess_rank0=launched["launches"][name],
+                          virtual_sweep=vswept["launches"][name],
+                          mesh_serving=mesh_served["launches"][name])
                for name in ("frontier_update", "core_spmv")}
     by_path["core_spmv"]["pre-g500-legacy"] = legacy_launches
 

@@ -25,10 +25,17 @@ vertex-sharded with the T3 monitor exchange of ``comms.hierarchical``, and
 both composed) run on ``comms.mesh`` meshes: virtual meshes of several
 shards on one device, one shard per card, or one process per monitor group
 over ``torch.distributed`` (``launch.multiprocess``); their sharded engines
-launch both BFS kernels on every shard.  Entry points run on the card
-unless the caller passes ``device="cpu"``.  The package imports neither
+launch both BFS kernels on every shard.  The tuner also sweeps a virtual
+mesh of N shards of one device (``sweep(devices=N)``), and the serving
+engine serves on a given mesh.  xDeepFM trains on the card
+(``optim``: AdamW, SGD, the schedules and gradient compression;
+``train``: the train step, checkpoints in the JAX package's format, the
+resumable loop, elastic restore; ``launch.train``), and data-parallel
+steps sum their gradients with the T3 monitor psum of
+``comms.hierarchical``.  Entry points run on the card unless the caller
+passes ``device="cpu"``.  The package imports neither
 ``jax`` nor anything of ``repro``.
 """
-from repro_torch import comms, core, kernels, launch
+from repro_torch import comms, core, kernels, launch, optim, train
 
-__all__ = ["comms", "core", "kernels", "launch"]
+__all__ = ["comms", "core", "kernels", "launch", "optim", "train"]

@@ -1,8 +1,8 @@
 """Group-based monitor communication (paper T3, §4.3): the bitmap and min
-collectives of the sharded engines.
+collectives of the sharded engines, and the psum and all-to-all of
+data-parallel training and expert dispatch.
 
-Counterpart of the bitmap and min half of ``repro.comms.hierarchical``.  The
-paper routes point-to-point traffic through one monitor per router group:
+Counterpart of ``repro.comms.hierarchical``.  The paper routes point-to-point traffic through one monitor per router group:
 collect inside the group, forward between mirror groups, deliver inside the
 group.  Over a ``(group, member)`` mesh that is a two-phase collective: a
 reduce-scatter over ``member`` (each member becomes the monitor of 1/M of
@@ -18,14 +18,18 @@ tensor (it is computed once); a fault that fires on one receiver gives that
 receiver its own.  Words are int32 bit-views; distance planes are int64
 holding uint32 values, with :data:`INF_U32` the identity of the min.
 
-Left for the side workloads (MoE dispatch, gradient sync): the all-to-all
-and psum family of the JAX module.
+Float sums keep the JAX package's reduction order: within the group, the
+monitors across groups, then delivery, each fold in axis-index order, so
+integer-valued inputs give the flat psum bit for bit.  The ``*_spmd``
+wrappers take a global tensor whose dim 0 is split over the mesh's vertex
+shards and return the global result, as the JAX package's ``shard_map``
+wrappers do.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.comms.mesh import VertexComm
+from repro_torch.comms.mesh import Mesh, VertexComm
 from repro_torch.core import faults
 from repro_torch.kernels.ref import popcount_u32
 
@@ -77,7 +81,8 @@ def _reduce_scatter(comm: VertexComm, xs: list, fold) -> list:
     lead = xs[0].shape[0]
     assert lead % m == 0, (lead, m)
     full = _per_list(comm.gather(xs, "member"),
-                     lambda ps: fold([p.reshape(m, lead // m) for p in ps]))
+                     lambda ps: fold([p.reshape(m, lead // m, *p.shape[1:])
+                                      for p in ps]))
     return [f[d % m] for f, d in zip(full, comm.local)]
 
 
@@ -250,3 +255,121 @@ def hierarchical_all_gather(comm: VertexComm, xs: list) -> list:
 def flat_all_gather(comm: VertexComm, xs: list) -> list:
     """Single-phase all-gather over both axes (the ``flat`` baseline)."""
     return _per_list(comm.gather(xs, "flat"), torch.cat)
+
+
+# ---------------------------------------------------------------------------
+# The psum and all-to-all family: gradient sync and expert dispatch.
+# ---------------------------------------------------------------------------
+
+def _sum(ts: list) -> torch.Tensor:
+    out = ts[0]
+    for t in ts[1:]:
+        out = out + t
+    return out
+
+
+def hierarchical_psum(comm: VertexComm, xs: list) -> list:
+    """Sum over every vertex shard in two phases: reduce-scatter over
+    ``member``, psum over ``group`` (each monitor forwards 1/M of the
+    bytes), all-gather over ``member``.  A lead dim that ``member`` does not
+    divide sums within the group first, then across (still two phases)."""
+    if xs[0].shape[0] % comm.M:
+        xs = _all_reduce(comm, xs, "member", _sum)
+        return _all_reduce(comm, xs, "group", _sum)
+    shard = _reduce_scatter(comm, xs, _sum)
+    shard = _all_reduce(comm, shard, "group", _sum)
+    return _member_all_gather(comm, shard)
+
+
+def flat_psum(comm: VertexComm, xs: list) -> list:
+    """Single-phase sum over both axes (the baseline ``psum``)."""
+    return _all_reduce(comm, xs, "flat", _sum)
+
+
+def compressed_hierarchical_psum(comm: VertexComm, xs: list,
+                                 compress_dtype=torch.bfloat16) -> list:
+    """:func:`hierarchical_psum` with lossy compression on the inter-group
+    leg only: the sum across groups runs in ``compress_dtype``, then returns
+    to the input's dtype; within the group the sums stay full precision.
+    Integer and boolean payloads never take the cast: they go through the
+    exact :func:`hierarchical_psum`."""
+    if not xs[0].dtype.is_floating_point:
+        return hierarchical_psum(comm, xs)
+    orig = xs[0].dtype
+    if xs[0].shape[0] % comm.M:
+        xs = _all_reduce(comm, xs, "member", _sum)
+        out = _all_reduce(comm, [x.to(compress_dtype) for x in xs], "group", _sum)
+        return [o.to(orig) for o in out]
+    shard = _reduce_scatter(comm, xs, _sum)
+    shard = _all_reduce(comm, [s.to(compress_dtype) for s in shard], "group", _sum)
+    return _member_all_gather(comm, [s.to(orig) for s in shard])
+
+
+def hierarchical_all_to_all(comm: VertexComm, xs: list) -> list:
+    """Two-phase all-to-all.  Each shard's dim 0 holds ``G * M`` blocks
+    ordered destination-major (block ``g_dest * M + m_dest``).  Phase 1
+    (within the group): member ``m`` collects every block whose destination
+    member is ``m``, the monitor collection.  Phase 2 (mirror groups): the
+    monitors exchange across groups.  Shard ``d`` ends with block ``d`` of
+    every shard, in source order, as the flat all-to-all delivers it."""
+    g_n, m_n = comm.G, comm.M
+    lead, rest = xs[0].shape[0], tuple(xs[0].shape[1:])
+    assert lead % (g_n * m_n) == 0, (lead, g_n, m_n)
+    per = lead // (g_n * m_n)
+    collected = [torch.stack([p.reshape(g_n, m_n, per, *rest)[:, d % m_n] for p in ps],
+                             dim=1)                     # [G_dest, M_src, per, ...]
+                 for ps, d in zip(comm.gather(xs, "member"), comm.local)]
+    return [torch.stack([q[d // m_n] for q in qs]).reshape(lead, *rest)
+            for qs, d in zip(comm.gather(collected, "group"), comm.local)]
+
+
+def flat_all_to_all(comm: VertexComm, xs: list) -> list:
+    """Single-phase all-to-all over both axes (the baseline)."""
+    n = comm.n
+    lead, rest = xs[0].shape[0], tuple(xs[0].shape[1:])
+    assert lead % n == 0, (lead, n)
+    return [torch.stack([p.reshape(n, lead // n, *rest)[d] for p in ps]).reshape(lead, *rest)
+            for ps, d in zip(comm.gather(xs, "flat"), comm.local)]
+
+
+def _vertex_comm(mesh: Mesh, group_axis: str, member_axis: str) -> VertexComm:
+    if (group_axis, member_axis) != ("group", "member") or \
+            tuple(mesh.axis_names) != ("group", "member"):
+        raise ValueError(f"the spmd collectives run on a ('group', 'member') "
+                         f"mesh, got axes {mesh.axis_names} and "
+                         f"({group_axis!r}, {member_axis!r})")
+    return VertexComm(mesh)
+
+
+def all_to_all_spmd(mesh: Mesh, group_axis: str = "group",
+                    member_axis: str = "member", hierarchical: bool = True):
+    """Returns f(x_global) performing the (hierarchical) all-to-all; dim 0
+    of ``x_global`` is split over the shards and must factor as P*P*chunk."""
+    comm = _vertex_comm(mesh, group_axis, member_axis)
+    a2a = hierarchical_all_to_all if hierarchical else flat_all_to_all
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        rows = x.shape[0] // comm.n
+        out = a2a(comm, [x[d * rows:(d + 1) * rows] for d in comm.local])
+        return torch.cat(comm.all_rows(out))
+
+    return f
+
+
+def psum_spmd(mesh: Mesh, group_axis: str = "group", member_axis: str = "member",
+              hierarchical: bool = True, compress: bool = False):
+    """Returns f(x) for x of shape [P, n] (dim 0 split over the shards):
+    out[i] = sum_j x[j], the data-parallel gradient synchronisation."""
+    comm = _vertex_comm(mesh, group_axis, member_axis)
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        xs = [x[d] for d in comm.local]
+        if not hierarchical:
+            out = flat_psum(comm, xs)
+        elif compress:
+            out = compressed_hierarchical_psum(comm, xs)
+        else:
+            out = hierarchical_psum(comm, xs)
+        return torch.stack(comm.all_rows(out))
+
+    return f

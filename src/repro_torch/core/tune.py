@@ -16,7 +16,11 @@ tuning is a loop over :func:`~repro_torch.core.plan.compile_plan`:
      ``ValueError`` (too few devices, a non-power-of-two member axis) is
      recorded as *skipped*.  A mesh layout that fits the visible devices
      compiles over them and is swept (on one device: the 1-shard root
-     mesh).
+     mesh).  ``devices=N`` sweeps N shards of the one device instead, as
+     the JAX package's ``--devices N`` sweeps N forced host devices of one
+     CPU: every layout candidate compiles on a virtual mesh
+     (``make_mesh(..., virtual=True)``), all its shards run in lockstep on
+     the device, and the ranking is that of a virtual mesh, not of N cards.
   3. **accept**   — a candidate's parents must be bitwise identical to the
      single-device batched bitmap plan's on the shared inputs before it is
      timed; divergence marks it *rejected*.
@@ -26,7 +30,9 @@ tuning is a loop over :func:`~repro_torch.core.plan.compile_plan`:
   5. **persist**  — :func:`save_tuned` merges the winner into the port's
      own schema-versioned table ``TUNED_PLANS_torch.json`` (environment
      override ``REPRO_TORCH_TUNED_PLANS``), keyed
-     ``scale{S}/dev{P}/{backend}`` with ``backend`` ``cuda`` or ``cpu``;
+     ``scale{S}/dev{P}/{backend}`` with ``backend`` ``cuda`` or ``cpu``
+     (a virtual sweep's entry also records ``"virtual": true``, a field
+     the JAX package's reader ignores);
      :func:`tuned_plan` is the lookup that ``Graph500Config(tuned=True)``
      and the serving engine consume.  The layout is the JAX table's, so
      each package reads a table the other wrote.
@@ -34,6 +40,7 @@ tuning is a loop over :func:`~repro_torch.core.plan.compile_plan`:
 CLI::
 
     PYTHONPATH=src python -m repro_torch.core.tune --scale 20 --budget full
+    PYTHONPATH=src python -m repro_torch.core.tune --scale 20 --devices 4
 
 runs on the card (``--device cpu`` for the plain versions) and fails
 (exit 1) unless the winner table is non-empty and the winner passed the
@@ -55,6 +62,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.comms.mesh import make_mesh
 from repro_torch.comms.topology import plan_device_mesh
 from repro_torch.core.bfs_steps import edge_view
 from repro_torch.core.graph_build import build_csr
@@ -62,7 +70,7 @@ from repro_torch.core.heavy import build_heavy_core
 from repro_torch.core.kernels import rekernel_plan
 from repro_torch.core.kronecker import EdgeList, generate_edges, sample_roots
 from repro_torch.core.plan import (
-    BFSPlan, PreparedGraph, compile_plan, visible_devices,
+    BFSPlan, PreparedGraph, _mesh_shape, compile_plan, visible_devices,
 )
 from repro_torch.core.reorder import degree_reorder, relabel_edges
 from repro_torch.core.teps import batch_harmonic_mean_teps
@@ -228,7 +236,7 @@ class TuneReport:
     """Ranked sweep output: ``results`` holds accepted candidates fastest
     first; ``skipped`` the invalid/rejected ones with their reasons.
     ``interpret_mode`` is True when the kernels' plain versions ran (on
-    the CPU)."""
+    the CPU); ``virtual`` when the ``n_devices`` were shards of one device."""
 
     scale: int
     n_devices: int
@@ -240,6 +248,7 @@ class TuneReport:
     reps: int
     results: list = field(default_factory=list)
     skipped: list = field(default_factory=list)
+    virtual: bool = False
 
     @property
     def winner(self) -> Optional[TuneResult]:
@@ -250,7 +259,8 @@ class TuneReport:
         lines = [f"# tune scale={self.scale} devices={self.n_devices} "
                  f"backend={self.backend} budget={self.budget} "
                  f"roots={self.n_roots} reps={self.reps} "
-                 f"interpret={self.interpret_mode}",
+                 f"interpret={self.interpret_mode}"
+                 + (" virtual=True" if self.virtual else ""),
                  "rank,layout,mesh,exchange,partition,alpha,beta,n_chunks,"
                  "per_root_us,hmean_teps,rel_vs_best,identical"]
         best = self.results[0].per_root_us if self.results else None
@@ -325,15 +335,42 @@ def _default_measure(compiled, roots, reps: int) -> float:
     return wall
 
 
+def _virtual_mesh(plan: BFSPlan, n_devices: int, device):
+    """A layout candidate's virtual mesh over ``n_devices`` shards of
+    ``device`` (None for the single-device layout).  ValueErrors, as
+    ``compile_plan`` raises them over that many devices."""
+    if not plan.layout:
+        return None
+    return make_mesh(_mesh_shape(plan, n_devices), plan.layout, device=device,
+                     virtual=True)
+
+
 def _evaluate(plan: BFSPlan, pg: PreparedGraph, roots: np.ndarray, v: int,
               degree: torch.Tensor, oracle_parent: torch.Tensor,
-              measure: Callable, reps: int, device) -> TuneResult:
-    """Compile, accept and time one candidate.  Its ``CompiledBFS`` (with
-    the edge view chunked for its ``n_chunks``) is released on return."""
+              measure: Callable, reps: int, device,
+              virtual_devices: Optional[int], shards: dict) -> TuneResult:
+    """Compile, accept and time one candidate (on a virtual mesh of
+    ``virtual_devices`` shards when given).  Its ``CompiledBFS`` (with the
+    edge view chunked for its ``n_chunks``) is released on return.
+    ``shards`` keeps the vertex partition of each (shard count, partition,
+    ``n_chunks``) that a virtual candidate built, for the candidates that
+    differ only in their exchange (partitioning a scale-20 graph costs
+    seconds on the card, a traversal tens of milliseconds)."""
+    key = None
     try:
-        compiled = compile_plan(plan, pg, device=device)
+        mesh = (None if virtual_devices is None
+                else _virtual_mesh(plan, virtual_devices, device))
+        graph = pg
+        if mesh is not None and "member" in plan.layout:
+            key = (mesh.size("group") * mesh.size("member"), plan.partition,
+                   plan.n_chunks)
+            if key in shards:
+                graph = dataclasses.replace(pg, sharded=shards[key])
+        compiled = compile_plan(plan, graph, device=device, mesh=mesh)
     except ValueError as e:
         return TuneResult(plan, "skipped", reason=str(e))
+    if key is not None:
+        shards.setdefault(key, compiled.graph.sharded)
     parent = compiled.bfs(roots).parent[:, :v]   # parity pass doubles as warmup
     if not torch.equal(parent, oracle_parent):
         return TuneResult(
@@ -366,9 +403,12 @@ def sweep(
     device=None,
     edges: Optional[EdgeList] = None,
     roots=None,
+    devices: Optional[int] = None,
 ) -> TuneReport:
     """Run the sweep on ``device`` (None: the card) and return the ranked
-    report.
+    report: over the visible devices, or with ``devices=N`` over a virtual
+    mesh of N shards of ``device`` (the report and its table entry are then
+    ``dev{N}``, marked virtual).
 
     ``plans`` overrides the enumerated candidate set; ``measure`` swaps
     the clock for a deterministic cost model
@@ -382,7 +422,7 @@ def sweep(
     reps = budget.reps if reps is None else reps
     measure = measure or _default_measure
     dev = resolve_device(device)
-    n_devices = visible_devices(dev)
+    n_devices = visible_devices(dev) if devices is None else int(devices)
 
     pg, degree, roots, v = _build_inputs(scale, seed, edge_factor, n_roots,
                                          dev, edges=edges, roots=roots)
@@ -391,7 +431,7 @@ def sweep(
     report = TuneReport(
         scale=scale, n_devices=n_devices, backend=dev.type,
         interpret_mode=dev.type == "cpu", budget=budget.name, seed=seed,
-        n_roots=len(roots), reps=reps)
+        n_roots=len(roots), reps=reps, virtual=devices is not None)
 
     # The acceptance oracle: the single-device batched bitmap plan on the
     # same inputs.  One oracle covers every candidate because the
@@ -400,10 +440,12 @@ def sweep(
     oracle_parent = compile_plan(BFSPlan(layout=(), batch_roots=True), pg,
                                  device=dev).bfs(roots).parent
 
+    shards: dict = {}
     for plan in plans:
         key = _plan_sort_key(plan)
         res = _evaluate(plan, pg, roots, v, degree, oracle_parent, measure,
-                        reps, dev)
+                        reps, dev, n_devices if devices is not None else None,
+                        shards)
         if res.status == "ok":
             report.results.append(res)
             log(f"# ok   {key}: per_root={res.per_root_us:.0f}us")
@@ -477,6 +519,8 @@ def save_tuned(report: TuneReport, path: Optional[str] = None,
         "ranked": [r.to_dict() for r in report.results[:top]],
         "n_skipped": len(report.skipped),
     }
+    if report.virtual:
+        doc["entries"][key]["virtual"] = True
     with open(path, "w") as f:
         json.dump(doc, f, indent=2, sort_keys=True)
         f.write("\n")
@@ -561,6 +605,8 @@ def main(argv: Optional[list] = None) -> int:
                     help="override the budget's min-of-k rep count")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="sweep a virtual mesh of this many shards of the device")
     ap.add_argument("--out", default=None,
                     help=f"table to update (default {DEFAULT_TABLE}, "
                          f"{TABLE_ENV} overrides)")
@@ -569,7 +615,8 @@ def main(argv: Optional[list] = None) -> int:
     args = ap.parse_args(argv)
 
     report = sweep(args.scale, budget=args.budget, seed=args.seed,
-                   n_roots=args.roots, reps=args.reps, device=args.device)
+                   n_roots=args.roots, reps=args.reps, device=args.device,
+                   devices=args.devices)
     print(report.table(), flush=True)
     if report.winner is None:
         print("# FAIL: no candidate was accepted (empty winner table)",

@@ -63,7 +63,14 @@ def multi_source_spmv(a_core8: torch.Tensor, frontier8: torch.Tensor) -> torch.T
 
 
 def cin_layer(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Fused xDeepFM CIN layer: [B, F0, D] x [B, Fl, D] x [H, F0, Fl] -> [B, H, D]."""
+    """Fused xDeepFM CIN layer: [B, F0, D] x [B, Fl, D] x [H, F0, Fl] -> [B, H, D].
+
+    The kernel has no backward, so inputs that need a gradient are refused
+    on every device (the plain version would differentiate where the card
+    cannot): train through the einsum path, ``use_cin_kernel=False``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, xl, w)):
+        raise ValueError("cin_layer: the CIN kernel has no backward; call it "
+                         "under torch.no_grad() or torch.inference_mode()")
     if x0.device.type == "cpu":
         return ref.cin_layer_ref(x0, xl, w)
     return cin.cin_layer(x0, xl, w)

@@ -109,14 +109,16 @@ def frontier_update_ref(next_raw: torch.Tensor, visited: torch.Tensor, out=None)
 def core_spmv_ref(a_core: torch.Tensor, frontier_bm: torch.Tensor) -> torch.Tensor:
     """Per core row i: the least column j with A[i, j] & frontier[j], else BIG.
 
-    a_core: int32 [K, W]; frontier_bm: int32 [W]; returns int32 [K].
+    a_core: int32 [K, W]; frontier_bm: int32 [W]; returns int32 [K].  The
+    least column lies in the row's first nonzero word of ``A & frontier``:
+    that word's index times 32 plus its trailing zeros.
     """
-    k, w = a_core.shape
     hits = a_core & frontier_bm[None, :]
-    word_idx = torch.arange(w, dtype=torch.int32, device=a_core.device) * 32
-    cand = torch.where(hits != 0, word_idx[None, :] + ctz_u32(hits),
-                       torch.tensor(BIG, dtype=torch.int32, device=a_core.device))
-    return cand.min(dim=1).values.to(torch.int32)
+    nz = hits != 0
+    first = nz.to(torch.uint8).argmax(dim=1)    # the first nonzero word (0 if none)
+    word = hits.gather(1, first[:, None])[:, 0]
+    col = first.to(torch.int32) * 32 + ctz_u32(word)
+    return torch.where(nz.any(dim=1), col, torch.full_like(col, BIG))
 
 
 def spmv_mxu_ref(a_core8: torch.Tensor, frontier8: torch.Tensor, *,

@@ -1,21 +1,28 @@
 """xDeepFM [1803.05170]: sparse embeddings + CIN + DNN + linear, in PyTorch.
 
-The port of ``repro.models.recsys`` (serving only).  Parameters live in an
-``XDeepFM`` module; ``forward`` and ``retrieval_scores`` are plain functions
-over it, as the JAX package's are over its parameter pytree, and keep its
-layouts: ``mlp[i].w`` is [in, out] (``h @ w``) and ``cin[i]`` is
-[H, F0, Fl].  With ``use_cin_kernel`` the CIN layers go through
-``kernels.ops.cin_layer`` (the hand-written CUDA kernel on the card, the
-plain outer-product version on the CPU); without it, through the two-step
-contraction ``cin_layer_einsum``, which the JAX package leaves to XLA.
+The port of ``repro.models.recsys``, for serving and training.  Parameters
+are a dict of tensors keyed by the JAX package's pytree paths (``table``
+[F * R, D], field i in rows [i R, (i+1) R), ``linear`` [F * R], ``bias``,
+``cin/i/w`` [H, F0, Fl], ``cin_out``, ``mlp/i/w`` [in, out] (``h @ w``),
+``mlp/i/b``, ``mlp_out``), which the optimizer, the train step and the
+checkpoint use as they are.  ``forward``, ``loss_fn`` and
+``retrieval_scores`` are plain functions over it, as the JAX package's are
+over its parameter pytree; a tensor takes part in a gradient only when the
+caller asks for it (the train step does).  With ``use_cin_kernel`` the
+CIN layers go through ``kernels.ops.cin_layer`` (the hand-written CUDA
+kernel on the card, the plain outer-product version on the CPU), which has
+no backward and refuses inputs that need a gradient; without it, through
+the two-step contraction ``cin_layer_einsum``, which the JAX package leaves
+to XLA and which training differentiates.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 
 import torch
-from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.util import resolve_device
@@ -33,27 +40,19 @@ class XDeepFMConfig:
     use_cin_kernel: bool = False     # fused CIN kernel (kernels.ops.cin_layer)
 
 
-class XDeepFM(nn.Module):
-    """xDeepFM parameters (the JAX package's pytree as a module).
+def cin_weights(params: Mapping) -> list:
+    """The CIN layers' ``cin/i/w``, in layer order."""
+    return [params[f"cin/{i}/w"] for i in range(_count(params, "cin"))]
 
-    table [F * R, D] (field i uses rows [i R, (i+1) R)), linear [F * R],
-    bias [], cin[i] [H_i, F, H_{i-1}], cin_out [sum H, 1],
-    mlp[i] = (w [in, out], b [out]), mlp_out [last, 1].
-    """
 
-    def __init__(self, table, linear, bias, cin, cin_out, mlp, mlp_out):
-        super().__init__()
-        p = lambda t: nn.Parameter(t, requires_grad=False)
-        self.table, self.linear, self.bias = p(table), p(linear), p(bias)
-        self.cin = nn.ParameterList([p(w) for w in cin])
-        self.cin_out = p(cin_out)
-        self.mlp_w = nn.ParameterList([p(w) for w, _ in mlp])
-        self.mlp_b = nn.ParameterList([p(b) for _, b in mlp])
-        self.mlp_out = p(mlp_out)
+def mlp_layers(params: Mapping) -> list:
+    """The DNN layers' ``(mlp/i/w, mlp/i/b)``, in layer order."""
+    return [(params[f"mlp/{i}/w"], params[f"mlp/{i}/b"])
+            for i in range(_count(params, "mlp"))]
 
-    @property
-    def mlp(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        return list(zip(self.mlp_w, self.mlp_b))
+
+def _count(params: Mapping, name: str) -> int:
+    return sum(1 for k in params if k.startswith(name + "/") and k.endswith("/w"))
 
 
 # ---------------------------------------------------------------------------
@@ -80,11 +79,12 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, bag_ids: torch.Tensor,
 
 
 def init_params(cfg: XDeepFMConfig, seed: int = 0, device=None,
-                dtype=torch.float32) -> XDeepFM:
+                dtype=torch.float32) -> dict:
     """Random parameters with the JAX package's scales, drawn from an
     explicit ``torch.Generator`` on the target device (so the values differ
-    from ``repro.models.recsys.init_params``).  At full width the table is
-    39 * 2^20 x 10 fp32, 1.64 GB."""
+    from ``repro.models.recsys.init_params``), keyed by path in the JAX
+    package's leaf order.  At full width the table is 39 * 2^20 x 10 fp32,
+    1.64 GB."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -95,19 +95,22 @@ def init_params(cfg: XDeepFMConfig, seed: int = 0, device=None,
     rows = cfg.rows_per_field * f
     table = normal((rows, d), 0.01)
     linear = normal((rows,), 0.01)
-    cin, prev = [], f
-    for h in cfg.cin_layers:
-        cin.append(normal((h, f, prev), math.sqrt(1.0 / (f * prev))))
+    params = {"bias": torch.zeros((), dtype=dtype, device=device)}
+    prev = f
+    for i, h in enumerate(cfg.cin_layers):
+        params[f"cin/{i}/w"] = normal((h, f, prev), math.sqrt(1.0 / (f * prev)))
         prev = h
-    cin_out = normal((sum(cfg.cin_layers), 1), 0.01)
-    mlp, prev = [], f * d
-    for h in cfg.mlp_layers:
-        mlp.append((normal((prev, h), math.sqrt(2.0 / prev)),
-                    torch.zeros((h,), dtype=dtype, device=device)))
+    params["cin_out"] = normal((sum(cfg.cin_layers), 1), 0.01)
+    params["linear"] = linear
+    prev = f * d
+    for i, h in enumerate(cfg.mlp_layers):
+        w = normal((prev, h), math.sqrt(2.0 / prev))
+        params[f"mlp/{i}/b"] = torch.zeros((h,), dtype=dtype, device=device)
+        params[f"mlp/{i}/w"] = w
         prev = h
-    mlp_out = normal((prev, 1), 0.01)
-    return XDeepFM(table, linear, torch.zeros((), dtype=dtype, device=device),
-                   cin, cin_out, mlp, mlp_out)
+    params["mlp_out"] = normal((prev, 1), 0.01)
+    params["table"] = table
+    return params
 
 
 def _field_ids(ids: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
@@ -125,51 +128,64 @@ def cin_layer_einsum(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> tor
     return torch.einsum("bhid,bid->bhd", t, x0)
 
 
-def embed(params: XDeepFM, ids: torch.Tensor, cfg: XDeepFMConfig):
-    """ids [B, F] -> (global row ids [B * F], embeddings [B, F, D])."""
+def embed(params: Mapping, ids: torch.Tensor, cfg: XDeepFMConfig):
+    """ids [B, F] -> (global row ids [B * F], embeddings [B, F, D]).
+
+    The lookup is ``F.embedding``, whose dense backward sums each row's
+    gradients in a fixed order on the card (``index_select``'s
+    accumulates with atomics), so a training step is repeatable there."""
     b, f = ids.shape
     gids = _field_ids(ids, cfg).reshape(-1)
-    return gids, params.table.index_select(0, gids).reshape(b, f, cfg.embed_dim)
+    return gids, F.embedding(gids, params["table"]).reshape(b, f, cfg.embed_dim)
 
 
-def dnn_tower(params: XDeepFM, h: torch.Tensor) -> torch.Tensor:
+def dnn_tower(params: Mapping, h: torch.Tensor) -> torch.Tensor:
     """The DNN branch's hidden layers: relu(h @ w + b) per layer."""
-    for w, bias in params.mlp:
+    for w, bias in mlp_layers(params):
         h = torch.relu(h @ w + bias)
     return h
 
 
-def cin_features(params: XDeepFM, emb: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
+def cin_features(params: Mapping, emb: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
     """emb [B, F, D] -> the CIN layers' outputs sum-pooled over D, [B, sum(H)]."""
     cin_fn = ops.cin_layer if cfg.use_cin_kernel else cin_layer_einsum
     xl = emb
     pooled = []
-    for w in params.cin:
+    for w in cin_weights(params):
         xl = cin_fn(emb, xl, w)                             # [B, H, D]
         pooled.append(xl.sum(-1))                           # sum-pool over D
     return torch.cat(pooled, dim=-1)
 
 
-def forward(params: XDeepFM, ids: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
+def forward(params: Mapping, ids: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
     """ids [B, F] int32 per-field categorical -> logits [B]."""
     b, f = ids.shape
     gids, emb = embed(params, ids, cfg)                     # [B, F, D]
 
-    lin = params.linear.index_select(0, gids).reshape(b, f).sum(-1)
+    lin = F.embedding(gids, params["linear"][:, None]).reshape(b, f).sum(-1)
 
-    cin_logit = (cin_features(params, emb, cfg) @ params.cin_out)[:, 0]
+    cin_logit = (cin_features(params, emb, cfg) @ params["cin_out"])[:, 0]
 
     h = dnn_tower(params, emb.reshape(b, f * cfg.embed_dim))
-    mlp_logit = (h @ params.mlp_out)[:, 0]
+    mlp_logit = (h @ params["mlp_out"])[:, 0]
 
-    return lin + cin_logit + mlp_logit + params.bias
+    return lin + cin_logit + mlp_logit + params["bias"]
+
+
+def loss_fn(params: Mapping, ids: torch.Tensor, labels: torch.Tensor,
+            cfg: XDeepFMConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits, in the JAX package's stable
+    form ``max(z, 0) - z y + log1p(exp(-|z|))``."""
+    logits = forward(params, ids, cfg)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 # ---------------------------------------------------------------------------
 # Retrieval scoring: one query vs n_candidates (shape cell retrieval_cand)
 # ---------------------------------------------------------------------------
 
-def retrieval_scores(params: XDeepFM, query_ids: torch.Tensor,
+def retrieval_scores(params: Mapping, query_ids: torch.Tensor,
                      cand_emb: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
     """query_ids [1, F]; cand_emb [N, D_sum] -> scores [N].
 

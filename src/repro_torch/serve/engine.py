@@ -89,16 +89,19 @@ class Engine:
     ``plan`` an explicit :class:`BFSPlan`, else resolved by
     :func:`resolve_serve_plan` from ``scale``/``plan_overrides`` (the tuned
     plan of ``scale`` on ``device``'s devices); ``kernel``
-    retargets the plan through ``rekernel_plan``.  ``fault`` threads a
-    :class:`~repro_torch.core.faults.FaultSpec` into every traversal, to
-    exercise the checked-serving path.
+    retargets the plan through ``rekernel_plan``.  ``mesh`` (a
+    :class:`~repro_torch.comms.mesh.Mesh`, e.g. a virtual one) is the mesh a
+    layout plan compiles on, as ``compile_plan(mesh=)`` takes it.  ``fault``
+    threads a :class:`~repro_torch.core.faults.FaultSpec` into every
+    traversal, to exercise the checked-serving path.
     """
 
     def __init__(self, built, plan: Optional[BFSPlan] = None, *,
                  config: Optional[ServeConfig] = None,
                  scale: Optional[int] = None,
                  plan_overrides: Optional[dict] = None,
-                 fault=None, kernel: Optional[str] = None, device=None):
+                 mesh=None, fault=None, kernel: Optional[str] = None,
+                 device=None):
         self.config = config or ServeConfig()
         if plan is None:
             plan = resolve_serve_plan(scale, plan_overrides,
@@ -109,7 +112,8 @@ class Engine:
         if kernel is not None:
             plan = rekernel_plan(plan, kernel)
         self.plan = plan
-        self.compiled = compile_plan(plan, built, device=device, fault=fault)
+        self.compiled = compile_plan(plan, built, device=device, mesh=mesh,
+                                     fault=fault)
         self.cache = ParentCache(self.config.cache_capacity)
         self.batches_served = 0
         if self.config.warmup:

@@ -1,1 +1,5 @@
-"""Step functions of the port (serving steps so far)."""
+"""Training of the port: the xDeepFM train and serve steps, the optimizer
+loop with checkpoints and resume, and elastic restore."""
+from repro_torch.train import checkpoint, elastic, loop, train_step
+
+__all__ = ["checkpoint", "elastic", "loop", "train_step"]

@@ -414,14 +414,14 @@ def test_xdeepfm_serve_on_card_matches_cpu(cuda, use_cin_kernel):
     params = recsys.init_params(cfg, seed=0, device="cpu")
     # the table at 0.3, not init's 0.01, so the CIN layers are O(0.01-0.1)
     # and a wrong kernel shows in the probabilities and the features
-    params.table.mul_(30.0)
+    params["table"].mul_(30.0)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.rows_per_field, (300, cfg.n_sparse)).astype(np.int32))
     want = ts.make_xdeepfm_serve_step(cfg)(params, ids)
     with torch.inference_mode():
         feat = recsys.cin_features(params, recsys.embed(params, ids, cfg)[1], cfg)
     assert float(feat.abs().max()) > 1e-2
-    params = params.to(cuda)   # nn.Module.to moves in place
+    params = {k: v.to(cuda) for k, v in params.items()}
     got = ts.make_xdeepfm_serve_step(cfg)(params, ids.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     with torch.inference_mode():
@@ -595,3 +595,70 @@ def test_sharded_sssp_on_card_equals_single_device(cuda, exchange):
     assert torch.equal(res.parent[:, :v], base.parent)
     assert torch.equal(res.level[:, :v], base.level)
     assert c.run(roots, check="full").run.all_valid
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_card_equals_offline(cuda):
+    # a virtual (2, 2) engine at scale 17 (W_loc = 1024: both kernels on
+    # every shard) serving a few queries: each answer equals the offline run
+    from repro_torch.comms.mesh import make_mesh
+    from repro_torch.core.plan import BFSPlan
+    from repro_torch.data.query_trace import synth_trace
+    from repro_torch.serve.engine import Engine, ServeConfig
+    _, built, _ = _scale17_on_card(cuda)
+    eng = Engine(built, plan=BFSPlan(layout=("group", "member"), mesh_shape=(2, 2),
+                                     partition="word_cyclic"),
+                 config=ServeConfig(batch_size=4, max_wait_s=0.01, cache_capacity=8),
+                 mesh=make_mesh((2, 2), ("group", "member"), virtual=True))
+    trace = synth_trace(7, 8, built.n_vertices, rate_qps=2000.0, zipf_s=1.1,
+                        degree=built.degree)
+    before = ops.launch_counts()
+    report = eng.serve(trace)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert launched["frontier_update"] > 0 and launched["core_spmv"] > 0
+    uniq = sorted({a.root for a in report.answers})
+    res = eng.compiled.run(np.asarray(uniq), warmup=False, check="post")
+    idx = {r: i for i, r in enumerate(uniq)}
+    for a in report.answers:
+        assert a.kind != "failed"
+        np.testing.assert_array_equal(a.parent, res.parent[idx[a.root]])
+
+
+@pytest.mark.cuda
+def test_xdeepfm_train_step_on_card_matches_cpu(cuda):
+    # one batch's loss and gradients from the same parameters: loss within
+    # rtol 1e-5, every gradient element within rtol 1e-5 of the CPU's plus
+    # 1e-5 of its leaf's largest |gradient| (float32 sums in another order;
+    # TF32 off); then one AdamW step from each, parameters within atol 1e-6
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get("xdeepfm").make_smoke_config(), rows_per_field=4096)
+    params = recsys.init_params(cfg, seed=0, device="cpu")
+    batch = recsys_batch(0, 0, 512, cfg.n_sparse, cfg.rows_per_field, device="cpu")
+    opt = AdamW(cosine(1e-3, 5, 20))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            p = {k: v.to(dev) for k, v in params.items()}
+            loss, grads = TS.xdeepfm_value_and_grad(
+                p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+            out[str(dev)] = (loss, grads) + opt.update(grads, opt.init(p), p)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, gc, pc, _), (lg, gg, pg, sg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for k in gc:
+        want = gc[k].numpy()
+        top = float(np.abs(want).max())
+        np.testing.assert_allclose(gg[k].cpu().numpy(), want, rtol=1e-5, atol=1e-5 * top,
+                                   err_msg=k)
+    for k in pc:
+        assert pg[k].device.type == "cuda"
+        np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(), rtol=0, atol=1e-6,
+                                   err_msg=k)
+    assert int(sg.step) == 1

@@ -32,7 +32,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.data.query_trace, repro_torch.core.tune\n"
         "import repro_torch.comms.topology, repro_torch.comms.mesh\n"
         "import repro_torch.comms.hierarchical, repro_torch.core.distributed_bfs\n"
-        "import repro_torch.launch.multiprocess\n"
+        "import repro_torch.launch.multiprocess, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.loop, repro_torch.train.elastic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

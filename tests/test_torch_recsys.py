@@ -164,14 +164,16 @@ def test_configs_match_jax():
 def test_init_params_layouts_and_scales():
     cfg = dataclasses.replace(NARROW, rows_per_field=64)
     p = recsys.init_params(cfg, seed=0, device="cpu")
-    assert p.table.shape == (39 * 64, 10) and p.linear.shape == (39 * 64,)
-    assert [tuple(w.shape) for w in p.cin] == [(16, 39, 39), (16, 39, 16)]
-    assert [(tuple(w.shape), tuple(b.shape)) for w, b in p.mlp] == [((390, 32), (32,))]
-    assert p.cin_out.shape == (32, 1) and p.mlp_out.shape == (32, 1)
-    assert abs(float(p.table.std()) - 0.01) < 0.001
-    assert abs(float(p.cin[0].std()) - np.sqrt(1 / (39 * 39))) < 0.003
+    assert p["table"].shape == (39 * 64, 10) and p["linear"].shape == (39 * 64,)
+    assert [tuple(w.shape) for w in recsys.cin_weights(p)] == [(16, 39, 39), (16, 39, 16)]
+    assert [(tuple(w.shape), tuple(b.shape)) for w, b in recsys.mlp_layers(p)] == \
+        [((390, 32), (32,))]
+    assert p["cin_out"].shape == (32, 1) and p["mlp_out"].shape == (32, 1)
+    assert abs(float(p["table"].std()) - 0.01) < 0.001
+    assert abs(float(p["cin/0/w"].std()) - np.sqrt(1 / (39 * 39))) < 0.003
     again = recsys.init_params(cfg, seed=0, device="cpu")
-    assert torch.equal(p.table, again.table) and torch.equal(p.cin[1], again.cin[1])
+    assert torch.equal(p["table"], again["table"]) and \
+        torch.equal(p["cin/1/w"], again["cin/1/w"])
 
 
 def test_recsys_batch_skew_and_determinism():

@@ -7,9 +7,17 @@ the same graph (JAX's arrays carried into the port) with a fixed service
 time, so the virtual clock and hence every batch are the same in both:
 answers, answer kinds, batch records and cache counters must be equal, and
 every answer equal to the offline run of its root, for BFS, for SSSP and
-under a root-scoped parent fault.
+under a root-scoped parent fault.  The mesh legs (JAX's engine on (2, 2)
+and (4, 2) x both partitions, and a persistent ``exchange`` fault answered
+by the single-device fallback) run JAX's engine on 8 forced host devices in
+one subprocess and the port's on virtual meshes, with the same fixed
+service time.
 """
 import dataclasses
+import json
+import os
+import sys
+import textwrap
 from types import SimpleNamespace
 
 import numpy as np
@@ -34,7 +42,9 @@ from repro.core.plan import PreparedGraph as JaxPrepared
 from repro.core.plan import compile_plan as jax_compile
 from repro.core.reorder import relabel_edges as jax_relabel_edges
 from repro.serve import engine as jengine
+from repro.util import respawn_with_host_devices
 from repro_torch import convert
+from repro_torch.comms.mesh import make_mesh
 from repro_torch.core import faults, pipeline
 from repro_torch.core.plan import BFSPlan, PreparedGraph, compile_plan
 from repro_torch.data import query_trace
@@ -507,3 +517,162 @@ def test_sssp_engine_equal_to_jax_and_offline():
     assert len(got.answers) == 16
     assert all(v == 0 for v in got.summary()["check_counts"].values())
     assert_answers_offline(got, eng.compiled)
+
+
+# ---------------------------------------------------------------------------
+# The mesh legs: JAX's engine on 8 forced host devices, the port's on
+# virtual meshes
+# ---------------------------------------------------------------------------
+
+REPO_SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+MESH_CASES = {f"{g}x{m}_{p}": ((g, m), p) for g, m in ((2, 2), (4, 2))
+              for p in ("block", "word_cyclic")}
+MESH_SCFG = dict(batch_size=4, max_wait_s=0.01, cache_capacity=16)
+FAULT_SCFG = dict(MESH_SCFG, max_requeues=2, fallback_on_requeue=True)
+FAULT_KW = dict(site="exchange", kind="zero", level=1, persistent=True)
+
+JAX_MESH_SCRIPT = """
+import dataclasses, json, sys
+import numpy as np
+from repro.core import (BFSPlan, PreparedGraph, build_csr, build_heavy_core,
+                        chunk_edge_view, degree_reorder, edge_view, generate_edges)
+from repro.core.faults import FaultSpec
+from repro.core.reorder import relabel_edges
+from repro.data.query_trace import synth_trace
+from repro.serve.engine import Engine, ServeConfig
+
+cases, scfg, fcfg, fkw = (json.loads(a) for a in sys.argv[1:5])
+out = sys.argv[5]
+edges = generate_edges(11, 10)
+g = build_csr(relabel_edges(edges, degree_reorder(build_csr(edges).degree)))
+ev = edge_view(g)
+pg = PreparedGraph(ev=ev, degree=g.degree, core=build_heavy_core(g, threshold=8),
+                   chunks=chunk_edge_view(ev))
+trace = synth_trace(7, 12, g.num_vertices, rate_qps=2.0, zipf_s=1.4,
+                    degree=np.asarray(g.degree))
+arrays, meta = {}, {}
+
+def serve(name, eng):
+    solve = eng.solve_batch
+    def fixed(padded, n_real, use_fallback):
+        o = solve(padded, n_real, use_fallback)
+        o.service_s = 0.02
+        return o
+    eng.solve_batch = fixed
+    r = eng.serve(trace)
+    for i, a in enumerate(r.answers):
+        if a.parent is not None:
+            arrays[name + "." + str(i) + ".parent"] = np.asarray(a.parent)
+            arrays[name + "." + str(i) + ".level"] = np.asarray(a.level)
+    meta[name] = dict(
+        answers=[[a.qid, a.root, a.kind, a.attempts, a.batch_seq, a.arrival_s, a.done_s,
+                  a.latency_s, a.parent is None] for a in r.answers],
+        batches=[dataclasses.asdict(b) for b in r.batches],
+        cache=r.cache_stats, summary=r.summary())
+
+for name, (shape, part) in cases.items():
+    plan = BFSPlan(layout=("group", "member"), mesh_shape=tuple(shape), partition=part)
+    serve(name, Engine(pg, plan=plan, config=ServeConfig(**scfg)))
+serve("fault", Engine(pg, plan=BFSPlan(layout=("group", "member"), mesh_shape=(2, 2)),
+                      config=ServeConfig(**fcfg), fault=FaultSpec(**fkw)))
+np.savez(out + ".npz", **arrays)
+json.dump(meta, open(out + ".json", "w"), default=lambda o: o.item())
+print("OK")
+"""
+
+
+def jsonable(x):
+    return json.loads(json.dumps(x, default=lambda o: o.item()))
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_serve(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("jax_mesh_serve") / "ref")
+    proc = respawn_with_host_devices(
+        [sys.executable, "-c", textwrap.dedent(JAX_MESH_SCRIPT), json.dumps(MESH_CASES),
+         json.dumps(MESH_SCFG), json.dumps(FAULT_SCFG), json.dumps(FAULT_KW), out], 8,
+        extra_env={"JAX_PLATFORMS": "cpu"}, pythonpath=(REPO_SRC,), capture=True,
+        timeout=600)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+    with open(out + ".json") as f:
+        return dict(np.load(out + ".npz")), json.load(f)
+
+
+def mesh_graph():
+    """The JAX subprocess's graph (seed 11, scale 10, core threshold 8) and
+    its trace, in the port."""
+    if "mesh" not in _GRAPHS:
+        edges = jax_generate_edges(11, 10)
+        g = jax_build_csr(jax_relabel_edges(edges, jax_degree_reorder(
+            jax_build_csr(edges).degree)))
+        ev, core = jax_edge_view(g), jax_build_heavy_core(g, threshold=8)
+        tb = convert.built_from_numpy(
+            np.asarray(ev.src), np.asarray(ev.dst), np.asarray(ev.valid),
+            np.asarray(g.degree), num_vertices=ev.num_vertices,
+            a_core=np.asarray(core.a_core), k_heavy=int(core.k_heavy), threshold=8,
+            device="cpu")
+        trace = query_trace.synth_trace(7, 12, tb.n_vertices, rate_qps=2.0, zipf_s=1.4,
+                                        degree=tb.degree)
+        _GRAPHS["mesh"] = (tb, trace)
+    return _GRAPHS["mesh"]
+
+
+def assert_report_equal_to_jax(got, arrays, meta, name):
+    want = meta[name]
+    assert len(got.answers) == len(want["answers"]) == 12
+    for i, (a, w) in enumerate(zip(got.answers, want["answers"])):
+        assert jsonable([a.qid, a.root, a.kind, a.attempts, a.batch_seq, a.arrival_s,
+                         a.done_s, a.latency_s, a.parent is None]) == w, (name, i)
+        if a.parent is not None:
+            np.testing.assert_array_equal(a.parent, arrays[f"{name}.{i}.parent"])
+            np.testing.assert_array_equal(a.level, arrays[f"{name}.{i}.level"])
+    assert jsonable([dataclasses.asdict(b) for b in got.batches]) == want["batches"]
+    assert jsonable(got.cache_stats) == want["cache"]
+    assert jsonable(got.summary()) == want["summary"]
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_mesh_engine_serve_equal_to_jax_and_offline(jax_mesh_serve, name):
+    arrays, meta = jax_mesh_serve
+    tb, trace = mesh_graph()
+    shape, part = MESH_CASES[name]
+    plan = BFSPlan(layout=("group", "member"), mesh_shape=shape, partition=part)
+    eng = engine.Engine(tb, plan=plan, config=engine.ServeConfig(**MESH_SCFG),
+                        mesh=make_mesh(shape, ("group", "member"), device="cpu",
+                                       virtual=True), device="cpu")
+    assert eng.compiled.mesh.shape == shape and eng.plan.batch_roots
+    got = fixed_clock(eng).serve(trace)
+    assert_report_equal_to_jax(got, arrays, meta, name)
+    s = got.summary()
+    assert all(a.kind != "failed" for a in got.answers)
+    assert all(v == 0 for v in s["check_counts"].values()), s
+    # every answer equals the offline run of the same compiled plan
+    uniq = sorted({a.root for a in got.answers})
+    res = eng.compiled.run(np.asarray(uniq, np.int32), warmup=False, check="post")
+    idx = {r: i for i, r in enumerate(uniq)}
+    for a in got.answers:
+        np.testing.assert_array_equal(a.parent, res.parent[idx[a.root]])
+        np.testing.assert_array_equal(a.level, res.level[idx[a.root]])
+
+
+def test_mesh_engine_fault_requeues_and_recovers_like_jax(jax_mesh_serve):
+    arrays, meta = jax_mesh_serve
+    tb, trace = mesh_graph()
+    eng = engine.Engine(tb, plan=BFSPlan(layout=("group", "member"), mesh_shape=(2, 2)),
+                        config=engine.ServeConfig(**FAULT_SCFG),
+                        mesh=make_mesh((2, 2), ("group", "member"), device="cpu",
+                                       virtual=True),
+                        fault=faults.FaultSpec(**FAULT_KW), device="cpu")
+    got = fixed_clock(eng).serve(trace)
+    assert_report_equal_to_jax(got, arrays, meta, "fault")
+    kinds = {a.kind for a in got.answers}
+    assert "failed" not in kinds and "requeue" in kinds
+    assert any(b.failed_roots for b in got.batches)
+    assert any(b.used_fallback for b in got.batches)
+    assert sum(got.summary()["check_counts"].values()) > 0
+    clean = compile_plan(BFSPlan(layout=(), batch_roots=True), tb, device="cpu")
+    assert_answers_offline(got, clean)
+    with pytest.raises(ValueError, match="do not match"):
+        engine.Engine(tb, plan=BFSPlan(layout=("group", "member"), mesh_shape=(2, 2)),
+                      mesh=make_mesh((4, 2), ("group", "member"), device="cpu",
+                                     virtual=True), device="cpu")

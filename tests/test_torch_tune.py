@@ -6,13 +6,17 @@ outputs for equal inputs.  The sweeps of both packages run on JAX's
 scale-8 edge list and roots (the port takes them through ``edges=`` and
 ``roots=``) under the deterministic cost model of ``tests/test_tune.py``:
 the oracle parents, every candidate's status, the ranked order (ties
-included) and the harmonic-mean TEPS must agree.  The one status that
-differs by design: a mesh layout that fits the visible devices is
-``skipped`` in the port, which does not run mesh layouts yet.  The tuned
-tables use one layout, so each package reads the other's.
+included) and the harmonic-mean TEPS must agree.  The port's sweep over a
+virtual mesh of 4 shards (``devices=4``) is held the same way against
+JAX's sweep on 4 forced host devices, run once in a subprocess.  The tuned
+tables use one layout, so each package reads the other's (a virtual
+entry's ``"virtual"`` field included).
 """
 import dataclasses
 import json
+import os
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from repro.core import tune as jtune
 from repro.core.plan import BFSPlan as JaxPlan
 from repro.core.plan import compile_plan as jax_compile
 from repro.serve import engine as jengine
+from repro.util import respawn_with_host_devices
 from repro_torch import convert
 from repro_torch.comms import topology
 from repro_torch.core import pipeline, reorder, tune
@@ -262,8 +267,8 @@ def test_sweep_records_rejected_and_failed(monkeypatch):
     # a candidate whose parents diverge from the oracle is never timed
     real = tune.compile_plan
 
-    def corrupt(plan, pg, device=None):
-        c = real(plan, pg, device=device)
+    def corrupt(plan, pg, device=None, mesh=None):
+        c = real(plan, pg, device=device, mesh=mesh)
         if plan.n_chunks != 16:     # the oracle (n_chunks=64) stays clean
             return c
         bfs = c.bfs
@@ -558,3 +563,156 @@ def test_cli_sweep_on_cpu_emits_table_and_persists(tmp_path, capsys):
     rc = tune.main(["--scale", str(SCALE), "--device", "cpu", "--roots", "2",
                     "--reps", "1", "--no-save", "--out", str(tmp_path / "n.json")])
     assert rc == 0 and not (tmp_path / "n.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# The sweep over N shards: a virtual mesh against JAX's forced host devices
+# ---------------------------------------------------------------------------
+
+REPO_SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+JAX_SWEEP4 = """
+import json, sys
+import numpy as np
+import jax
+from repro.core import tune
+from repro.core.plan import BFSPlan, compile_plan
+
+scale, seed, n_roots, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+
+def cost(compiled, roots, reps):
+    p = compiled.plan
+    return 1.0 + 0.1 * p.n_chunks / 64.0 + (0.5 if p.alpha < 10 else 0.0)
+
+rep = tune.sweep(scale, seed=seed, n_roots=n_roots, reps=1, measure=cost,
+                 log=lambda s: None)
+pg, degree, roots, v = tune._build_inputs(scale, seed, 16, n_roots)
+oracle = np.asarray(compile_plan(BFSPlan(layout=(), batch_roots=True), pg).bfs(roots).parent)
+np.save(out + ".npy", oracle)
+json.dump(dict(n_devices=len(jax.devices()), table=rep.table(),
+               results=[r.to_dict() for r in rep.results],
+               skipped=[r.to_dict() for r in rep.skipped]), open(out + ".json", "w"))
+print("OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_sweep4(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("jax_sweep4") / "ref")
+    proc = respawn_with_host_devices(
+        [sys.executable, "-c", textwrap.dedent(JAX_SWEEP4), str(SCALE), str(SEED),
+         str(N_ROOTS), out], 4, extra_env={"JAX_PLATFORMS": "cpu"},
+        pythonpath=(REPO_SRC,), capture=True, timeout=600)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+    with open(out + ".json") as f:
+        return json.load(f), np.load(out + ".npy")
+
+
+def virtual_sweep4():
+    if "sweep4" not in _CACHE:
+        je, te, roots = jax_edges()
+        _CACHE["sweep4"] = tune.sweep(
+            SCALE, seed=SEED, n_roots=N_ROOTS, reps=1, measure=_cost_model,
+            log=lambda s: None, device="cpu", edges=te, roots=roots, devices=4)
+    return _CACHE["sweep4"]
+
+
+def test_virtual_sweep_statuses_order_and_oracle_equal_to_jax_devices(jax_sweep4):
+    want, oracle = jax_sweep4
+    rep = virtual_sweep4()
+    assert want["n_devices"] == rep.n_devices == 4 and rep.virtual
+    assert (rep.backend, rep.interpret_mode) == ("cpu", True)
+    plans = tune.enumerate_plans(4, tune.BUDGETS["small"])
+    assert len(plans) == 15 == len(want["results"]) + len(want["skipped"])
+    assert [r.to_dict() for r in rep.results] == want["results"]
+    assert [r.to_dict() for r in rep.skipped] == want["skipped"]
+    assert all(r.status == "ok" and r.identical for r in rep.results)
+    assert {r.plan.layout for r in rep.results} == {
+        (), ("root",), ("group", "member"), ("root", "group", "member")}
+    # the ranked table: the same rows; the port's header names the virtual mesh
+    got_t, want_t = rep.table().splitlines(), want["table"].splitlines()
+    assert got_t[1:] == want_t[1:]
+    assert got_t[0].endswith("virtual=True") and "devices=4" in got_t[0]
+    je, te, roots = jax_edges()
+    pg, _, troots, _ = tune._build_inputs(SCALE, SEED, 16, N_ROOTS, "cpu", edges=te,
+                                          roots=roots)
+    got = compile_plan(BFSPlan(layout=(), batch_roots=True), pg, device="cpu").bfs(troots)
+    np.testing.assert_array_equal(got.parent.numpy(), oracle)
+
+
+def test_virtual_sweep_candidates_compile_on_virtual_meshes(monkeypatch):
+    # every layout candidate gets a virtual mesh of its shape (the plan's,
+    # or the one derived for 4 devices); a shape the 4 shards cannot hold
+    # and a non-pow2 member are skipped
+    seen = []
+    real = tune.compile_plan
+
+    def spy(plan, pg, device=None, mesh=None):
+        seen.append((plan.layout, None if mesh is None else
+                     (mesh.shape, set(mesh.devices), len(mesh.devices))))
+        return real(plan, pg, device=device, mesh=mesh)
+
+    monkeypatch.setattr(tune, "compile_plan", spy)
+    je, te, roots = jax_edges()
+    plans = [BFSPlan(layout=("group", "member"), mesh_shape=(2, 2), batch_roots=True),
+             BFSPlan(layout=("root",), batch_roots=True),
+             BFSPlan(layout=("group", "member"), mesh_shape=(4, 2), batch_roots=True),
+             BFSPlan(layout=("group", "member"), mesh_shape=(1, 3), batch_roots=True)]
+    rep = tune.sweep(SCALE, seed=SEED, n_roots=N_ROOTS, reps=1, plans=plans,
+                     measure=_cost_model, log=lambda s: None, device="cpu", edges=te,
+                     roots=roots, devices=4)
+    cpu = {torch.device("cpu")}
+    # (the non-pow2 member is refused by compile_plan's plan validation)
+    assert seen[1:] == [(("group", "member"), ((2, 2), cpu, 4)),
+                        (("root",), ((4,), cpu, 4)),
+                        (("group", "member"), ((1, 3), cpu, 3))]
+    assert [r.status for r in rep.results] == ["ok", "ok"]
+    reasons = [r.reason for r in rep.skipped]
+    assert "needs 8 devices, have 4" in reasons[0] and "power of two" in reasons[1]
+
+
+def test_virtual_sweep_partitions_each_shard_layout_once(monkeypatch):
+    # candidates that differ only in their exchange reuse one partition:
+    # (1, 4) and (2, 1, 2) x two partitions -> 4 partitions for 12 candidates
+    from repro_torch.core import plan as plan_mod
+    calls = []
+    real = plan_mod.shard_graph
+
+    def counting(*a, **kw):
+        calls.append((a[4], kw.get("partition")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(plan_mod, "shard_graph", counting)
+    je, te, roots = jax_edges()
+    rep = tune.sweep(SCALE, seed=SEED, n_roots=N_ROOTS, reps=1, measure=_cost_model,
+                     log=lambda s: None, device="cpu", edges=te, roots=roots, devices=4)
+    assert sorted(calls) == [(2, "block"), (2, "word_cyclic"), (4, "block"),
+                             (4, "word_cyclic")]
+    assert [r.to_dict() for r in rep.results] == \
+        [r.to_dict() for r in virtual_sweep4().results]
+
+
+def test_virtual_entry_is_dev4_and_read_by_jax(tmp_path):
+    path = str(tmp_path / "t.json")
+    rep = virtual_sweep4()
+    tune.save_tuned(rep, path)
+    entry = tune.load_table(path)["entries"]["scale8/dev4/cpu"]
+    assert entry["virtual"] is True and entry["n_devices"] == 4
+    for mod in (tune, jtune):
+        got = mod.tuned_plan(SCALE, 4, "cpu", path=path)
+        assert got is not None and got.to_dict() == rep.winner.plan.to_dict()
+    # a sweep over the visible devices writes no such field, as JAX's
+    tune.save_tuned(report(scale=8, n_devices=1), path)
+    assert "virtual" not in tune.load_table(path)["entries"]["scale8/dev1/cpu"]
+
+
+def test_cli_virtual_devices_on_cpu(tmp_path, capsys):
+    out_path = str(tmp_path / "t.json")
+    rc = tune.main(["--scale", str(SCALE), "--seed", "3", "--roots", "2", "--reps", "1",
+                    "--devices", "4", "--device", "cpu", "--out", out_path])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert "devices=4" in printed and "virtual=True" in printed
+    assert "[scale8/dev4/cpu]" in printed and "group*member,1x4" in printed
+    entry = tune.load_table(out_path)["entries"]["scale8/dev4/cpu"]
+    assert entry["virtual"] and entry["identical"] and entry["n_skipped"] == 0
