@@ -136,7 +136,34 @@ non-zero and no result line is printed:
      step at B = 8,192 split into forward+backward and the AdamW update
      (CUDA events), samples/s and a profile of one step; the resume at the
      smoke config (6 steps against 3, a checkpoint and 3 more, bit for
-     bit); ``launch.train --arch graph500 --scale 16``, valid.
+     bit); ``launch.train --arch graph500 --scale 16``, valid;
+ 23. LM serving at full width, olmo-1b (dense, MHA 16, SwiGLU,
+     non-parametric LN; 1.18e9 parameters) and granite-moe-1b-a400m (GQA
+     16/8, 32 experts top-8), random weights from ``init_params`` on the
+     card: ``make_lm_prefill`` at B = 4, S = 2,048 with ``q_chunk`` 512 (ms,
+     tokens/s); greedy ``make_lm_serve_step`` at B = 8 over a 2,048-row
+     cache, 8 teacher-forced prompt tokens then 64 generated (ms a token
+     against the weight-read bound, and with the KV cache), a profile of one
+     decode step (idle share), ``max_memory_allocated``; teacher-forced
+     decode against the forward over the first 16 positions within 3e-2 x
+     max |logit| (granite at capacity factor 16, so neither form drops);
+     each smoke arch's forward on the card against the CPU's, and olmo-1b
+     at full width (forward and decode, B = 2, S = 8) against the CPU's,
+     each with cuBLAS's reduced-precision bf16 reduction on and off.  These
+     cut ``prefill_32k`` (32 x 32,768) and ``decode_32k`` (128 x 32,768),
+     whose KV cache alone would take ~550 GB; the widths are not cut;
+ 24. LM training at full width: olmo-1b at B = 8, S = 1,024 (cut from
+     ``train_4k``'s 256 x 4,096) with ``remat=True`` and
+     ``AdamW(cosine(3e-4, 5, 20))`` for 20 steps: forward+backward and AdamW
+     ms (CUDA events), tokens/s, peak memory, the loss falling from ~ln
+     50,304, a profile of one step; ``moe_ffn_monitor`` on a virtual (2, 2)
+     ``("group", "member")`` mesh and ``moe_ffn_local_tp`` over 2 x 2 shards
+     at granite's layer widths against the dense ``moe_ffn`` (within 5e-2 +
+     5e-2 x |dense|), two monitor calls equal bit for bit;
+     ``launch.train --arch olmo-1b`` at the smoke config.  The LM path
+     launches none of the four kernels (its products are torch matmuls and
+     einsums, as the JAX package's are plain ``jnp``); both phases print the
+     kernels' launch counts over a step.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -153,6 +180,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -231,6 +259,27 @@ TRAIN_TIMED_STEPS = 5
 # TF32 product or a wrong backward is off by 1e-3 or more
 GRAD_RTOL = 1e-5
 TRAIN_GRAPH500_SCALE = 16
+# phase 23: LM serving at full width, cut from prefill_32k (32 x 32,768) and
+# decode_32k (128 x 32,768): decode_32k's KV cache alone would take ~550 GB
+LM_SERVE_ARCHS = ("olmo-1b", "granite-moe-1b-a400m")
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_Q_CHUNK, PREFILL_REPS = 4, 2048, 512, 3
+DECODE_BATCH, DECODE_S_MAX, DECODE_PROMPT, DECODE_NEW = 8, 2048, 8, 64
+# decode against prefill: the first positions, with MoE capacity high enough
+# that neither form drops a token (capacity depends on the batch)
+DECODE_CHECK_POS = 16
+DECODE_CHECK_CAPACITY = 16.0
+# the LM tolerances of the JAX package's tests, scaled by max |logit|
+# (random-init activations make an absolute tolerance vacuous)
+LM_TOL = 3e-2
+LM_MOE_TOL = 5e-2
+# olmo-1b at full width on the card against the CPU: B x S tokens
+FULL_CHECK_SHAPE = (2, 8)
+# phase 24: olmo-1b training, cut from train_4k (256 x 4,096)
+LM_TRAIN_ARCH = "olmo-1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 1024, 20
+# the sharded MoE dispatch on the card: granite-moe-1b-a400m's layer widths
+MOE_CHECK_TOKENS = (8, 64)
+MOE_CHECK_CAPACITY = 8.0
 
 
 def log(msg: str) -> None:
@@ -1957,6 +2006,329 @@ def training_phase(device) -> dict:
                 idle=None if prof is None else prof["idle_share"])
 
 
+def kernel_launches_during(fn) -> dict:
+    """The hand-written kernels' launch counts while ``fn`` runs (the LM
+    path launches none of them: its products are torch matmuls and einsums,
+    as the JAX package's are plain ``jnp``)."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    fn()
+    return {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+def weight_bytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in params.values())
+
+
+def lm_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| (float32, on ``want``'s device)."""
+    want = want.float()
+    return float((got.float().to(want.device) - want).abs().max() / want.abs().max())
+
+
+def smoke_forward_card_vs_cpu(device) -> dict:
+    """Each smoke arch's forward on the card against the CPU from the same
+    parameters and batch (logits within LM_TOL x max |logit|, aux within
+    1e-3), with cuBLAS's reduced-precision bf16 reduction on (torch's
+    default) and off."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    lm = ("granite-moe-1b-a400m", "minicpm-2b", "moonshot-v1-16b-a3b", "olmo-1b",
+          "starcoder2-15b")
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    errs = {}
+    for arch in lm:
+        cfg = get(arch).make_smoke_config()
+        params = T.init_params(cfg, seed=0, device="cpu")
+        toks = lm_batch(0, 0, 2, 64, cfg.vocab, device="cpu")["tokens"]
+        with torch.no_grad():
+            want, want_aux = T.forward(params, toks, cfg)
+            on_card = {k: v.to(device) for k, v in params.items()}
+            row = {}
+            for reduced in (True, False):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                got, aux = T.forward(on_card, toks.to(device), cfg)
+                row[reduced] = (lm_rel_err(got, want), abs(float(aux) - float(want_aux)))
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        errs[arch] = row
+        log(f"    {arch} smoke forward, card vs CPU: max |diff| / max |logit| "
+            f"{row[True][0]:.3e} (bf16 reduced-precision reduction on), "
+            f"{row[False][0]:.3e} (off); aux |diff| {row[True][1]:.3e} / {row[False][1]:.3e}")
+        if row[flag][0] > LM_TOL or row[flag][1] > 1e-3:
+            raise AssertionError(f"{arch}: the card's smoke forward is off the CPU's: {row}")
+    return errs
+
+
+def full_width_card_vs_cpu(device) -> dict:
+    """olmo-1b at full width on the card against the CPU from the same
+    parameters (made on the card, copied): the forward over B x S tokens
+    and S teacher-forced decode steps, with cuBLAS's reduced-precision bf16
+    reduction on and off (the decode's B-row products take split-K
+    kernels, whose partial sums the flag lets cuBLAS reduce in bf16)."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    cfg = get("olmo-1b").make_config()
+    b, s = FULL_CHECK_SHAPE
+    card = T.init_params(cfg, seed=1, device=device)
+    cpu = {k: v.cpu() for k, v in card.items()}
+    toks = lm_batch(0, 3, b, s, cfg.vocab, device="cpu")["tokens"]
+
+    def run(params, dev):
+        with torch.no_grad():
+            fwd, _ = T.forward(params, toks.to(dev), cfg)
+            cache = T.init_cache(cfg, b, s, device=dev)
+            dec = torch.stack([T.decode_step(params, cache, toks[:, t:t + 1].to(dev), t,
+                                             cfg)[0] for t in range(s)], 1)
+        return fwd.cpu(), dec.cpu()
+
+    t0 = time.perf_counter()
+    want_f, want_d = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    row = {}
+    for reduced in (True, False):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        got_f, got_d = run(card, device)
+        row[reduced] = (lm_rel_err(got_f, want_f), lm_rel_err(got_d, want_d))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    log(f"    olmo-1b at full width, B={b} S={s}, card vs CPU (the CPU half {cpu_s:.3f} s): "
+        f"forward max |diff| / max |logit| {row[True][0]:.3e} (bf16 reduced-precision "
+        f"reduction on) / {row[False][0]:.3e} (off); decode {row[True][1]:.3e} / "
+        f"{row[False][1]:.3e}")
+    if max(row[flag]) > LM_TOL:
+        raise AssertionError(f"olmo-1b at full width: card vs CPU {row}")
+    del card, cpu
+    return row
+
+
+def lm_serving_phase(device) -> dict:
+    """Phase 23: LM serving at full width (prefill, KV-cache greedy decode,
+    decode against prefill) for olmo-1b and granite-moe-1b-a400m, with
+    random parameters from ``init_params`` on the card; then each smoke
+    arch's forward on the card against the CPU."""
+    import dataclasses as dc
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    out = {}
+    for arch in LM_SERVE_ARCHS:
+        cfg = get(arch).make_config()
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, seed=0, device=device)
+        sync(device)
+        n_par, w_bytes = sum(t.numel() for t in params.values()), weight_bytes(params)
+        log(f"    {arch}: {n_par} parameters ({w_bytes / 1e9:.6f} GB; param_count "
+            f"{cfg.param_count()}, active {cfg.active_param_count()}), init "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # (a) prefill at B x S with exact query chunks
+        prefill = TS.make_lm_prefill(cfg, T.ShardingPolicy(q_chunk=PREFILL_Q_CHUNK))
+        toks = lm_batch(0, 0, PREFILL_BATCH, PREFILL_SEQ, cfg.vocab, device=device)["tokens"]
+        last = prefill(params, toks)
+        if last.shape != (PREFILL_BATCH, cfg.vocab) or not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"{arch} prefill: {last.shape}, finite "
+                                 f"{bool(torch.isfinite(last).all())}")
+        pf_ms = time_ms(lambda: prefill(params, toks), PREFILL_REPS, 1)
+        n_tok = PREFILL_BATCH * PREFILL_SEQ
+        log(f"    prefill B={PREFILL_BATCH} S={PREFILL_SEQ} q_chunk={PREFILL_Q_CHUNK}: "
+            f"{pf_ms:.6f} ms (CUDA events, median of {PREFILL_REPS}), "
+            f"{n_tok / pf_ms * 1e3:.6f} tokens/s; max_memory_allocated after init "
+            f"and prefill {torch.cuda.max_memory_allocated(device) / 2**30:.6f} GiB")
+        del toks, last
+
+        # (b) greedy decode over an S_max cache: a teacher-forced prompt,
+        # then generated tokens, each step timed
+        step = TS.make_lm_serve_step(cfg)
+        cache = T.init_cache(cfg, DECODE_BATCH, DECODE_S_MAX, device=device)
+        kv_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        prompt = lm_batch(0, 1, DECODE_BATCH, DECODE_PROMPT, cfg.vocab,
+                          device=device)["tokens"]
+        tok, times, generated = prompt[:, :1], [], []
+        for pos in range(DECODE_PROMPT + DECODE_NEW - 1):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            nxt, cache = step(params, cache, tok, pos)
+            e1.record()
+            times.append((e0, e1))
+            tok = prompt[:, pos + 1:pos + 2] if pos + 1 < DECODE_PROMPT else nxt
+            if pos + 1 >= DECODE_PROMPT:
+                generated.append(nxt)
+        sync(device)
+        gen = torch.cat(generated, 1)
+        if gen.shape != (DECODE_BATCH, DECODE_NEW) or int(gen.min()) < 0 or \
+                int(gen.max()) >= cfg.vocab:
+            raise AssertionError(f"{arch} decode: generated {gen.shape}, ids "
+                                 f"[{int(gen.min())}, {int(gen.max())}]")
+        step_ms = [a.elapsed_time(b) for a, b in times[DECODE_PROMPT:]]
+        dec_ms = statistics.median(step_ms)
+        w_bound = w_bytes / HBM_BYTES_PER_S * 1e3
+        wkv_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"    decode B={DECODE_BATCH} S_max={DECODE_S_MAX} ({DECODE_PROMPT} prompt + "
+            f"{DECODE_NEW} generated tokens): {dec_ms:.6f} ms a token (CUDA events, "
+            f"median; min {min(step_ms):.6f}, max {max(step_ms):.6f}), "
+            f"{DECODE_BATCH / dec_ms * 1e3:.6f} tokens/s; weight-read bound "
+            f"{w_bound:.6f} ms ({w_bytes / 1e9:.6f} GB / 3.35 TB/s), with the "
+            f"{kv_bytes / 1e9:.6f} GB KV cache {wkv_bound:.6f} ms; first generated "
+            f"row {gen[0, :8].tolist()}")
+        log(f"    profile of one decode step (pos {DECODE_PROMPT + DECODE_NEW - 1})")
+        prof = profile_window(
+            lambda: step(params, cache, tok, DECODE_PROMPT + DECODE_NEW - 1), ())
+        launched = kernel_launches_during(
+            lambda: step(params, cache, tok, DECODE_PROMPT + DECODE_NEW - 1))
+        del cache
+
+        # (c) teacher-forced decode against the full forward on the same
+        # tokens (MoE: capacity high enough for no drops in either form)
+        chk = dc.replace(cfg, capacity_factor=DECODE_CHECK_CAPACITY) if cfg.is_moe else cfg
+        toks = lm_batch(0, 2, DECODE_BATCH, DECODE_CHECK_POS, cfg.vocab,
+                        device=device)["tokens"]
+        with torch.no_grad():
+            full, _ = T.forward(params, toks, chk)
+            cache = T.init_cache(chk, DECODE_BATCH, DECODE_S_MAX, device=device)
+            dec = torch.stack([T.decode_step(params, cache, toks[:, t:t + 1], t, chk)[0]
+                               for t in range(DECODE_CHECK_POS)], 1)
+        err = lm_rel_err(dec, full)
+        del cache, full, dec
+        if err > LM_TOL:
+            raise AssertionError(f"{arch}: teacher-forced decode is {err:.3e} x max "
+                                 f"|logit| off the forward (tolerance {LM_TOL})")
+        peak = torch.cuda.max_memory_allocated(device)
+        log(f"    teacher-forced decode against the forward, first {DECODE_CHECK_POS} "
+            f"positions{' (capacity factor 16)' if cfg.is_moe else ''}: max |diff| / "
+            f"max |logit| {err:.3e} (tolerance {LM_TOL}); hand-written kernels launched "
+            f"by a decode step {launched}; max_memory_allocated {peak / 2**30:.6f} GiB")
+        out[arch] = dict(prefill_ms=pf_ms, prefill_tok_s=n_tok / pf_ms * 1e3,
+                         decode_ms=dec_ms, bound_ms=w_bound, peak_gib=peak / 2**30,
+                         idle=None if prof is None else prof["idle_share"], err=err)
+        del params
+    torch.cuda.empty_cache()
+    out["smoke"] = smoke_forward_card_vs_cpu(device)
+    out["full"] = full_width_card_vs_cpu(device)
+    return out
+
+
+def lm_training_phase(device) -> dict:
+    """Phase 24: olmo-1b training at full width (remat, AdamW(cosine(3e-4,
+    5, 20))): the loss over 20 steps, forward+backward and AdamW ms, a
+    profile of one step; the sharded MoE dispatches on the card against the
+    dense one; the launcher's LM branch."""
+    from repro_torch.comms.mesh import VertexComm, make_mesh
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+
+    # (a) training at full width
+    cfg = get(LM_TRAIN_ARCH).make_config()
+    policy = T.ShardingPolicy(remat=True)
+    opt = AdamW(cosine(3e-4, 5, LM_TRAIN_STEPS))
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = T.init_params(cfg, seed=0, device=device)
+    state = opt.init(params)
+    losses, fb_ms, up_ms = [], [], []
+    t0 = time.perf_counter()
+    for i in range(LM_TRAIN_STEPS):
+        batch = lm_batch(0, i, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab, device=device)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss, grads = TS.lm_value_and_grad(params, batch, cfg, policy)
+        e[1].record()
+        params, state = opt.update(grads, state, params)
+        e[2].record()
+        del grads
+        losses.append(loss)
+        fb_ms.append(e)
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(v) for v in losses]
+    fb = statistics.median(e[0].elapsed_time(e[1]) for e in fb_ms[1:])
+    up = statistics.median(e[1].elapsed_time(e[2]) for e in fb_ms[1:])
+    n_tok = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    log(f"    {LM_TRAIN_ARCH} B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}, remat, {LM_TRAIN_STEPS} "
+        f"steps in {wall:.3f} s (the first step's warm-up included): forward+backward "
+        f"{fb:.6f} ms, AdamW {up:.6f} ms (CUDA events, median of steps 1-"
+        f"{LM_TRAIN_STEPS - 1}), {n_tok / (fb + up) * 1e3:.6f} tokens/s, "
+        f"max_memory_allocated {peak / 2**30:.6f} GiB")
+    log("    loss " + " ".join(f"{v:.4f}" for v in losses))
+    if not (abs(losses[0] - math.log(cfg.vocab)) < 1.0 and losses[-1] < losses[0] - 1.0
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{LM_TRAIN_ARCH}: the loss did not fall from "
+                             f"~ln({cfg.vocab}) = {math.log(cfg.vocab):.3f}: {losses}")
+    holder = [params, state]
+    batch = lm_batch(0, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab, device=device)
+    step = TS.make_lm_train_step(cfg, opt, policy)
+
+    def one_step():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batch)
+
+    log(f"    profile of one training step at B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}")
+    prof = profile_window(one_step, ())
+    launched = kernel_launches_during(one_step)
+    log(f"    hand-written kernels launched by a training step: {launched}")
+    del holder, params, state, batch
+    torch.cuda.empty_cache()
+
+    # (b) the sharded MoE dispatches at granite-moe-1b-a400m's layer widths
+    g = get("granite-moe-1b-a400m").make_config()
+    dims = M.MoEDims(g.d_model, g.d_ff, g.n_experts, g.top_k, MOE_CHECK_CAPACITY, g.mlp)
+    gen = torch.Generator(device=device).manual_seed(5)
+    moe_p = M.init_moe(gen, dims, device=device)
+    x = torch.randn(MOE_CHECK_TOKENS + (g.d_model,), generator=gen, device=device) \
+        .to(torch.bfloat16)
+    with torch.no_grad():
+        dense, dense_aux = M.moe_ffn(moe_p, x, dims)
+        comm = VertexComm(make_mesh((2, 2), ("group", "member"), device=device,
+                                    virtual=True))
+        t0 = time.perf_counter()
+        outs, auxes = M.moe_ffn_monitor(moe_p, list(x.chunk(comm.n)), dims, comm=comm)
+        sync(device)
+        mon_s = time.perf_counter() - t0
+        mon = torch.cat(outs)
+        tp = torch.cat([M.moe_ffn_local_tp(moe_p, xx, dims, model_shards=2)[0]
+                        for xx in x.chunk(2)])
+        again = torch.cat(M.moe_ffn_monitor(moe_p, list(x.chunk(comm.n)), dims,
+                                            comm=comm)[0])
+    mon_err = float((mon.float() - dense.float()).abs().max())
+    tp_err = float((tp.float() - dense.float()).abs().max())
+    top = float(dense.float().abs().max())
+    log(f"    MoE dispatch at granite widths (d {g.d_model}, f {g.d_ff}, {g.n_experts} "
+        f"experts top-{g.top_k}, {MOE_CHECK_TOKENS[0] * MOE_CHECK_TOKENS[1]} tokens, "
+        f"capacity factor {MOE_CHECK_CAPACITY}): monitor_a2a on a virtual (2, 2) mesh "
+        f"max |diff| {mon_err:.3e}, local_tp on (2, 2) {tp_err:.3e} against dense "
+        f"moe_ffn (max |out| {top:.3e}; tolerance {LM_MOE_TOL} + {LM_MOE_TOL} x |dense|); "
+        f"monitor {mon_s * 1e3:.3f} ms (host clock); two monitor calls equal bit for bit "
+        f"{torch.equal(mon, again)}")
+    for name, got in (("monitor_a2a", mon), ("local_tp", tp)):
+        bad = (got.float() - dense.float()).abs() > LM_MOE_TOL * (1 + dense.float().abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{name} dispatch: {int(bad.sum())} elements off dense")
+    if not torch.equal(mon, again):
+        raise AssertionError("monitor_a2a: two calls on the same inputs differ")
+    del moe_p, x, dense, mon, tp, again
+
+    # (c) the launcher's LM branch at the smoke config
+    lines: list = []
+    res = launch_train.main(["--arch", LM_TRAIN_ARCH, "--steps", "8"], log=lines.append)
+    ls = res["losses"]
+    if not (len(ls) == 8 and ls[-1] < ls[0]):
+        raise AssertionError(f"launch.train --arch {LM_TRAIN_ARCH}: {ls}")
+    log(f"    launch.train --arch {LM_TRAIN_ARCH} --steps 8 (smoke config): loss "
+        f"{ls[0]:.4f} -> {ls[-1]:.4f}")
+    return dict(fb_ms=fb, update_ms=up, tok_s=n_tok / (fb + up) * 1e3, peak_gib=peak / 2**30,
+                losses=losses, idle=None if prof is None else prof["idle_share"])
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -2213,6 +2585,17 @@ def main() -> int:
     t0 = time.perf_counter()
     training_phase(device)
     log(f"    phase 22 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
+
+    log("[23] LM serving at full width (olmo-1b, granite-moe-1b-a400m)")
+    t0 = time.perf_counter()
+    lm_serving_phase(device)
+    log(f"    phase 23 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[24] LM training at full width ({LM_TRAIN_ARCH}) and the MoE dispatch on the card")
+    t0 = time.perf_counter()
+    lm_training_phase(device)
+    log(f"    phase 24 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
                           serving=served["launches"][name],

@@ -32,7 +32,11 @@ engine serves on a given mesh.  xDeepFM trains on the card
 ``train``: the train step, checkpoints in the JAX package's format, the
 resumable loop, elastic restore; ``launch.train``), and data-parallel
 steps sum their gradients with the T3 monitor psum of
-``comms.hierarchical``.  Entry points run on the card unless the caller
+``comms.hierarchical``.  The LM stack (``models.layers``, ``models.moe``,
+``models.transformer``; five archs in ``configs.lm_archs``) prefills,
+decodes greedily over a KV cache and trains, with its MoE layers
+dispatched densely, over a mesh's ``model`` shards, or through the T3
+monitor all-to-all.  Entry points run on the card unless the caller
 passes ``device="cpu"``.  The package imports neither
 ``jax`` nor anything of ``repro``.
 """

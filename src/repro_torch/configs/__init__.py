@@ -2,7 +2,9 @@
 
 Importing this package registers every ported architecture.
 """
-from repro_torch.configs import base, graph500_arch, recsys_archs  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    base, graph500_arch, lm_archs, recsys_archs,
+)
 from repro_torch.configs.base import REGISTRY, all_arch_ids, all_cells, get
 
 __all__ = ["base", "REGISTRY", "all_arch_ids", "all_cells", "get"]

@@ -3,7 +3,8 @@
 
 An ``ArchSpec`` names an architecture's full config (published dims) and a
 reduced smoke config; its shape cells are the family's batch shapes.  The
-registry holds what the port runs: ``xdeepfm`` and ``graph500``.
+registry holds what the port runs: the five LM archs, ``xdeepfm`` and
+``graph500``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ REGISTRY: dict[str, "ArchSpec"] = {}
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str                 # train | serve | retrieval | bfs
+    kind: str                 # train | prefill | decode | serve | retrieval | bfs
     dims: dict[str, Any]
     note: str = ""
 
@@ -24,7 +25,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str               # recsys | graph500
+    family: str               # lm | recsys | graph500
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: tuple[ShapeCell, ...]
@@ -62,6 +63,15 @@ def all_cells() -> list[tuple[str, str]]:
 def _ensure_loaded():
     from repro_torch import configs as _c  # noqa: F401  (imports register all)
 
+
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeCell("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeCell("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeCell("long_500k", "decode", dict(seq_len=524288, global_batch=1),
+              note="SKIP(full-attn) for pure full-attention archs; "
+                   "supplementary sliding-window row lowered instead"),
+)
 
 RECSYS_SHAPES = (
     ShapeCell("train_batch", "train", dict(batch=65536)),

@@ -1,9 +1,9 @@
 """Carry the JAX package's arrays, given as numpy, into the port.
 
-The same edge list (or built graph, or xDeepFM parameter pytree and
+The same edge list (or built graph, or xDeepFM or LM parameter pytree and
 optimizer state) goes through both packages, so their outputs can be
 compared: graphs bit for bit, model outputs within a stated tolerance; the
-model's parameters and AdamW state also go back, as numpy pytrees the JAX
+models' parameters and AdamW state also go back, as numpy pytrees the JAX
 package takes.  Bitmaps are uint32 in the
 JAX package and int32 bit-views here (``np.ndarray.view(np.int32)``); every
 other array keeps its values.
@@ -17,6 +17,7 @@ from repro_torch.core.bfs_steps import EdgeView
 from repro_torch.core.heavy import core_from_bitmap
 from repro_torch.core.kronecker import EdgeList
 from repro_torch.core.pipeline import BuiltGraph
+from repro_torch.models import transformer
 from repro_torch.optim.optimizer import AdamWState, leaf_order
 from repro_torch.util import resolve_device
 
@@ -94,6 +95,46 @@ def xdeepfm_params_from_numpy(params: dict, cfg, device=None) -> dict:
     flat = paths_from_tree(params)
     return {k: torch.from_numpy(np.array(flat[k], dtype=np.float32)).to(device)
             for k in leaf_order(flat)}
+
+
+def lm_params_from_numpy(params: dict, cfg, device=None) -> dict:
+    """The JAX package's LM parameter pytree (as numpy) -> the port's
+    path-keyed parameters, each leaf with the shape and dtype
+    :func:`repro_torch.models.transformer.init_params` gives it (bf16
+    weights, float32 norms and router).
+
+    The bf16 weights arrive as float32 arrays holding bf16 values (exact)
+    or as uint16 bit-views (``train/checkpoint.py``'s form), so
+    ``ml_dtypes`` is never needed; a float32 array that is not exactly bf16
+    raises.
+    """
+    device = resolve_device(device)
+    flat = paths_from_tree(params)
+    template = transformer.param_template(cfg)
+    if set(flat) != set(template) or \
+            any(tuple(flat[k].shape) != tuple(t.shape) for k, t in template.items()):
+        raise ValueError("lm_params_from_numpy: parameter shapes do not match the config")
+    out = {}
+    for k, want in template.items():
+        arr = np.asarray(flat[k])
+        if arr.dtype == np.uint16:
+            t = torch.from_numpy(arr.astype(np.int16, copy=True)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        if want.dtype != t.dtype:
+            back = t.to(want.dtype)
+            if not torch.equal(back.to(t.dtype), t):
+                raise ValueError(f"lm_params_from_numpy: {k} is not exactly {want.dtype}")
+            t = back
+        out[k] = t.to(device)
+    return out
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's path-keyed LM parameters -> the JAX package's parameter
+    pytree as numpy: every leaf float32 (bf16 values exact), to be cast to
+    the JAX dtypes (``jnp.asarray(a, jnp.bfloat16)``) by the caller."""
+    return tree_from_paths({k: _np(t.to(torch.float32)) for k, t in params.items()})
 
 
 def paths_from_tree(tree, prefix: str = "") -> dict:

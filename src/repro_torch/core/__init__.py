@@ -22,14 +22,14 @@ from repro_torch.core.distributed_bfs import (
     owner_local_of, partition_permutation, shard_edge_skew, shard_graph,
 )
 from repro_torch.core.sssp_steps import (
-    INF_U32, bucket_width, sssp_max_rounds, sssp_oracle,
+    INF_U32, SSSP_EXCHANGES, bucket_width, sssp_max_rounds, sssp_oracle,
 )
 from repro_torch.core.validate import (
     CHECK_NAMES, SSSP_CHECK_NAMES, SsspValidation, validate, validate_batch,
     validate_sssp, validate_sssp_batch,
 )
-from repro_torch.core.kernels import KernelSpec, kernel_spec, rekernel_plan
-from repro_torch.core.teps import Graph500Run, traversed_edges
+from repro_torch.core.kernels import KERNELS, KernelSpec, kernel_spec, rekernel_plan
+from repro_torch.core.teps import Graph500Run, run_graph500, traversed_edges
 from repro_torch.core.plan import (
     BFSPlan, CompiledBFS, Graph500Result, PreparedGraph, ServeBatch,
     ShardedRun, TraversalPlan, compile_plan,
@@ -53,13 +53,14 @@ __all__ = [
     "EdgeList", "generate_edges", "sample_roots", "CSRGraph", "build_csr",
     "DEFAULT_MAX_WEIGHT", "edge_weights", "with_edge_weights", "relax_step",
     "masked_relax_step", "INF_U32", "bucket_width", "sssp_max_rounds",
-    "sssp_oracle", "SSSP_CHECK_NAMES", "SsspValidation", "validate_sssp",
-    "validate_sssp_batch", "KernelSpec", "kernel_spec", "rekernel_plan",
+    "sssp_oracle", "SSSP_EXCHANGES", "SSSP_CHECK_NAMES", "SsspValidation",
+    "validate_sssp", "validate_sssp_batch", "KERNELS", "KernelSpec", "kernel_spec",
+    "rekernel_plan",
     "Reordering", "degree_reorder", "reorder_graph", "HeavyCore",
     "build_heavy_core", "pack_bitmap", "padded_bitmap_words", "unpack_bitmap",
     "ChunkedEdgeView", "EdgeView", "chunk_edge_view", "edge_view",
     "BFSResult", "BFSStats", "CHECK_NAMES", "validate", "validate_batch",
-    "Graph500Run", "traversed_edges", "BFSPlan", "CompiledBFS",
+    "Graph500Run", "run_graph500", "traversed_edges", "BFSPlan", "CompiledBFS",
     "Graph500Result", "PreparedGraph", "TraversalPlan", "compile_plan",
     "BuiltGraph", "Graph500Config", "build", "run", "serve", "FAULT_CLASSES",
     "FaultSpec", "ServeBatch", "sort_host", "SHARD_EXCHANGES", "PARTITIONS",

@@ -11,6 +11,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.bfs_steps import DEFAULT_CHUNKS, EdgeView
+
 
 def traversed_edges(degree: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
     """Half the degree sum over visited vertices; ``parent`` is [V] or [R, V]."""
@@ -58,3 +60,39 @@ class Graph500Run:
     @property
     def all_valid(self) -> bool:
         return all(self.validated) if self.validated else False
+
+
+def run_graph500(
+    ev: EdgeView,
+    degree: torch.Tensor,
+    roots,
+    *,
+    core=None,
+    engine: str = "reference",
+    alpha: float = 14.0,
+    beta: float = 24.0,
+    do_validate: bool = True,
+    warmup: bool = True,
+    n_chunks: int = DEFAULT_CHUNKS,
+    device=None,
+) -> Graph500Run:
+    """Timed BFS over the given roots (Graph500 step 3 + 4), one at a time.
+
+    A per-root plan run: ``BFSPlan(engine=engine, layout=(),
+    batch_roots=False)`` - the chunked edge view is built once at compile
+    time (graph construction is untimed per spec) and each search is timed
+    separately, closest to the Graph500 reference code's timing loop.  With
+    ``do_validate=False`` every root is marked validated.  ``device``: as
+    :func:`~repro_torch.core.plan.compile_plan` (the graph's tensors must
+    lie on it).
+    """
+    from repro_torch.core.plan import BFSPlan, PreparedGraph, compile_plan
+
+    p = BFSPlan(engine=engine, layout=(), batch_roots=False,
+                alpha=alpha, beta=beta, n_chunks=n_chunks)
+    compiled = compile_plan(p, PreparedGraph(ev=ev, degree=degree, core=core),
+                            device=device)
+    run = compiled.run(roots, warmup=warmup, do_validate=do_validate).run
+    if not do_validate:
+        run.validated = [True] * len(run.teps)
+    return run

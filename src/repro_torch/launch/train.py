@@ -1,17 +1,22 @@
-"""Training CLI launcher: the port of ``repro.launch.train``'s graph500 and
-recsys branches.
+"""Training CLI launcher: the port of ``repro.launch.train``'s graph500, LM
+and recsys branches.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm --full --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch graph500 --scale 16
 
 Runs on the card (``--device cpu`` for the plain versions).  The smoke
 config is the default; ``--full`` instantiates the published widths
-(xDeepFM: 39 fields x 2^20 rows, D = 10, CIN 200-200-200, MLP 400-400).
-The recsys branch trains with ``AdamW(cosine(1e-3, 5, steps))`` on batches
-of ``8 x --batch`` rows from ``data.synthetic.recsys_batch`` through
-``train.loop.run_loop``, checkpointing into ``--ckpt-dir`` (resuming from
-its latest checkpoint) when one is given.
+(xDeepFM: 39 fields x 2^20 rows, D = 10, CIN 200-200-200, MLP 400-400;
+olmo-1b: 16 layers, d 2048, vocab 50,304).  The LM branch trains on
+``--batch`` sequences of ``--seq`` tokens from ``data.synthetic.lm_batch``
+with ``AdamW(wsd(3e-4, 5, max(steps - 15, 5), 10))`` for ``minicpm-2b`` and
+``AdamW(cosine(3e-4, 5, steps))`` otherwise.  The recsys branch trains with
+``AdamW(cosine(1e-3, 5, steps))`` on batches of ``8 x --batch`` rows from
+``data.synthetic.recsys_batch``.  Both run through ``train.loop.run_loop``,
+checkpointing into ``--ckpt-dir`` (resuming from its latest checkpoint)
+when one is given.
 """
 from __future__ import annotations
 
@@ -19,20 +24,22 @@ import argparse
 import dataclasses
 
 from repro_torch.configs import all_arch_ids, get
-from repro_torch.data.synthetic import recsys_batch
-from repro_torch.optim import AdamW, cosine
+from repro_torch.data.synthetic import lm_batch, recsys_batch
+from repro_torch.optim import AdamW, cosine, wsd
 from repro_torch.train import train_step as TS
 from repro_torch.train.loop import LoopConfig, run_loop
 from repro_torch.util import resolve_device
 
 
 def main(argv: list | None = None, *, log=print) -> dict:
-    """Run the launcher; returns what it printed as numbers (the recsys
-    branch: ``losses``; graph500: ``harmonic_mean_teps`` and ``valid``)."""
+    """Run the launcher; returns what it printed as numbers (the LM and
+    recsys branches: ``losses``; graph500: ``harmonic_mean_teps`` and
+    ``valid``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=all_arch_ids())
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--scale", type=int, default=10)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
@@ -54,14 +61,25 @@ def main(argv: list | None = None, *, log=print) -> dict:
         return dict(harmonic_mean_teps=result.harmonic_mean_teps,
                     valid=result.all_valid)
 
-    from repro_torch.models import recsys
-    params = recsys.init_params(cfg, seed=0, device=device)
-    opt = AdamW(cosine(1e-3, 5, args.steps))
-    step = TS.make_xdeepfm_train_step(cfg, opt)
+    if spec.family == "lm":
+        from repro_torch.models import transformer
+        params = transformer.init_params(cfg, seed=0, device=device)
+        sched = wsd(3e-4, 5, max(args.steps - 15, 5), 10) \
+            if args.arch == "minicpm-2b" else cosine(3e-4, 5, args.steps)
+        opt = AdamW(sched)
+        step = TS.make_lm_train_step(cfg, opt)
 
-    def batch_fn(i):
-        return recsys_batch(0, i, args.batch * 8, cfg.n_sparse,
-                            cfg.rows_per_field, device=device)
+        def batch_fn(i):
+            return lm_batch(0, i, args.batch, args.seq, cfg.vocab, device=device)
+    else:
+        from repro_torch.models import recsys
+        params = recsys.init_params(cfg, seed=0, device=device)
+        opt = AdamW(cosine(1e-3, 5, args.steps))
+        step = TS.make_xdeepfm_train_step(cfg, opt)
+
+        def batch_fn(i):
+            return recsys_batch(0, i, args.batch * 8, cfg.n_sparse,
+                                cfg.rows_per_field, device=device)
 
     opt_state = opt.init(params)
     lc = LoopConfig(total_steps=args.steps,

@@ -1,1 +1,1 @@
-"""Models of the port's side workloads."""
+"""Models of the port's side workloads: xDeepFM and the LM stack."""

@@ -1,12 +1,14 @@
-"""Train and serve steps for the xDeepFM workload: the port of the recsys
-part of ``repro.train.train_step`` (ROADMAP Queue 1, item 12), and its
-cross-entropy.
+"""Train and serve steps for the LM and xDeepFM workloads: the port of the
+LM and recsys parts of ``repro.train.train_step`` (ROADMAP Queue 1, item
+12), and its cross-entropy.
 
-The train step is a plain function over path-keyed parameter mappings
-(:func:`repro_torch.models.recsys.init_params`): gradients by
+The train steps are plain functions over path-keyed parameter mappings
+(:func:`repro_torch.models.transformer.init_params`,
+:func:`repro_torch.models.recsys.init_params`): gradients by
 ``torch.autograd``, the update by the optimizer's functional
-``update(grads, state, params)``.  The data-parallel form splits the batch
-over the shards of a mesh and sums the gradients with the T3 monitor psum.
+``update(grads, state, params)``.  The xDeepFM data-parallel form splits the
+batch over the shards of a mesh and sums the gradients with the T3 monitor
+psum.  The serve and prefill steps run without autograd.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.comms import hierarchical as hier
 from repro_torch.comms.mesh import Mesh, VertexComm
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.optim.optimizer import AdamW
 
 
@@ -25,14 +27,84 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - true)
 
 
+def _value_and_grad(loss_fn, params: dict, *args):
+    """(loss, grads) of ``loss_fn(params, *args)`` at ``params`` (a
+    path-keyed mapping, untouched)."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, *args)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+def make_lm_loss(cfg: transformer.LMConfig, policy=transformer.REPLICATED,
+                 aux_weight: float = 0.01):
+    """loss_fn(params, batch): mean token NLL of ``batch["labels"]`` under
+    the logits of ``batch["tokens"]``, plus ``aux_weight`` x the MoE aux
+    loss."""
+    def loss_fn(params, batch):
+        logits, aux = transformer.forward(params, batch["tokens"], cfg, policy)
+        return softmax_xent(logits, batch["labels"]) + aux_weight * aux
+    return loss_fn
+
+
+def lm_value_and_grad(params: dict, batch: dict, cfg: transformer.LMConfig,
+                      policy=transformer.REPLICATED, aux_weight: float = 0.01):
+    """(loss, grads) of :func:`make_lm_loss` at ``params`` on ``batch``
+    (``jax.value_and_grad(make_lm_loss(cfg))``); each gradient has its
+    parameter's dtype."""
+    return _value_and_grad(make_lm_loss(cfg, policy, aux_weight), params, batch)
+
+
+def make_lm_train_step(cfg: transformer.LMConfig, opt: AdamW,
+                       policy=transformer.REPLICATED, aux_weight: float = 0.01):
+    """step(params, opt_state, batch) -> (params, opt_state, loss)."""
+    def step(params, opt_state, batch):
+        loss, grads = lm_value_and_grad(params, batch, cfg, policy, aux_weight)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, loss
+
+    return step
+
+
+def make_lm_serve_step(cfg: transformer.LMConfig, policy=transformer.REPLICATED):
+    """Greedy single-token decode step (the decode_*/long_* shape cells):
+    step(params, cache, tokens [B, 1], pos) -> (next tokens [B, 1] int32,
+    cache), the lowest index among equal top logits.  The cache is updated
+    in place (:func:`transformer.decode_step`)."""
+    def step(params, cache, tokens, pos):
+        with torch.no_grad():
+            logits, cache = transformer.decode_step(params, cache, tokens, pos, cfg, policy)
+            return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
+
+    return step
+
+
+def make_lm_prefill(cfg: transformer.LMConfig, policy=transformer.REPLICATED):
+    """Full-sequence forward (prefill_* cells): step(params, tokens [B, S])
+    -> the last position's logits [B, V] float32 (the only position whose
+    logits are computed)."""
+    def step(params, tokens):
+        with torch.no_grad():
+            x, _ = transformer.hidden_states(params, tokens, cfg, policy)
+            return transformer.final_logits(params, x[:, -1], cfg)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
 def xdeepfm_value_and_grad(params: dict, batch: dict, cfg: recsys.XDeepFMConfig):
     """(loss, grads) of ``recsys.loss_fn`` at ``params`` (a path-keyed
     mapping, untouched) on ``batch``."""
-    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    with torch.enable_grad():
-        loss = recsys.loss_fn(leaves, batch["ids"], batch["labels"], cfg)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    return _value_and_grad(lambda p: recsys.loss_fn(p, batch["ids"], batch["labels"], cfg),
+                           params)
 
 
 def make_xdeepfm_train_step(cfg: recsys.XDeepFMConfig, opt: AdamW):

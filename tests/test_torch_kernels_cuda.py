@@ -662,3 +662,67 @@ def test_xdeepfm_train_step_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(), rtol=0, atol=1e-6,
                                    err_msg=k)
     assert int(sg.step) == 1
+
+
+# ---------------------------------------------------------------------------
+# The LM stack on the card against the CPU (plain torch: the LM path runs
+# none of the hand-written kernels; these hold cuBLAS's bf16 products and the
+# card's float32 sums against the CPU's at the JAX package's tolerances)
+# ---------------------------------------------------------------------------
+
+LM_SMOKE = ["granite-moe-1b-a400m", "minicpm-2b", "moonshot-v1-16b-a3b", "olmo-1b",
+            "starcoder2-15b"]
+
+
+def lm_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float().cpu() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_SMOKE)
+def test_lm_forward_and_decode_on_card_match_cpu(cuda, arch):
+    # logits within 3e-2 x max |logit| and aux within 1e-3 (forward), each
+    # teacher-forced decode step within 3e-2 x max |logit|
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    cfg = get(arch).make_smoke_config()
+    params = T.init_params(cfg, seed=0, device="cpu")
+    toks = lm_batch(0, 0, 2, 16, cfg.vocab, device="cpu")["tokens"]
+    card = {k: v.to(cuda) for k, v in params.items()}
+    with torch.no_grad():
+        want, want_aux = T.forward(params, toks, cfg)
+        got, aux = T.forward(card, toks.to(cuda), cfg)
+        assert lm_rel(got, want) <= 3e-2
+        assert abs(float(aux) - float(want_aux)) <= 1e-3
+        cache_c = T.init_cache(cfg, 2, 16, device="cpu")
+        cache_g = T.init_cache(cfg, 2, 16, device=cuda)
+        for t in range(16):
+            lc, _ = T.decode_step(params, cache_c, toks[:, t:t + 1], t, cfg)
+            lg, _ = T.decode_step(card, cache_g, toks[:, t:t + 1].to(cuda), t, cfg)
+            assert lm_rel(lg, lc) <= 3e-2, t
+
+
+@pytest.mark.cuda
+def test_lm_train_step_gradients_on_card_match_cpu(cuda):
+    # granite-smoke: the loss within 1e-2, each gradient leaf within 3e-2 of
+    # the CPU leaf's largest |gradient| (bf16), then one AdamW step each
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import train_step as TS
+    cfg = get("granite-moe-1b-a400m").make_smoke_config()
+    params = T.init_params(cfg, seed=0, device="cpu")
+    batch = lm_batch(0, 0, 2, 16, cfg.vocab, device="cpu")
+    opt = AdamW(constant(1e-3))
+    lc, gc = TS.lm_value_and_grad(params, batch, cfg)
+    card = {k: v.to(cuda) for k, v in params.items()}
+    lg, gg = TS.lm_value_and_grad(card, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    assert abs(float(lg) - float(lc)) <= 1e-2
+    for k in gc:
+        assert gg[k].dtype == gc[k].dtype and gg[k].device.type == "cuda"
+        assert lm_rel(gg[k], gc[k]) <= 3e-2, k
+    new, state = opt.update(gg, opt.init(card), card)
+    assert int(state.step) == 1 and all(new[k].dtype == card[k].dtype for k in new)

@@ -35,6 +35,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.launch.multiprocess, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.train.checkpoint\n"
         "import repro_torch.train.loop, repro_torch.train.elastic\n"
+        "import repro_torch.models.layers, repro_torch.models.transformer\n"
+        "import repro_torch.models.moe, repro_torch.configs.lm_archs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -107,6 +109,21 @@ def test_entry_points_need_cuda_unless_cpu():
         pipeline.serve(dataclasses.replace(cfg, device=None), built=built)
     _, run = pipeline.run(cfg, built)
     assert run.all_valid and len(run.teps) == 2
+    # the LM stack: parameters, batches, caches and the launcher's LM branch
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    lm = get("olmo-1b").make_smoke_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(lm, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_batch(0, 0, 1, 8, lm.vocab)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "olmo-1b", "--steps", "1"], log=lambda m: None)
+    assert transformer.init_params(lm, device="cpu")["embed"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -468,7 +468,9 @@ def test_reshard_restore_onto_device_and_virtual_mesh(tmp_path):
 
 def test_arch_registry_like_jax():
     from repro.configs import all_cells as jall_cells
-    assert all_arch_ids() == ["graph500", "xdeepfm"]
+    assert all_arch_ids() == ["granite-moe-1b-a400m", "graph500", "minicpm-2b",
+                              "moonshot-v1-16b-a3b", "olmo-1b", "starcoder2-15b",
+                              "xdeepfm"]
     assert set(all_cells()) <= set(jall_cells())
     assert [c for c in all_cells() if c[0] == "graph500"] == \
         [c for c in jall_cells() if c[0] == "graph500"]
