@@ -164,6 +164,30 @@ non-zero and no result line is printed:
      launches none of the four kernels (its products are torch matmuls and
      einsums, as the JAX package's are plain ``jnp``); both phases print the
      kernels' launch counts over a step.
+ 25. GNN training at full width: each arch's smoke forward and one train
+     step's loss and gradients on the card against the CPU (within 1e-5 x
+     max |out| and of each leaf's largest |gradient|, the loss within 1e-4),
+     SAGE on sampled blocks too; then the registered full configs with the
+     shape cells' feature dims (``arch_with_dims``), on graphs made on the
+     card by the port's generators: ``gat-cora`` on a scale-12 feature graph
+     (d_in 1,433, 7 classes), ``graphsage-reddit`` on ``NeighborSampler``
+     blocks of 1,024 seeds, fanout (15, 10), from a scale-18 graph (d_in 602,
+     41 classes; the sampler's host ms a batch apart), SAGE full-graph at
+     ``ogb_products``' widths on a scale-20 graph (d_in 100, 47 classes),
+     ``dimenet`` and ``equiformer-v2`` on ``make_molecule_batch(0, 128, 30,
+     64)``; the full-width forwards against the CPU where the CPU is quick
+     (Equiformer with 2 layers); per path forward+backward and AdamW ms,
+     nodes/edges/seeds/graphs per second, peak memory, the loss falling over
+     10-20 AdamW steps, whether two steps from one state are equal bit for
+     bit, the kernels' launches (none) and a profile of one step; the
+     launcher's GNN branch at the smoke configs;
+ 26. the owner-partitioned SAGE step (``models.gnn_dist``) on a virtual
+     (2, 2) mesh of the card on phase 25's scale-20 graph from its initial
+     parameters: hierarchical and flat in float32 against the single-device
+     step (loss within 1e-4, every parameter within 1e-5 after one AdamW
+     step), the bf16 gather (its loss within 5e-2 of the float32 loss,
+     relative), ms a step beside the single-device step's and the idle share
+     of one hierarchical step.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -185,6 +209,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -280,6 +305,30 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 1024, 20
 # the sharded MoE dispatch on the card: granite-moe-1b-a400m's layer widths
 MOE_CHECK_TOKENS = (8, 64)
 MOE_CHECK_CAPACITY = 8.0
+# phase 25: the GNN archs' full configs with the shape cells' feature dims
+# (arch_with_dims), on graphs made on the card by the port's generators in
+# place of the datasets (none is in the repository): Cora's 2,708 nodes by
+# 4,096 (scale 12), Reddit's 232,965 by 262,144 (scale 18), ogb-products'
+# 2,449,029 nodes and 61,859,140 edges by 1,048,576 and ~31.4M (scale 20:
+# one [E, 128] float32 gather takes ~16 GB; scale 21 would take ~32 GB).
+# The class counts are Cora's, Reddit's and ogb-products'.
+GNN_ARCHS = ("gat-cora", "graphsage-reddit", "dimenet", "equiformer-v2")
+GNN_STEPS = 20
+# AdamW(cosine(lr, 2, steps)): 3e-3, and 1e-3 for equiformer-v2 (whose loss
+# jumped from 1.03 to 7.5 in the first steps at 3e-3 on the card)
+GNN_LR = {"equiformer-v2": 1e-3}
+GNN_GAT = dict(scale=12, edge_factor=4, n_classes=7)
+GNN_SAGE_BLOCKS = dict(scale=18, edge_factor=16, n_classes=41, steps=10)
+GNN_SAGE_FULL = dict(scale=20, edge_factor=16, n_classes=47, steps=10)
+# Equiformer's full-width forward against the CPU with its layers cut to 2
+GNN_CHECK_LAYERS = 2
+# card vs CPU: float32 throughout (TF32 off), the segment sums atomic on the
+# card, so sums in another order: the tests' forward tolerance vs JAX
+GNN_TOL = 1e-5
+# phase 26: the virtual mesh, and the bf16 gather's loss against the float32
+# loss (tests/test_torch_gnn_dist.py's BF16_VS_F32_REL)
+GNN_MESH = (2, 2)
+GNN_BF16_VS_F32_REL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -2329,6 +2378,434 @@ def lm_training_phase(device) -> dict:
                 losses=losses, idle=None if prof is None else prof["idle_share"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-26: the GNN stack
+# ---------------------------------------------------------------------------
+
+class EventOpt:
+    """An optimizer that records a CUDA event before and after each update,
+    so a train step's forward+backward and its update are timed apart."""
+
+    def __init__(self, opt):
+        self.opt, self.marks = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = self.opt.update(grads, state, params)
+        e[1].record()
+        self.marks.append(e)
+        return out
+
+
+class CaptureGrads:
+    """An optimizer whose update hands back the gradients as the state."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        return params, grads
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, on the CPU."""
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max() /
+                 want.abs().max().clamp(min=1e-30))
+
+
+def gnn_smoke_inputs(arch: str, cfg, device):
+    """The port's smoke graph and inputs for ``arch`` on ``device``, made on
+    the CPU (so the card and the CPU see the same values): ``(forward,
+    make_step, args)`` with ``forward(params, *args)`` and
+    ``make_step(opt)`` the arch's train step."""
+    from repro_torch.data.graphs import make_feature_graph, make_molecule_batch
+    from repro_torch.models import gnn
+    from repro_torch.train import train_step as TS
+    if arch in ("gat-cora", "graphsage-reddit"):
+        g, labels = make_feature_graph(0, 7, d_feat=cfg.d_in, n_classes=cfg.n_classes,
+                                       edge_factor=4, device="cpu")
+        args = (g.to(device), labels.to(device))
+        kind = "gat" if arch == "gat-cora" else "sage"
+        fwd = gnn.gat_forward if kind == "gat" else gnn.sage_forward
+        return (lambda p, g, y: fwd(p, g, cfg),
+                lambda opt: TS.make_gnn_train_step(kind, cfg, opt), args)
+    g, species, tri = make_molecule_batch(0, 4, 8, 16, device="cpu")
+    if arch == "dimenet":
+        tgt = torch.linspace(-1.0, 1.0, 4)
+        args = (g.to(device), species.to(device), {k: v.to(device) for k, v in tri.items()},
+                tgt.to(device))
+        return (lambda p, g, s, t, y: gnn.dimenet_energy(p, g, s, t, cfg, 4),
+                lambda opt: TS.make_dimenet_train_step(cfg, opt, 4), args)
+    tgt = torch.linspace(-1.0, 1.0, g.n_nodes)
+    args = (g.to(device), species.to(device), tgt.to(device))
+    return (lambda p, g, s, y: gnn.equiformer_forward(p, g, s, cfg),
+            lambda opt: TS.make_equiformer_train_step(cfg, opt), args)
+
+
+def gnn_smoke_card_vs_cpu(device) -> dict:
+    """Each GNN arch's smoke forward and one train step's loss and gradients
+    on the card against the CPU's, from the same parameters and inputs
+    (forwards within GNN_TOL x max |out|, the loss within 1e-4, each
+    gradient leaf within GNN_TOL x its largest |gradient|), and the SAGE
+    step on sampled blocks."""
+    from repro_torch.configs import get
+    from repro_torch.data.graphs import csr_of, make_feature_graph
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.models import gnn
+    from repro_torch.train import train_step as TS
+    errs = {}
+    for arch in GNN_ARCHS:
+        cfg = get(arch).make_smoke_config()
+        params = gnn.INITS[arch](cfg, seed=0, device="cpu")
+        card = {k: v.to(device) for k, v in params.items()}
+        fwd, make_step, args_c = gnn_smoke_inputs(arch, cfg, "cpu")
+        _, _, args_g = gnn_smoke_inputs(arch, cfg, device)
+        with torch.no_grad():
+            f_err = scaled_err(fwd(card, *args_g), fwd(params, *args_c))
+        _, gc, lc = make_step(CaptureGrads())(params, None, *args_c)
+        _, gg, lg = make_step(CaptureGrads())(card, None, *args_g)
+        g_err = max(scaled_err(gg[k], gc[k]) for k in gc)
+        l_err = abs(float(lg) - float(lc))
+        errs[arch] = (f_err, l_err, g_err)
+        log(f"    {arch} smoke, card vs CPU: forward max |diff| / max |out| {f_err:.3e}; "
+            f"one step: loss |diff| {l_err:.3e}, gradients max |diff| / leaf max {g_err:.3e}")
+        if f_err > GNN_TOL or l_err > 1e-4 or g_err > GNN_TOL:
+            raise AssertionError(f"{arch}: the card's smoke forward or step is off the "
+                                 f"CPU's: {errs[arch]}")
+    # GraphSAGE on sampled blocks (the smoke fanouts)
+    cfg = get("graphsage-reddit").make_smoke_config()
+    g, labels = make_feature_graph(0, 7, d_feat=cfg.d_in, n_classes=cfg.n_classes,
+                                   edge_factor=4, device="cpu")
+    ro, ci = csr_of(g)
+    batch = NeighborSampler(ro, ci, cfg.sample_sizes, seed=0, device="cpu").sample(
+        np.arange(16))
+    params = gnn.sage_init(cfg, seed=0, device="cpu")
+    card = {k: v.to(device) for k, v in params.items()}
+    feats = g.node_feat[torch.from_numpy(batch.node_ids)]
+    y = labels[torch.from_numpy(batch.seeds)]
+    blocks_g = [{k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                 for k, v in b.items()} for b in batch.blocks]
+    step = TS.make_sage_block_train_step(cfg, CaptureGrads())
+    _, gc, lc = step(params, None, feats, batch.blocks, y)
+    _, gg, lg = step(card, None, feats.to(device), blocks_g, y.to(device))
+    g_err = max(scaled_err(gg[k], gc[k]) for k in gc)
+    log(f"    graphsage-reddit smoke on sampled blocks (16 seeds, fanout "
+        f"{cfg.sample_sizes}), card vs CPU: loss |diff| {abs(float(lg) - float(lc)):.3e}, "
+        f"gradients {g_err:.3e}")
+    if abs(float(lg) - float(lc)) > 1e-4 or g_err > GNN_TOL:
+        raise AssertionError("graphsage-reddit blocks: the card's step is off the CPU's")
+    return errs
+
+
+def gnn_train_path(name: str, make_step, params: dict, args_for, steps: int,
+                   device, units: dict, lr: float = 3e-3) -> dict:
+    """Train ``steps`` AdamW(cosine(lr, 2, steps)) steps of one GNN path
+    on the card (``args_for(i)``: step i's inputs, made before its clock
+    starts): forward+backward and AdamW ms (CUDA events, median of steps
+    1..), ``units`` per second, the peak memory, the loss first -> last
+    (finite and falling), two steps from one state equal bit for bit or
+    not, the hand-written kernels' launches over a step and a profile of
+    one step."""
+    from repro_torch.optim import AdamW, cosine
+    opt = EventOpt(AdamW(cosine(lr, 2, steps)))
+    step = make_step(opt)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    state = opt.init(params)
+    starts, losses = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        args = args_for(i)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, loss = step(params, state, *args)
+        starts.append(e0)
+        losses.append(loss)
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    marks = opt.marks[:steps]
+    fb = statistics.median(s.elapsed_time(m[0]) for s, m in zip(starts[1:], marks[1:]))
+    up = statistics.median(m[0].elapsed_time(m[1]) for m in marks[1:])
+    losses = [float(v) for v in losses]
+    rates = ", ".join(f"{n / (fb + up) * 1e3:.6f} {u}/s" for u, n in units.items())
+    log(f"    {name}: {steps} steps in {wall:.3f} s (the first's warm-up included): "
+        f"forward+backward {fb:.6f} ms, AdamW {up:.6f} ms (CUDA events, median of steps "
+        f"1-{steps - 1}), {rates}, max_memory_allocated {peak / 2**30:.6f} GiB")
+    log(f"    {name} loss " + " ".join(f"{v:.4f}" for v in losses))
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss is not finite and falling: {losses}")
+    args = args_for(0)
+    a = step(params, state, *args)
+    b = step(params, state, *args)
+    bitwise = torch.equal(a[2], b[2]) and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+    log(f"    {name}: two steps from one state equal bit for bit: {bitwise} "
+        f"(loss {float(a[2])!r} / {float(b[2])!r})")
+    del a, b
+    launched = kernel_launches_during(lambda: step(params, state, *args))
+    log(f"    {name}: hand-written kernels launched by a step: {launched}")
+    if any(launched.values()):
+        raise AssertionError(f"{name}: the GNN path launched a Graph500/CIN kernel")
+    log(f"    profile of one {name} step")
+    prof = profile_window(lambda: step(params, state, *args), ())
+    return dict(fb_ms=fb, update_ms=up, peak_gib=peak / 2**30, losses=losses,
+                bitwise=bitwise, idle=None if prof is None else prof["idle_share"])
+
+
+def gnn_training_phase(device) -> dict:
+    """Phase 25: the four GNN archs at full width on the card (smoke checks
+    against the CPU first), each trained for a few AdamW steps on graphs
+    made on the card by the port's generators."""
+    from repro_torch.configs import get
+    from repro_torch.configs.gnn_archs import arch_with_dims
+    from repro_torch.data.graphs import csr_of, make_feature_graph, make_molecule_batch
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+    from repro_torch.train import train_step as TS
+
+    out = {"smoke": gnn_smoke_card_vs_cpu(device)}
+
+    # (a) gat-cora at full_graph_sm's widths
+    spec = get("gat-cora")
+    cfg = arch_with_dims(spec.make_config(), spec.shape("full_graph_sm").dims["d_feat"],
+                         GNN_GAT["n_classes"])
+    t0 = time.perf_counter()
+    g, labels = make_feature_graph(0, GNN_GAT["scale"], d_feat=cfg.d_in,
+                                   n_classes=cfg.n_classes,
+                                   edge_factor=GNN_GAT["edge_factor"], device=device)
+    sync(device)
+    n_valid = int(g.edge_valid.sum())
+    log(f"    gat-cora graph: {g.n_nodes} nodes, {n_valid} directed edges "
+        f"({g.edge_src.shape[0]} slots), d_in {cfg.d_in}, {cfg.n_classes} classes, made "
+        f"in {time.perf_counter() - t0:.3f} s")
+    params = gnn.gat_init(cfg, seed=0, device=device)
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    with torch.no_grad():
+        err = scaled_err(gnn.gat_forward(params, g, cfg),
+                         gnn.gat_forward(cpu_p, g.to("cpu"), cfg))
+    log(f"    gat-cora full width, card vs CPU forward: max |diff| / max |out| {err:.3e}")
+    if err > GNN_TOL:
+        raise AssertionError(f"gat-cora at full width: card vs CPU {err}")
+    out["gat"] = gnn_train_path(
+        "gat-cora", lambda opt: TS.make_gnn_train_step("gat", cfg, opt), params,
+        lambda i: (g, labels), GNN_STEPS, device,
+        {"nodes": g.n_nodes, "edges": n_valid})
+    del g, labels, params, cpu_p
+    torch.cuda.empty_cache()
+
+    # (b) graphsage-reddit on sampled blocks at minibatch_lg's widths
+    spec = get("graphsage-reddit")
+    cell = spec.shape("minibatch_lg").dims
+    cfg = arch_with_dims(spec.make_config(), cell["d_feat"], GNN_SAGE_BLOCKS["n_classes"])
+    t0 = time.perf_counter()
+    g, labels = make_feature_graph(0, GNN_SAGE_BLOCKS["scale"], d_feat=cfg.d_in,
+                                   n_classes=cfg.n_classes,
+                                   edge_factor=GNN_SAGE_BLOCKS["edge_factor"], device=device)
+    ro, ci = csr_of(g)
+    sync(device)
+    log(f"    graphsage-reddit graph: {g.n_nodes} nodes, {int(ro[-1])} directed edges, "
+        f"features {g.node_feat.numel() * 4 / 1e9:.3f} GB, made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sampler = NeighborSampler(ro, ci, cell["fanout"], seed=0, device=device)
+    order = np.random.default_rng(0).permutation(g.n_nodes)
+    batches, host_ms = [], []
+    for i in range(GNN_SAGE_BLOCKS["steps"]):
+        t0 = time.perf_counter()
+        batches.append(sampler.sample(order[i * cell["batch_nodes"]:
+                                            (i + 1) * cell["batch_nodes"]]))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    sizes = [len(b.node_ids) for b in batches]
+    log(f"    NeighborSampler, {cell['batch_nodes']} seeds, fanout {cell['fanout']}: "
+        f"{statistics.median(host_ms):.6f} ms a batch on the host (median of "
+        f"{len(host_ms)}; {min(host_ms):.3f}-{max(host_ms):.3f}), {min(sizes)}-{max(sizes)} "
+        f"sampled nodes a batch")
+
+    def sage_args(i):
+        b = batches[i % len(batches)]
+        ids = torch.from_numpy(b.node_ids).to(device)
+        return (g.node_feat[ids], b.blocks,
+                labels[torch.from_numpy(b.seeds).to(device)])
+
+    params = gnn.sage_init(cfg, seed=0, device=device)
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    feats, blocks, _ = sage_args(0)
+    with torch.no_grad():
+        err = scaled_err(gnn.sage_forward_blocks(params, feats, blocks, cfg),
+                         gnn.sage_forward_blocks(
+                             cpu_p, feats.cpu(),
+                             [{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                               for k, v in b.items()} for b in blocks], cfg))
+    log(f"    graphsage-reddit full width, one block batch, card vs CPU forward: "
+        f"max |diff| / max |out| {err:.3e}")
+    if err > GNN_TOL:
+        raise AssertionError(f"graphsage-reddit blocks at full width: card vs CPU {err}")
+    out["sage_blocks"] = gnn_train_path(
+        "graphsage-reddit (sampled blocks)",
+        lambda opt: TS.make_sage_block_train_step(cfg, opt), params, sage_args,
+        GNN_SAGE_BLOCKS["steps"], device, {"seeds": cell["batch_nodes"]})
+    out["sage_blocks"]["sampler_ms"] = statistics.median(host_ms)
+    del g, labels, ro, ci, batches, params, cpu_p, feats, blocks
+    torch.cuda.empty_cache()
+
+    # (c) GraphSAGE full-graph at ogb_products' widths
+    cell = spec.shape("ogb_products").dims
+    cfg = arch_with_dims(spec.make_config(), cell["d_feat"], GNN_SAGE_FULL["n_classes"])
+    t0 = time.perf_counter()
+    g, labels = make_feature_graph(0, GNN_SAGE_FULL["scale"], d_feat=cfg.d_in,
+                                   n_classes=cfg.n_classes,
+                                   edge_factor=GNN_SAGE_FULL["edge_factor"], device=device)
+    sync(device)
+    n_valid = int(g.edge_valid.sum())
+    log(f"    ogb_products stand-in: {g.n_nodes} nodes, {n_valid} directed edges "
+        f"({g.edge_src.shape[0]} slots), d_in {cfg.d_in}, {cfg.n_classes} classes, made "
+        f"in {time.perf_counter() - t0:.3f} s")
+    params0 = gnn.sage_init(cfg, seed=0, device=device)
+    out["sage_full"] = gnn_train_path(
+        "graphsage full graph (ogb_products widths)",
+        lambda opt: TS.make_gnn_train_step("sage", cfg, opt), params0,
+        lambda i: (g, labels), GNN_SAGE_FULL["steps"], device,
+        {"nodes": g.n_nodes, "edges": n_valid})
+    out["sage_full_graph"] = dict(cfg=cfg, g=g, labels=labels, params0=params0)
+
+    # (d) dimenet and equiformer-v2 on the molecule cell
+    t0 = time.perf_counter()
+    mol = get("dimenet").shape("molecule").dims
+    g, species, tri = make_molecule_batch(0, mol["batch"], mol["n_nodes"], mol["n_edges"],
+                                          device=device)
+    n_tri = int(tri["valid"].sum())
+    log(f"    molecule batch: {mol['batch']} graphs, {g.n_nodes} atoms, "
+        f"{g.edge_src.shape[0]} edges, {n_tri} triplets in {tri['valid'].shape[0]} slots, "
+        f"made in {time.perf_counter() - t0:.3f} s (host)")
+    gen = torch.Generator(device=device).manual_seed(3)
+    e_tgt = torch.randn((mol["batch"],), generator=gen, device=device)
+    n_tgt = torch.randn((g.n_nodes,), generator=gen, device=device)
+    cpu_g, cpu_s = g.to("cpu"), species.cpu()
+    cpu_t = {k: v.cpu() for k, v in tri.items()}
+    for arch in ("dimenet", "equiformer-v2"):
+        full = get(arch).make_config()
+        check = full if arch == "dimenet" else dataclasses.replace(
+            full, n_layers=GNN_CHECK_LAYERS)
+        p = gnn.INITS[arch](check, seed=1, device=device)
+        cpu_p = {k: v.cpu() for k, v in p.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if arch == "dimenet":
+                want = gnn.dimenet_energy(cpu_p, cpu_g, cpu_s, cpu_t, check, mol["batch"])
+                got = gnn.dimenet_energy(p, g, species, tri, check, mol["batch"])
+            else:
+                want = gnn.equiformer_forward(cpu_p, cpu_g, cpu_s, check)
+                got = gnn.equiformer_forward(p, g, species, check)
+        err = scaled_err(got, want)
+        log(f"    {arch} at full width{'' if check is full else f' ({check.n_layers} layers)'}, "
+            f"card vs CPU forward: max |diff| / max |out| {err:.3e} (both in "
+            f"{time.perf_counter() - t0:.3f} s)")
+        if err > GNN_TOL:
+            raise AssertionError(f"{arch} at full width: card vs CPU {err}")
+        del p, cpu_p
+        params = gnn.INITS[arch](full, seed=0, device=device)
+        if arch == "dimenet":
+            make = partial(TS.make_dimenet_train_step, full, n_graphs=mol["batch"])
+            args = (g, species, tri, e_tgt)
+        else:
+            make = partial(TS.make_equiformer_train_step, full)
+            args = (g, species, n_tgt)
+        out[arch] = gnn_train_path(arch, make, params, lambda i: args, GNN_STEPS, device,
+                                   {"graphs": mol["batch"], "atoms": g.n_nodes},
+                                   lr=GNN_LR.get(arch, 3e-3))
+        del params
+        torch.cuda.empty_cache()
+
+    # (e) the launcher's GNN branch at the smoke configs
+    for arch in GNN_ARCHS:
+        res = launch_train.main(["--arch", arch, "--steps", "6"], log=lambda m: None)
+        ls = res["losses"]
+        log(f"    launch.train --arch {arch} --steps 6 (smoke config): loss "
+            f"{ls[0]:.4f} -> {ls[-1]:.4f}")
+        if not (len(ls) == 6 and ls[-1] < ls[0]):
+            raise AssertionError(f"launch.train --arch {arch}: {ls}")
+    return out
+
+
+def gnn_mesh_phase(full: dict, device) -> dict:
+    """Phase 26: the owner-partitioned SAGE step on a virtual (2, 2) mesh of
+    the card, on phase 25's ogb_products stand-in from its initial
+    parameters: hierarchical and flat in float32 against the single-device
+    step (loss within 1e-4, every parameter within 1e-5 after one AdamW
+    step), and the bf16 gather (its loss within GNN_BF16_VS_F32_REL of the
+    float32 loss); ms a step beside the single-device step's, and the idle
+    share of one hierarchical step."""
+    from repro_torch.models import gnn_dist
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+    cfg, g, labels, params0 = full["cfg"], full["g"], full["labels"], full["params0"]
+    opt = AdamW(cosine(3e-3, 2, GNN_SAGE_FULL["steps"]))
+
+    def host_ms(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        r = fn()
+        sync(device)
+        return r, (time.perf_counter() - t0) * 1e3
+
+    single = TS.make_gnn_train_step("sage", cfg, opt)
+    (want, _, want_loss), _ = host_ms(lambda: single(params0, opt.init(params0), g, labels))
+    _, single_ms = host_ms(lambda: single(params0, opt.init(params0), g, labels))
+    want_loss = float(want_loss)
+    mesh = virtual_mesh(GNN_MESH)
+    n_shards = GNN_MESH[0] * GNN_MESH[1]
+    t0 = time.perf_counter()
+    part = gnn_dist.partition_edges(g.edge_src, g.edge_dst, g.edge_valid, g.n_nodes,
+                                    n_shards)
+    sync(device)
+    per = part[2].view(n_shards, -1).sum(1).tolist()
+    log(f"    single-device step {single_ms:.6f} ms (host clock), loss {want_loss:.6f}; "
+        f"edges partitioned by owner over {n_shards} shards in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms: {part[0].shape[0] // n_shards} slots "
+        f"a shard, valid edges by shard {per} (the degree sort puts the heavy rows "
+        f"on shard 0)")
+    out = {"single_ms": single_ms}
+    for name, hier, dt in (("hierarchical", True, torch.float32),
+                           ("flat", False, torch.float32),
+                           ("hierarchical bf16", True, torch.bfloat16)):
+        step = gnn_dist.make_sage_dist_step(cfg, opt, mesh, g.n_nodes,
+                                            hierarchical=hier, gather_dtype=dt)
+
+        def run():
+            return step(params0, opt.init(params0), g.node_feat, *part, labels)
+
+        (new, _, loss), _ = host_ms(run)
+        _, ms = host_ms(run)
+        loss = float(loss)
+        if dt == torch.float32:
+            p_err = max(float((new[k] - want[k]).abs().max()) for k in want)
+            log(f"    {name} on a virtual {GNN_MESH} mesh: {ms:.6f} ms a step (host "
+                f"clock), loss {loss:.6f} (|diff| {abs(loss - want_loss):.3e}), parameters "
+                f"after one step max |diff| {p_err:.3e}")
+            if abs(loss - want_loss) > 1e-4 or p_err > 1e-5:
+                raise AssertionError(f"{name}: the mesh step is off the single-device step")
+        else:
+            rel = abs(loss - want_loss) / want_loss
+            log(f"    {name} on a virtual {GNN_MESH} mesh: {ms:.6f} ms a step (host clock), "
+                f"loss {loss:.6f}, |diff| / float32 loss {rel:.3e} (bound "
+                f"{GNN_BF16_VS_F32_REL})")
+            if not math.isfinite(loss) or rel > GNN_BF16_VS_F32_REL:
+                raise AssertionError(f"{name}: the bf16 loss is off the float32 loss")
+        out[name] = ms
+        del new
+    step = gnn_dist.make_sage_dist_step(cfg, opt, mesh, g.n_nodes)
+    log("    profile of one hierarchical mesh step")
+    prof = profile_window(lambda: step(params0, opt.init(params0), g.node_feat, *part,
+                                       labels), ())
+    out["idle"] = None if prof is None else prof["idle_share"]
+    return out
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -2596,6 +3073,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_training_phase(device)
     log(f"    phase 24 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
+
+    log("[25] GNN training at full width (gat-cora, graphsage-reddit on sampled blocks "
+        "and full-graph, dimenet, equiformer-v2)")
+    t0 = time.perf_counter()
+    gnn_out = gnn_training_phase(device)
+    log(f"    phase 25 took {time.perf_counter() - t0:.3f} s")
+
+    log(f"[26] the owner-partitioned SAGE step on a virtual {GNN_MESH} mesh of the card")
+    t0 = time.perf_counter()
+    gnn_mesh_phase(gnn_out.pop("sage_full_graph"), device)
+    log(f"    phase 26 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
                           serving=served["launches"][name],

@@ -3,7 +3,7 @@
 Importing this package registers every ported architecture.
 """
 from repro_torch.configs import (  # noqa: F401
-    base, graph500_arch, lm_archs, recsys_archs,
+    base, gnn_archs, graph500_arch, lm_archs, recsys_archs,
 )
 from repro_torch.configs.base import REGISTRY, all_arch_ids, all_cells, get
 

@@ -3,8 +3,8 @@
 
 An ``ArchSpec`` names an architecture's full config (published dims) and a
 reduced smoke config; its shape cells are the family's batch shapes.  The
-registry holds what the port runs: the five LM archs, ``xdeepfm`` and
-``graph500``.
+registry holds what the JAX package's does: the five LM archs, the four GNN
+archs, ``xdeepfm`` and ``graph500``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ REGISTRY: dict[str, "ArchSpec"] = {}
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str                 # train | prefill | decode | serve | retrieval | bfs
+    kind: str                 # train | prefill | decode | full_graph |
+    #                           minibatch | batched_small | serve |
+    #                           retrieval | bfs
     dims: dict[str, Any]
     note: str = ""
 
@@ -25,7 +27,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str               # lm | recsys | graph500
+    family: str               # lm | gnn | recsys | graph500
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: tuple[ShapeCell, ...]
@@ -71,6 +73,18 @@ LM_SHAPES = (
     ShapeCell("long_500k", "decode", dict(seq_len=524288, global_batch=1),
               note="SKIP(full-attn) for pure full-attention archs; "
                    "supplementary sliding-window row lowered instead"),
+)
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "full_graph",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    ShapeCell("minibatch_lg", "minibatch",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout=(15, 10), d_feat=602)),
+    ShapeCell("ogb_products", "full_graph",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100)),
+    ShapeCell("molecule", "batched_small",
+              dict(n_nodes=30, n_edges=64, batch=128)),
 )
 
 RECSYS_SHAPES = (

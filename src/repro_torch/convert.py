@@ -1,7 +1,8 @@
 """Carry the JAX package's arrays, given as numpy, into the port.
 
-The same edge list (or built graph, or xDeepFM or LM parameter pytree and
-optimizer state) goes through both packages, so their outputs can be
+The same edge list (or built graph, GNN graph and sampled blocks, or
+xDeepFM, LM or GNN parameter pytree and optimizer state) goes through both
+packages, so their outputs can be
 compared: graphs bit for bit, model outputs within a stated tolerance; the
 models' parameters and AdamW state also go back, as numpy pytrees the JAX
 package takes.  Bitmaps are uint32 in the
@@ -17,7 +18,7 @@ from repro_torch.core.bfs_steps import EdgeView
 from repro_torch.core.heavy import core_from_bitmap
 from repro_torch.core.kronecker import EdgeList
 from repro_torch.core.pipeline import BuiltGraph
-from repro_torch.models import transformer
+from repro_torch.models import gnn, transformer
 from repro_torch.optim.optimizer import AdamWState, leaf_order
 from repro_torch.util import resolve_device
 
@@ -135,6 +136,53 @@ def lm_params_to_numpy(params: dict) -> dict:
     pytree as numpy: every leaf float32 (bf16 values exact), to be cast to
     the JAX dtypes (``jnp.asarray(a, jnp.bfloat16)``) by the caller."""
     return tree_from_paths({k: _np(t.to(torch.float32)) for k, t in params.items()})
+
+
+def gnn_params_from_numpy(params: dict, arch: str, cfg, device=None) -> dict:
+    """The JAX package's GNN parameter pytree (as numpy) for ``arch``
+    (``gat-cora``, ``graphsage-reddit``, ``dimenet``, ``equiformer-v2``) ->
+    the port's path-keyed float32 parameters; shapes that differ from the
+    port's ``*_init`` at ``cfg`` raise."""
+    device = resolve_device(device)
+    flat = paths_from_tree(params)
+    template = gnn.param_template(arch, cfg)
+    if set(flat) != set(template) or \
+            any(tuple(np.shape(flat[k])) != tuple(t.shape) for k, t in template.items()):
+        raise ValueError(f"gnn_params_from_numpy: parameter shapes do not match "
+                         f"the {arch} config")
+    return {k: torch.from_numpy(np.array(flat[k], dtype=np.float32)).to(device)
+            for k in leaf_order(flat)}
+
+
+def gnn_params_to_numpy(params: dict) -> dict:
+    """The port's path-keyed GNN parameters -> the JAX package's pytree as
+    numpy."""
+    return tree_from_paths({k: _np(t) for k, t in params.items()})
+
+
+def graph_from_numpy(node_feat, edge_src, edge_dst, edge_valid, n_nodes: int,
+                     edge_vec=None, graph_ids=None, device=None) -> gnn.Graph:
+    """The JAX package's ``Graph`` fields (as numpy) -> the port's."""
+    device = resolve_device(device)
+
+    def f32(a):
+        return None if a is None else \
+            torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return gnn.Graph(node_feat=f32(node_feat), edge_src=_i32(edge_src, device),
+                     edge_dst=_i32(edge_dst, device),
+                     edge_valid=torch.from_numpy(np.array(edge_valid, bool)).to(device),
+                     n_nodes=int(n_nodes), edge_vec=f32(edge_vec),
+                     graph_ids=None if graph_ids is None else _i32(graph_ids, device))
+
+
+def blocks_from_numpy(blocks: list, device=None) -> list:
+    """The JAX sampler's blocks (``src``/``dst``/``valid`` as numpy,
+    ``n_dst``) -> the port's."""
+    device = resolve_device(device)
+    return [{"src": _i32(b["src"], device), "dst": _i32(b["dst"], device),
+             "valid": torch.from_numpy(np.array(b["valid"], bool)).to(device),
+             "n_dst": int(b["n_dst"])} for b in blocks]
 
 
 def paths_from_tree(tree, prefix: str = "") -> dict:

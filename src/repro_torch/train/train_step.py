@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.comms import hierarchical as hier
 from repro_torch.comms.mesh import Mesh, VertexComm
-from repro_torch.models import recsys, transformer
+from repro_torch.models import gnn, recsys, transformer
 from repro_torch.optim.optimizer import AdamW
 
 
@@ -29,12 +29,25 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def _value_and_grad(loss_fn, params: dict, *args):
     """(loss, grads) of ``loss_fn(params, *args)`` at ``params`` (a
-    path-keyed mapping, untouched)."""
+    path-keyed mapping, untouched).  A parameter the loss does not use
+    (EquiformerV2's ``w_val``) gets a zero gradient, as in JAX."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     with torch.enable_grad():
         loss = loss_fn(leaves, *args)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), dict(zip(leaves, grads))
+
+
+def _train_step(loss_fn, opt: AdamW):
+    """step(params, opt_state, *args) -> (params, opt_state, loss): one
+    optimizer step on the gradient of ``loss_fn(params, *args)``."""
+    def step(params, opt_state, *args):
+        loss, grads = _value_and_grad(loss_fn, params, *args)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, loss
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -63,12 +76,7 @@ def lm_value_and_grad(params: dict, batch: dict, cfg: transformer.LMConfig,
 def make_lm_train_step(cfg: transformer.LMConfig, opt: AdamW,
                        policy=transformer.REPLICATED, aux_weight: float = 0.01):
     """step(params, opt_state, batch) -> (params, opt_state, loss)."""
-    def step(params, opt_state, batch):
-        loss, grads = lm_value_and_grad(params, batch, cfg, policy, aux_weight)
-        new_params, new_state = opt.update(grads, opt_state, params)
-        return new_params, new_state, loss
-
-    return step
+    return _train_step(make_lm_loss(cfg, policy, aux_weight), opt)
 
 
 def make_lm_serve_step(cfg: transformer.LMConfig, policy=transformer.REPLICATED):
@@ -97,6 +105,54 @@ def make_lm_prefill(cfg: transformer.LMConfig, policy=transformer.REPLICATED):
 
 
 # ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+def make_gnn_train_step(arch: str, cfg, opt: AdamW):
+    """step(params, opt_state, g, labels, mask=None) -> (params, opt_state,
+    loss): full-graph GAT (``arch="gat"``) or GraphSAGE (``"sage"``), mean
+    NLL over every node (``mask`` is unused, as in JAX)."""
+    forward = {"gat": gnn.gat_forward, "sage": gnn.sage_forward}.get(arch)
+    if forward is None:
+        raise ValueError(arch)
+
+    def loss_fn(params, g, labels, mask=None):
+        return softmax_xent(forward(params, g, cfg).to(torch.float32), labels)
+
+    return _train_step(loss_fn, opt)
+
+
+def make_sage_block_train_step(cfg: gnn.SAGEConfig, opt: AdamW):
+    """step(params, opt_state, feats, blocks, labels): GraphSAGE on sampled
+    blocks (``data.sampler``), mean NLL over the seeds."""
+    def loss_fn(params, feats, blocks, labels):
+        logits = gnn.sage_forward_blocks(params, feats, blocks, cfg)
+        return softmax_xent(logits.to(torch.float32), labels)
+
+    return _train_step(loss_fn, opt)
+
+
+def make_dimenet_train_step(cfg: gnn.DimeNetConfig, opt: AdamW, n_graphs: int):
+    """step(params, opt_state, g, species, triplets, targets): mean squared
+    error of the per-graph energies."""
+    def loss_fn(params, g, species, triplets, targets):
+        e = gnn.dimenet_energy(params, g, species, triplets, cfg, n_graphs)
+        return torch.mean(torch.square(e[:, 0] - targets))
+
+    return _train_step(loss_fn, opt)
+
+
+def make_equiformer_train_step(cfg: gnn.EquiformerConfig, opt: AdamW):
+    """step(params, opt_state, g, species, targets): mean squared error of
+    the per-node predictions."""
+    def loss_fn(params, g, species, targets):
+        out = gnn.equiformer_forward(params, g, species, cfg)
+        return torch.mean(torch.square(out[:, 0] - targets))
+
+    return _train_step(loss_fn, opt)
+
+
+# ---------------------------------------------------------------------------
 # RecSys family
 # ---------------------------------------------------------------------------
 
@@ -112,12 +168,8 @@ def make_xdeepfm_train_step(cfg: recsys.XDeepFMConfig, opt: AdamW):
     optimizer step on ``batch`` (``ids`` [B, F] int32, ``labels`` [B]
     float32).  Training differentiates the einsum CIN path: with
     ``use_cin_kernel=True`` the kernel wrapper raises (it has no backward)."""
-    def step(params, opt_state, batch):
-        loss, grads = xdeepfm_value_and_grad(params, batch, cfg)
-        new_params, new_state = opt.update(grads, opt_state, params)
-        return new_params, new_state, loss
-
-    return step
+    return _train_step(lambda p, batch: recsys.loss_fn(p, batch["ids"], batch["labels"], cfg),
+                       opt)
 
 
 def make_xdeepfm_dp_train_step(cfg: recsys.XDeepFMConfig, opt: AdamW, mesh: Mesh):

@@ -726,3 +726,105 @@ def test_lm_train_step_gradients_on_card_match_cpu(cuda):
         assert lm_rel(gg[k], gc[k]) <= 3e-2, k
     new, state = opt.update(gg, opt.init(card), card)
     assert int(state.step) == 1 and all(new[k].dtype == card[k].dtype for k in new)
+
+
+# ---------------------------------------------------------------------------
+# The GNN stack on the card (it launches none of the kernels above: its
+# products are torch matmuls and its segment sums index_add, as the JAX
+# package's are plain jnp)
+# ---------------------------------------------------------------------------
+
+class _CaptureGrads:
+    """An optimizer whose update hands back the gradients as the state."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        return params, grads
+
+
+def _gnn_smoke(arch, device):
+    from repro_torch.configs import get
+    from repro_torch.data.graphs import make_feature_graph, make_molecule_batch
+    from repro_torch.models import gnn
+    from repro_torch.train import train_step as TS
+    cfg = get(arch).make_smoke_config()
+    if arch in ("gat-cora", "graphsage-reddit"):
+        g, y = make_feature_graph(0, 7, d_feat=cfg.d_in, n_classes=cfg.n_classes,
+                                  edge_factor=4, device="cpu")
+        kind = "gat" if arch == "gat-cora" else "sage"
+        fwd = gnn.gat_forward if kind == "gat" else gnn.sage_forward
+        return (cfg, lambda p, g, y: fwd(p, g, cfg),
+                TS.make_gnn_train_step(kind, cfg, _CaptureGrads()),
+                lambda d: (g.to(d), y.to(d)))
+    g, sp, tri = make_molecule_batch(0, 4, 8, 16, device="cpu")
+    if arch == "dimenet":
+        tgt = torch.linspace(-1.0, 1.0, 4)
+        return (cfg, lambda p, g, s, t, y: gnn.dimenet_energy(p, g, s, t, cfg, 4),
+                TS.make_dimenet_train_step(cfg, _CaptureGrads(), 4),
+                lambda d: (g.to(d), sp.to(d), {k: v.to(d) for k, v in tri.items()},
+                           tgt.to(d)))
+    tgt = torch.linspace(-1.0, 1.0, g.n_nodes)
+    return (cfg, lambda p, g, s, y: gnn.equiformer_forward(p, g, s, cfg),
+            TS.make_equiformer_train_step(cfg, _CaptureGrads()),
+            lambda d: (g.to(d), sp.to(d), tgt.to(d)))
+
+
+def _scaled(got, want):
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max() /
+                 want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gat-cora", "graphsage-reddit", "dimenet", "equiformer-v2"])
+def test_gnn_forward_and_train_step_on_card_match_cpu(cuda, arch):
+    # float32 throughout with TF32 off; the card's segment sums are atomic,
+    # so the sums run in another order: forwards within 1e-5 x max |out|,
+    # the loss within 1e-4, each gradient within 1e-5 x its leaf's max
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, fwd, step, args = _gnn_smoke(arch, cuda)
+        params = gnn.INITS[arch](cfg, seed=0, device="cpu")
+        card = {k: v.to(cuda) for k, v in params.items()}
+        before = ops.launch_counts()
+        with torch.no_grad():
+            assert _scaled(fwd(card, *args(cuda)), fwd(params, *args("cpu"))) <= 1e-5
+        _, gc, lc = step(params, None, *args("cpu"))
+        _, gg, lg = step(card, None, *args(cuda))
+        assert ops.launch_counts() == before
+        assert abs(float(lg) - float(lc)) <= 1e-4
+        for k in gc:
+            assert gg[k].device.type == "cuda" and _scaled(gg[k], gc[k]) <= 1e-5, k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_gnn_owner_partitioned_step_on_card_matches_single_device(cuda):
+    from repro_torch.comms.mesh import make_mesh
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import train_step as TS
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, _, _, args = _gnn_smoke("graphsage-reddit", cuda)
+        g, y = args(cuda)
+        params = gnn.sage_init(cfg, seed=0, device=cuda)
+        opt = AdamW(constant(1e-3))
+        want, _, wl = TS.make_gnn_train_step("sage", cfg, opt)(params, opt.init(params), g, y)
+        part = gnn_dist.partition_edges(g.edge_src, g.edge_dst, g.edge_valid, g.n_nodes, 4)
+        mesh = make_mesh((2, 2), ("group", "member"), device=cuda, virtual=True)
+        for hier in (True, False):
+            step = gnn_dist.make_sage_dist_step(cfg, opt, mesh, g.n_nodes, hierarchical=hier)
+            new, _, loss = step(params, opt.init(params), g.node_feat, *part, y)
+            assert abs(float(loss) - float(wl)) < 1e-4
+            for k in want:
+                assert float((new[k] - want[k]).abs().max()) < 1e-5, k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag

@@ -37,6 +37,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.train.loop, repro_torch.train.elastic\n"
         "import repro_torch.models.layers, repro_torch.models.transformer\n"
         "import repro_torch.models.moe, repro_torch.configs.lm_archs\n"
+        "import repro_torch.models.gnn, repro_torch.models.gnn_dist\n"
+        "import repro_torch.data.sampler, repro_torch.configs.gnn_archs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -124,6 +126,22 @@ def test_entry_points_need_cuda_unless_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--arch", "olmo-1b", "--steps", "1"], log=lambda m: None)
     assert transformer.init_params(lm, device="cpu")["embed"].device.type == "cpu"
+    # the GNN stack: parameters, graphs, the sampler and the launcher's branch
+    from repro_torch.data import graphs
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.models import gnn
+    sage = get("graphsage-reddit").make_smoke_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn.sage_init(sage)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graphs.make_feature_graph(0, 6, d_feat=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graphs.make_molecule_batch(0, 2, 4, 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NeighborSampler(np.array([0, 1]), np.array([0]), (2,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "gat-cora", "--steps", "1"], log=lambda m: None)
+    assert gnn.sage_init(sage, device="cpu")["layers/0/w_self"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

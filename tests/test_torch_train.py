@@ -468,10 +468,11 @@ def test_reshard_restore_onto_device_and_virtual_mesh(tmp_path):
 
 def test_arch_registry_like_jax():
     from repro.configs import all_cells as jall_cells
-    assert all_arch_ids() == ["granite-moe-1b-a400m", "graph500", "minicpm-2b",
+    assert all_arch_ids() == ["dimenet", "equiformer-v2", "gat-cora", "granite-moe-1b-a400m",
+                              "graph500", "graphsage-reddit", "minicpm-2b",
                               "moonshot-v1-16b-a3b", "olmo-1b", "starcoder2-15b",
                               "xdeepfm"]
-    assert set(all_cells()) <= set(jall_cells())
+    assert all_cells() == jall_cells()
     assert [c for c in all_cells() if c[0] == "graph500"] == \
         [c for c in jall_cells() if c[0] == "graph500"]
     for make in ("make_config", "make_smoke_config"):
