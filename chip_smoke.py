@@ -187,7 +187,21 @@ non-zero and no result line is printed:
      step (loss within 1e-4, every parameter within 1e-5 after one AdamW
      step), the bf16 gather (its loss within 5e-2 of the float32 loss,
      relative), ms a step beside the single-device step's and the idle share
-     of one hierarchical step.
+     of one hierarchical step;
+ 27. the shape-only dry run (``launch.dryrun``): ``run_cell`` in this
+     process for every registry cell on the 16 x 16 and 2 x 16 x 16
+     production meshes of ``meta`` shards, each record ``ok`` or carrying
+     its skip reason, no JAX
+     imported, the sweep's wall time and the roofline table against the
+     H100 constants; then the grounding: the steps phases 8, 22, 23, 24 and
+     25 time (xDeepFM ``serve_p99`` B = 512 on the einsum path and training
+     at B = 8,192, olmo-1b prefill 4 x 2,048 and training 8 x 1,024 with
+     remat, SAGE full-graph at ``ogb_products``' widths on phase 25's
+     scale-20 graph, equiformer-v2 on the molecule batch) counted once on
+     ``meta`` and once on the card: the FLOPs by dtype equal, the roofline's
+     largest term no more than the phase's measured ms, the achieved share
+     of each dtype's peak, and the counter's peak bytes against
+     ``torch.cuda.max_memory_allocated``.
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -217,14 +231,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-# No integer rate is published; the 67 TFLOP/s fp32 rate outside the tensor
-# cores stands in for the scalar ALUs.
-SCALAR_OPS_PER_S = 67e12
-FP32_FLOPS_PER_S = 67e12
-TF32_TENSOR_FLOPS_PER_S = 495e12
-INT8_TENSOR_OPS_PER_S = 1979e12
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit), bound in
+# main() from repro_torch.launch.mesh, the one place that holds them.  No
+# integer rate is published; the fp32 rate outside the tensor cores stands
+# in for the scalar ALUs.
+HBM_BYTES_PER_S = SCALAR_OPS_PER_S = FP32_FLOPS_PER_S = None
+TF32_TENSOR_FLOPS_PER_S = INT8_TENSOR_OPS_PER_S = None
 
 # cin_layer (3xTF32 on the tensor cores, fp32-level error) against its plain
 # version: the tolerance of the JAX package's kernel test (tests/test_kernels.py).
@@ -619,6 +631,8 @@ def serve_xdeepfm(device) -> dict:
                              f"{forwards[0]} forwards, not {per_forward} per forward")
     log(f"    cin_layer launches {launches} over {forwards[0]} forwards "
         f"({per_forward} per forward)")
+    # the einsum path (the registry config's): phase 27's grounding counts it
+    p99_plain_ms = time_ms(lambda: serve_plain(params, ids_p99), 20, 5)
 
     # checks, after the counted window.  The CIN adds ~1e-8 to a logit at
     # the model's init scales, so the probabilities alone cannot see it:
@@ -664,7 +678,8 @@ def serve_xdeepfm(device) -> dict:
         raise AssertionError("retrieval_cand: scores differ from a float64 matvec")
     log(f"    serve_p99  B={b_p99}: {p99_ms:.6f} ms/step, "
         f"{b_p99 / p99_ms * 1e3:.6e} rows/s; probabilities and pooled CIN "
-        f"features within {CIN_TOL} of the einsum path")
+        f"features within {CIN_TOL} of the einsum path, which takes "
+        f"{p99_plain_ms:.6f} ms/step")
     log(f"    serve_bulk B={b_bulk}: {bulk_ms:.6f} ms/step, "
         f"{b_bulk / bulk_ms * 1e3:.6e} rows/s, peak device memory "
         f"{bulk_peak / 2**30:.6f} GiB; each CIN layer within {CIN_TOL} of "
@@ -677,6 +692,7 @@ def serve_xdeepfm(device) -> dict:
     del params, cand, ids_bulk, probs_bulk
     torch.cuda.empty_cache()
     return dict(launches=launches, err=err, p99_ms=p99_ms, bulk_ms=bulk_ms,
+                p99_plain_ms=p99_plain_ms,
                 b_p99=b_p99, b_bulk=b_bulk, f0=cfg.n_sparse, d=cfg.embed_dim,
                 cin_layers=cfg.cin_layers)
 
@@ -2806,6 +2822,161 @@ def gnn_mesh_phase(full: dict, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the dry run
+# ---------------------------------------------------------------------------
+
+def meta_like(tree):
+    """``tree`` with every tensor replaced by an empty ``meta`` tensor of its
+    shape and dtype (dicts, tuples, lists, NamedTuples and dataclasses)."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: meta_like(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(meta_like(v) for v in tree))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: meta_like(getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(meta_like(v) for v in tree)
+    return tree
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of ``tree``'s tensors."""
+    from repro_torch.launch.dryrun import tensors
+    return sum({t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                for t in tensors(tree)}.values())
+
+
+def grounding_steps(sage_full: dict, device):
+    """Yields (name, step, args on the card): the steps phases 8 and 22-25
+    time, at their shapes (fresh parameters and inputs, one step's at a
+    time: the counts depend on shapes only)."""
+    from repro_torch.configs import get
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.data.synthetic import lm_batch, recsys_batch
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import train_step as TS
+
+    x_cfg = get("xdeepfm").make_config()           # use_cin_kernel=False
+    x_params = recsys.init_params(x_cfg, seed=0, device=device)
+    ids = recsys_batch(0, 0, 512, x_cfg.n_sparse, x_cfg.rows_per_field,
+                       device=device)["ids"]
+    yield ("xdeepfm serve_p99 B=512 (einsum path)", TS.make_xdeepfm_serve_step(x_cfg),
+           (x_params, ids))
+    x_opt = AdamW(cosine(1e-3, 5, TRAIN_STEPS))
+    yield (f"xdeepfm train B={8 * TRAIN_BATCH}", TS.make_xdeepfm_train_step(x_cfg, x_opt),
+           (x_params, x_opt.init(x_params),
+            recsys_batch(0, 0, 8 * TRAIN_BATCH, x_cfg.n_sparse, x_cfg.rows_per_field,
+                         device=device)))
+    del x_params, ids
+    l_cfg = get("olmo-1b").make_config()
+    l_params = T.init_params(l_cfg, seed=0, device=device)
+    yield (f"olmo-1b prefill {PREFILL_BATCH}x{PREFILL_SEQ}",
+           TS.make_lm_prefill(l_cfg, T.ShardingPolicy(q_chunk=PREFILL_Q_CHUNK)),
+           (l_params, lm_batch(0, 0, PREFILL_BATCH, PREFILL_SEQ, l_cfg.vocab,
+                               device=device)["tokens"]))
+    l_opt = AdamW(cosine(3e-4, 5, LM_TRAIN_STEPS))
+    yield (f"olmo-1b train {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} remat",
+           TS.make_lm_train_step(l_cfg, l_opt, T.ShardingPolicy(remat=True)),
+           (l_params, l_opt.init(l_params),
+            lm_batch(0, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, l_cfg.vocab, device=device)))
+    del l_params
+    g_opt = AdamW(cosine(3e-3, 2, GNN_STEPS))
+    yield ("sage full graph (ogb_products widths, scale 20)",
+           TS.make_gnn_train_step("sage", sage_full["cfg"], g_opt),
+           (sage_full["params0"], g_opt.init(sage_full["params0"]), sage_full["g"],
+            sage_full["labels"]))
+    mol = get("equiformer-v2").shape("molecule").dims
+    g, species, _ = make_molecule_batch(0, mol["batch"], mol["n_nodes"], mol["n_edges"],
+                                        device=device)
+    e_cfg = get("equiformer-v2").make_config()
+    e_params = gnn.equiformer_init(e_cfg, seed=0, device=device)
+    e_opt = AdamW(cosine(1e-3, 2, GNN_STEPS))
+    target = torch.randn((g.n_nodes,), generator=torch.Generator(device=device).manual_seed(3),
+                         device=device)
+    yield ("equiformer-v2 molecule", TS.make_equiformer_train_step(e_cfg, e_opt),
+           (e_params, e_opt.init(e_params), g, species, target))
+
+
+def dryrun_phase(step_ms: dict, sage_full: dict, device) -> None:
+    """Phase 27: (a) the dry-run sweep over the registry cells in this
+    process; (b) the counter grounded on the card on the steps earlier
+    phases timed (``step_ms``: their measured ms, not taken again)."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun, mesh as card
+
+    log(f"    constants: {card.CARD}, {card.CONSTANTS_SOURCE}: bf16 "
+        f"{card.PEAK_FLOPS_BF16:.4g}, tf32 {card.PEAK_FLOPS_TF32:.4g}, fp32 "
+        f"{card.PEAK_FLOPS_FP32:.4g} FLOP/s, int8 {card.PEAK_OPS_INT8:.4g} OP/s, HBM "
+        f"{card.HBM_BW:.4g} B/s, link {card.LINK_BW:.4g} B/s a GPU (400 Gb/s NDR; "
+        f"NVLink {card.NVLINK_BW:.4g}); this card: {card_line()}")
+    # (a) the sweep
+    cells = all_cells()
+    for multi in (False, True):
+        t0 = time.perf_counter()
+        records = []
+        for arch, shape in cells:
+            rec = dryrun.run_cell(arch, shape, multi)
+            if not (rec["ok"] or rec["skip_reason"]):
+                raise AssertionError(f"dry run {arch}/{shape}: {rec}")
+            records.append(rec)
+        wall = time.perf_counter() - t0
+        mesh = records[0]["mesh"]
+        log(f"    sweep over the {len(cells)} registry cells on the {mesh} mesh "
+            f"({records[0]['chips']} meta shards): {wall:.3f} s in this process, "
+            f"{sum(r['ok'] for r in records)} ok, skips "
+            f"{sorted({r['skip_reason'] for r in records if r['skip_reason']})}")
+        for line in dryrun.markdown_table(records).splitlines():
+            log(f"    {line}")
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                   for m in sys.modules):
+        raise AssertionError("the dry run imported JAX or the JAX package")
+
+    # (b) the grounding
+    for name, step, args in grounding_steps(sage_full, device):
+        meta_args = meta_like(args)
+        _, on_meta = dryrun.count_step(step, meta_args)
+        del _
+        sync(device)
+        arg_bytes = storage_bytes(args)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out, on_card = dryrun.count_step(step, args)
+        sync(device)
+        alloc_peak = torch.cuda.max_memory_allocated(device) - before + arg_bytes
+        del out
+        fl_meta, fl_card = dict(on_meta.flops), dict(on_card.flops)
+        if fl_meta != fl_card:
+            raise AssertionError(f"{name}: FLOPs by dtype differ, meta {fl_meta} vs "
+                                 f"card {fl_card}")
+        compute_ms = dryrun.compute_seconds(fl_meta) * 1e3
+        memory_ms = on_meta.bytes / card.HBM_BW * 1e3
+        bound = max(compute_ms, memory_ms)
+        ms = step_ms[name]
+        shares = ", ".join(f"{dt} {f / (ms / 1e3) / dryrun._PEAKS[dt]:.4f} of its "
+                           f"peak ({f:.6e} FLOPs)" for dt, f in sorted(fl_meta.items()))
+        tracked = arg_bytes + on_card.peak
+        log(f"    {name}: measured {ms:.6f} ms; roofline compute {compute_ms:.6f} ms, "
+            f"memory {memory_ms:.6f} ms ({on_meta.bytes:.6e} bytes), bound "
+            f"{bound:.6f} ms = {bound / ms:.4f} of the measured time; achieved: "
+            f"{shares}; FLOPs by dtype equal on meta and on the card; "
+            f"{on_meta.ops} ops; peak bytes: counter {tracked / 2**30:.6f} GiB "
+            f"(arguments {arg_bytes / 2**30:.6f} + live {on_card.peak / 2**30:.6f}, "
+            f"meta {on_meta.peak / 2**30:.6f}) vs max_memory_allocated "
+            f"{alloc_peak / 2**30:.6f} GiB, ratio {tracked / alloc_peak:.4f}")
+        if bound > ms:
+            raise AssertionError(f"{name}: the roofline bound {bound} ms exceeds the "
+                                 f"measured {ms} ms: the count is wrong")
+        del meta_args, args
+    torch.cuda.empty_cache()
+    log(f"    {card_line()}")
+
+
 def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
     """:func:`profile_window` again while ``short(stats)`` says the trace
     holds fewer launches than the calls made, and nothing else amiss: the
@@ -2823,10 +2994,21 @@ def profile_complete(fn, kernels: tuple[str, ...], short, attempts: int = 3):
 
 
 def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
+             ops_per_s: float | None = None) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = n_ops / (ops_per_s or SCALAR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bind_card_constants() -> None:
+    global HBM_BYTES_PER_S, SCALAR_OPS_PER_S, FP32_FLOPS_PER_S
+    global TF32_TENSOR_FLOPS_PER_S, INT8_TENSOR_OPS_PER_S
+    from repro_torch.launch import mesh as card
+
+    HBM_BYTES_PER_S = card.HBM_BW
+    SCALAR_OPS_PER_S = FP32_FLOPS_PER_S = card.PEAK_FLOPS_FP32
+    TF32_TENSOR_FLOPS_PER_S = card.PEAK_FLOPS_TF32
+    INT8_TENSOR_OPS_PER_S = card.PEAK_OPS_INT8
 
 
 def main() -> int:
@@ -2834,6 +3016,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    bind_card_constants()
     from repro_torch.kernels import _build, bitmap_ops, frontier_spmv, ops, ref
     from repro_torch.core import pipeline
     from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
@@ -3060,18 +3243,18 @@ def main() -> int:
 
     log("[22] xDeepFM training at full width (xdeepfm_full)")
     t0 = time.perf_counter()
-    training_phase(device)
+    trained = training_phase(device)
     log(f"    phase 22 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
 
     log("[23] LM serving at full width (olmo-1b, granite-moe-1b-a400m)")
     t0 = time.perf_counter()
-    lm_serving_phase(device)
+    lm_served = lm_serving_phase(device)
     log(f"    phase 23 took {time.perf_counter() - t0:.3f} s")
 
     log(f"[24] LM training at full width ({LM_TRAIN_ARCH}) and the MoE dispatch on the card")
     t0 = time.perf_counter()
-    lm_training_phase(device)
+    lm_trained = lm_training_phase(device)
     log(f"    phase 24 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
 
@@ -3083,8 +3266,28 @@ def main() -> int:
 
     log(f"[26] the owner-partitioned SAGE step on a virtual {GNN_MESH} mesh of the card")
     t0 = time.perf_counter()
-    gnn_mesh_phase(gnn_out.pop("sage_full_graph"), device)
+    sage_full = gnn_out.pop("sage_full_graph")
+    gnn_mesh_phase(sage_full, device)
     log(f"    phase 26 took {time.perf_counter() - t0:.3f} s; the script "
+        f"{time.perf_counter() - t_start:.3f} s")
+
+    log("[27] the shape-only dry run on the production meshes, and its counts "
+        "grounded on the card")
+    t0 = time.perf_counter()
+    step_ms = {
+        "xdeepfm serve_p99 B=512 (einsum path)": serving["p99_plain_ms"],
+        f"xdeepfm train B={8 * TRAIN_BATCH}": trained["fb_ms"] + trained["update_ms"],
+        f"olmo-1b prefill {PREFILL_BATCH}x{PREFILL_SEQ}": lm_served["olmo-1b"]["prefill_ms"],
+        f"olmo-1b train {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} remat":
+            lm_trained["fb_ms"] + lm_trained["update_ms"],
+        "sage full graph (ogb_products widths, scale 20)":
+            gnn_out["sage_full"]["fb_ms"] + gnn_out["sage_full"]["update_ms"],
+        "equiformer-v2 molecule":
+            gnn_out["equiformer-v2"]["fb_ms"] + gnn_out["equiformer-v2"]["update_ms"],
+    }
+    dryrun_phase(step_ms, sage_full, device)
+    del sage_full
+    log(f"    phase 27 took {time.perf_counter() - t0:.3f} s; the script "
         f"{time.perf_counter() - t_start:.3f} s")
     by_path = {name: dict(main=launches[name], checked_execution=checked["launches"][name],
                           serving=served["launches"][name],

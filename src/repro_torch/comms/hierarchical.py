@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.comms.mesh import Mesh, VertexComm
+from repro_torch.comms.mesh import Mesh, VertexComm, note_collective
 from repro_torch.core import faults
 from repro_torch.kernels.ref import popcount_u32
 
@@ -74,12 +74,29 @@ def _drop(comm, outs, firsts, fault, level, root) -> list:
             for o, f, d in zip(outs, firsts, comm.local)]
 
 
+def _axis_size(comm: VertexComm, axis: str) -> int:
+    return {"member": comm.M, "group": comm.G, "flat": comm.n}[axis]
+
+
+def _note(kind: str, x: torch.Tensor, group: int, numel: int) -> None:
+    """Report a collective over ``group`` shards (none over one) to the
+    census (``launch.collective_census``)."""
+    if group > 1:
+        note_collective(kind, x, group, numel=numel)
+
+
 def _reduce_scatter(comm: VertexComm, xs: list, fold) -> list:
     """Reduce-scatter over ``member`` (dim 0, tiled): member ``m`` keeps the
-    fold of block ``m`` of every member's input."""
+    fold of block ``m`` of every member's input.  The census sees the JAX
+    package's op: ``reduce-scatter`` for a sum, else the ``all-to-all`` of
+    the whole input that its OR / min reduce-scatter is built from."""
     m = comm.M
     lead = xs[0].shape[0]
     assert lead % m == 0, (lead, m)
+    if fold is _sum:
+        _note("reduce-scatter", xs[0], m, xs[0].numel() // m)
+    else:
+        _note("all-to-all", xs[0], m, xs[0].numel())
     full = _per_list(comm.gather(xs, "member"),
                      lambda ps: fold([p.reshape(m, lead // m, *p.shape[1:])
                                       for p in ps]))
@@ -89,13 +106,21 @@ def _reduce_scatter(comm: VertexComm, xs: list, fold) -> list:
 def _all_reduce(comm, xs, axis, fold, *, fault=None, level=None, root=None):
     """All-reduce over ``axis`` (gather, then a local fold).  ``fault``
     (site ``inter_group``) is passed by the inter-group call sites only: when
-    it fires, the receiver keeps the axis-index-0 contribution alone."""
+    it fires, the receiver keeps the axis-index-0 contribution alone.  The
+    census sees an ``all-reduce`` for a sum, else the JAX package's
+    non-tiled ``all-gather``."""
+    n = _axis_size(comm, axis)
+    if fold is _sum:
+        _note("all-reduce", xs[0], n, xs[0].numel())
+    else:
+        _note("all-gather", xs[0], n, n * xs[0].numel())
     peers = comm.gather(xs, axis)
     return _drop(comm, _per_list(peers, fold), [ps[0] for ps in peers],
                  fault, level, root)
 
 
 def _member_all_gather(comm: VertexComm, xs: list) -> list:
+    _note("all-gather", xs[0], comm.M, comm.M * xs[0].numel())
     return _per_list(comm.gather(xs, "member"), torch.cat)
 
 
@@ -207,6 +232,9 @@ def _encoded_or_all_reduce(comm, xs, axis: str = "group", *, threshold=None,
     encoded: each shard encodes (``codec`` faults corrupt its triple there),
     the triples are gathered, each receiver decodes and ORs them, and an
     ``inter_group`` fault leaves it the first peer's decode alone."""
+    n = _axis_size(comm, axis)
+    _note("all-gather", xs[0], n, 2 * n)                  # the (mode, count) headers
+    _note("all-gather", xs[0], n, n * xs[0].numel())      # the payloads
     wire = []
     for x, d in zip(xs, comm.local):
         mode, payload, count = encode_delta(x, threshold=threshold)
@@ -249,11 +277,13 @@ def hierarchical_all_gather(comm: VertexComm, xs: list) -> list:
     """All-gather over ``member``, then over ``group``: the blocks in
     (group, member) order, as the flat all-gather gives them."""
     blocks = _member_all_gather(comm, xs)
+    _note("all-gather", blocks[0], comm.G, comm.G * blocks[0].numel())
     return _per_list(comm.gather(blocks, "group"), torch.cat)
 
 
 def flat_all_gather(comm: VertexComm, xs: list) -> list:
     """Single-phase all-gather over both axes (the ``flat`` baseline)."""
+    _note("all-gather", xs[0], comm.n, comm.n * xs[0].numel())
     return _per_list(comm.gather(xs, "flat"), torch.cat)
 
 
@@ -316,6 +346,8 @@ def hierarchical_all_to_all(comm: VertexComm, xs: list) -> list:
     lead, rest = xs[0].shape[0], tuple(xs[0].shape[1:])
     assert lead % (g_n * m_n) == 0, (lead, g_n, m_n)
     per = lead // (g_n * m_n)
+    _note("all-to-all", xs[0], m_n, xs[0].numel())
+    _note("all-to-all", xs[0], g_n, xs[0].numel())
     collected = [torch.stack([p.reshape(g_n, m_n, per, *rest)[:, d % m_n] for p in ps],
                              dim=1)                     # [G_dest, M_src, per, ...]
                  for ps, d in zip(comm.gather(xs, "member"), comm.local)]
@@ -328,6 +360,7 @@ def flat_all_to_all(comm: VertexComm, xs: list) -> list:
     n = comm.n
     lead, rest = xs[0].shape[0], tuple(xs[0].shape[1:])
     assert lead % n == 0, (lead, n)
+    _note("all-to-all", xs[0], n, xs[0].numel())
     return [torch.stack([p.reshape(n, lead // n, *rest)[d] for p in ps]).reshape(lead, *rest)
             for ps, d in zip(comm.gather(xs, "flat"), comm.local)]
 

@@ -39,6 +39,22 @@ import torch
 from repro_torch.util import resolve_device
 
 
+#: The active collective census (``launch.collective_census.Census``), or
+#: None: called with ``(kind, output bytes of one device, group size, grad)``.
+_census = None
+
+
+def note_collective(kind: str, out, group: int, *, numel: int | None = None) -> None:
+    """Report one collective to the active census, if any: ``kind`` (the HLO
+    op of the JAX package's primitive), one device's output ``out`` (a
+    tensor; ``numel`` overrides its element count) and the group size.
+    Nothing happens when no census is active."""
+    if _census is not None:
+        n = out.numel() if numel is None else numel
+        _census(kind, n * out.element_size(), group,
+                out.requires_grad and torch.is_grad_enabled())
+
+
 def dist_world() -> tuple[int, int]:
     """``(rank, world size)`` of the initialised ``torch.distributed`` group,
     ``(0, 1)`` when there is none."""
@@ -187,6 +203,8 @@ class VertexComm:
         """Sum over every vertex shard of the local shards' equally shaped
         int64 tensors (the JAX package's psum over both axes)."""
         tot = torch.stack([v.to(self.device, torch.int64) for v in vals]).sum(0)
+        if self.n > 1:
+            note_collective("all-reduce", tot, self.n)
         if self.distributed:
             import torch.distributed as dist
 

@@ -1,16 +1,20 @@
 """Public kernel entry points, dispatched on the tensor's device.
 
-A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
-tensor on the card goes to the hand-written CUDA kernel, which is built on
-first use and raises if it cannot be built or launched.  There is no
-fallback from the card to the plain version and no switch that routes CUDA
-tensors elsewhere.
+A tensor on the CPU goes to the plain PyTorch version in ``ref.py``, and so
+does a ``meta`` tensor (no data: the dry run's shape-only steps,
+``launch.dryrun``); a tensor on the card goes to the hand-written CUDA
+kernel, which is built on first use and raises if it cannot be built or
+launched.  There is no fallback from the card to the plain version and no
+switch that routes CUDA tensors elsewhere.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
+
+#: device types that take the plain versions
+_PLAIN = ("cpu", "meta")
 
 #: name -> kernel object of every hand-written kernel (its ``launches``
 #: counts the launches the CUDA runtime accepted).
@@ -37,7 +41,7 @@ def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
     ``out=(next, visited, count)`` writes into the caller's buffers (none may
     alias an input or another output) and returns them.
     """
-    if next_raw.device.type == "cpu":
+    if next_raw.device.type in _PLAIN:
         return ref.frontier_update_ref(next_raw, visited, out=out)
     return bitmap_ops.frontier_update(next_raw, visited, out=out)
 
@@ -45,7 +49,7 @@ def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
 def core_spmv(a_core: torch.Tensor, frontier_bm: torch.Tensor, *,
               rows_per_tile: int = 8) -> torch.Tensor:
     """Bottom-up step over the dense core: min frontier neighbour per row."""
-    if a_core.device.type == "cpu":
+    if a_core.device.type in _PLAIN:
         return ref.core_spmv_ref(a_core, frontier_bm)
     return frontier_spmv.core_spmv(a_core, frontier_bm,
                                    rows_per_tile=rows_per_tile)
@@ -57,7 +61,7 @@ def multi_source_spmv(a_core8: torch.Tensor, frontier8: torch.Tensor) -> torch.T
     K and R must be multiples of 128 on either device (the kernel's tiles).
     """
     spmv_mxu.check_shapes(a_core8, frontier8)
-    if a_core8.device.type == "cpu":
+    if a_core8.device.type in _PLAIN:
         return ref.spmv_mxu_ref(a_core8, frontier8)
     return spmv_mxu.spmv_mxu(a_core8, frontier8)
 
@@ -71,6 +75,6 @@ def cin_layer(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.Tens
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, xl, w)):
         raise ValueError("cin_layer: the CIN kernel has no backward; call it "
                          "under torch.no_grad() or torch.inference_mode()")
-    if x0.device.type == "cpu":
+    if x0.device.type in _PLAIN:
         return ref.cin_layer_ref(x0, xl, w)
     return cin.cin_layer(x0, xl, w)

@@ -79,7 +79,8 @@ def partition_edges(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
 
 
 def make_sage_dist_step(cfg, opt: AdamW, mesh: Mesh, n_nodes: int, *,
-                        hierarchical: bool = True, gather_dtype=torch.float32):
+                        hierarchical: bool = True, gather_dtype=torch.float32,
+                        keep_padding: bool = False):
     """Owner-partitioned full-graph SAGE train step over the vertex shards
     of a ``(group, member)`` mesh (flat shard order = owner order).
 
@@ -88,6 +89,10 @@ def make_sage_dist_step(cfg, opt: AdamW, mesh: Mesh, n_nodes: int, *,
     over the shards, the edge arrays as :func:`partition_edges` gives them;
     ``loss`` is the mean NLL over every node (the shards' pmean).
     ``hierarchical`` picks the monitor all-gather (T3) or the flat one.
+    ``keep_padding`` runs every shard's whole padded edge block, as the JAX
+    package's static shapes do (the dry run's shape-only step, which cannot
+    find the valid edges on the ``meta`` device); by default each shard's
+    padding is dropped.
     """
     comm = VertexComm(mesh)
     if comm.distributed:
@@ -107,6 +112,9 @@ def make_sage_dist_step(cfg, opt: AdamW, mesh: Mesh, n_nodes: int, *,
         zero rows to the dropped segment, so leaving it out changes no sum
         and keeps a skewed shard's padding out of every [E, F] gather."""
         e_loc = src.shape[0] // p_n
+        if keep_padding:
+            return [(rows(src, d, e_loc), rows(dst_local, d, e_loc), rows(valid, d, e_loc))
+                    for d in comm.local]
         out = []
         for d in comm.local:
             keep = torch.nonzero(rows(valid, d, e_loc)).squeeze(1)

@@ -86,7 +86,8 @@ def init_params(cfg: XDeepFMConfig, seed: int = 0, device=None,
     package's leaf order.  At full width the table is 39 * 2^20 x 10 fp32,
     1.64 GB."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"      # param_template: shapes only
+           else torch.Generator(device=device).manual_seed(seed))
 
     def normal(shape, scale):
         return torch.randn(shape, generator=gen, device=device, dtype=dtype).mul_(scale)
@@ -111,6 +112,12 @@ def init_params(cfg: XDeepFMConfig, seed: int = 0, device=None,
     params["mlp_out"] = normal((prev, 1), 0.01)
     params["table"] = table
     return params
+
+
+def param_template(cfg: XDeepFMConfig) -> dict:
+    """Each leaf's shape and dtype as :func:`init_params` gives them, keyed
+    by path: tensors on the ``meta`` device (no memory, no draws)."""
+    return init_params(cfg, device="meta")
 
 
 def _field_ids(ids: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:

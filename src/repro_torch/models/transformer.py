@@ -21,10 +21,10 @@ operands.
 A :class:`ShardingPolicy` carries what changes the computation: ``remat``,
 ``q_chunk`` and the MoE dispatch (``moe_mode`` over ``mesh`` /
 ``batch_axes``, a virtual :class:`~repro_torch.comms.mesh.Mesh`).  JAX's
-activation sharding hints (``sequence_sharded``, ``unroll_layers``) change
-nothing here and have no counterpart; :func:`param_shardings` /
-:func:`cache_shardings` give JAX's partition specs as per-dimension
-axis-name tuples (layout metadata only).
+``sequence_sharded`` activation hint is layout metadata here (the dry run
+reads it, ``launch.input_specs``); ``unroll_layers`` has no counterpart;
+:func:`param_shardings` / :func:`cache_shardings` give JAX's partition
+specs as per-dimension axis-name tuples (layout metadata only).
 """
 from __future__ import annotations
 
@@ -116,11 +116,14 @@ class ShardingPolicy:
     dispatch ``moe_mode``: ``"dense"``, ``"local_tp"`` (on a mesh with the
     ``batch_axes`` and ``model_axis``) or ``"monitor_a2a"`` (on a
     ``("group", "member")`` mesh, both batch axes).  Without a ``mesh``
-    every mode is the dense dispatch, as in the JAX package."""
+    every mode is the dense dispatch, as in the JAX package.
+    ``sequence_sharded`` (Megatron-SP between blocks) is layout metadata:
+    it changes no computation on one device."""
 
     mesh: Optional[Mesh] = None
     batch_axes: tuple[str, ...] = ("data",)
     model_axis: Optional[str] = "model"
+    sequence_sharded: bool = False
     remat: bool = True
     moe_mode: str = "dense"
     q_chunk: Optional[int] = None

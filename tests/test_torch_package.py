@@ -39,6 +39,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.models.moe, repro_torch.configs.lm_archs\n"
         "import repro_torch.models.gnn, repro_torch.models.gnn_dist\n"
         "import repro_torch.data.sampler, repro_torch.configs.gnn_archs\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.collective_census\n"
+        "import repro_torch.launch.input_specs, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
