@@ -6,12 +6,17 @@ Phases, one or more lines each; any mismatch raises, so the exit code is
 non-zero and no result line is printed:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. the build of every hand-written kernel from ``src/repro_torch/kernels/csrc``;
+  2. the build of every hand-written kernel from ``src/repro_torch/kernels/csrc``,
+     with ptxas's registers and spills (none allowed in ``cin_layer``'s
+     kernels) and ``cin_layer``'s ring stages and shared memory per width;
   3. each kernel against its plain PyTorch version on the card: bit for bit
      for the integer kernels, within rtol = atol = 2e-4 for ``cin_layer``
-     (3xTF32 against the fp32 plain version, TF32 off) at the full-width
-     xDeepFM layer shapes, ragged and split grids included, and two calls
-     on the split grid bit-identical; ``frontier_update`` also back to back
+     (3xTF32 on ``wgmma`` against the fp32 plain version, TF32 off) at the
+     full-width xDeepFM layer shapes, ragged and split grids included, at
+     the edges of its tiles (B * D not a multiple of 64, H = 8, 256 and
+     300, Fl = 1, F0 = 1, K split unevenly), its prep launch's w_hi / w_lo
+     bit for bit against the plain layout, and two calls on the split grid
+     bit-identical; ``frontier_update`` also back to back
      without synchronising (its ticket resets), in the ``out=`` form, and
      refusing aliased outputs; ``spmv_mxu`` at K = 128 to 4,224 (one tile,
      a ragged row tile, two frontier tiles, tiles split by stream-K) in 0/1,
@@ -43,7 +48,9 @@ non-zero and no result line is printed:
      neighbourhoods read from the packed bitmap;
  10. ``cin_layer`` and ``spmv_mxu`` at their path's shapes: time, plain
      time, the library call's time and the bound (``cin_layer``: the
-     3xTF32 tensor-core bound it is held to and the fp32 bound); ``cin_layer`` at
+     3xTF32 tensor-core bound it is held to, its share against the 0.5
+     target, TFLOP/s, the plan's stages, splits and M tiles, and the fp32
+     bound, at B = 512, 4,096 and 262,144); ``cin_layer`` at
      B = 262,144 on N(0, 1) operands also held against the plain version
      on 4,096 rows spread over the batch (rtol = atol = 2e-4); ``spmv_mxu``
      with its share of the byte bound, its stream-K plan and a profile of
@@ -220,6 +227,7 @@ import dataclasses
 import json
 import math
 import statistics
+import re
 import subprocess
 import sys
 import time
@@ -509,28 +517,78 @@ def check_cin_layer(device) -> float:
     from repro_torch.kernels import cin, ref
     gen = torch.Generator(device=device).manual_seed(3)
     # the full-width layer shapes (F0 = 39, D = 10, H = 200; Fl = 39 for
-    # layer 1 and 200 for layers 2-3) at B = 512 (F0 split over blocks), a
-    # ragged B, a ragged last slab (513), B = 7 and 1 (filters split too),
-    # the smoke config's shape and H = 70 at D = 3
+    # layer 1 and 200 for layers 2-3) at B = 512 (K split over blocks), a
+    # ragged B, a ragged last row tile (513), B = 7 and 1 (K split over
+    # many blocks), the smoke config's shape and H = 70 at D = 3
     cases = [(512, 39, 39, 200, 10), (512, 39, 200, 200, 10),
              (300, 39, 39, 200, 10), (300, 39, 200, 200, 10),
              (513, 39, 200, 200, 10), (7, 39, 39, 200, 10),
              (1, 39, 200, 200, 10), (128, 8, 16, 16, 4), (96, 12, 20, 70, 3)]
+    # the wgmma design's edges: B * D not a multiple of 64, the narrowest
+    # and widest tiles (H = 8, 256), two tiles (H = 300), Fl = 1, F0 = 1,
+    # four i chunks, and K units split unevenly (boundaries inside a box)
+    edges = [(13, 39, 39, 200, 10, None), (1000, 39, 200, 200, 7, None),
+             (64, 6, 10, 8, 4, None), (96, 7, 9, 256, 5, None), (40, 5, 8, 300, 4, None),
+             (200, 11, 1, 40, 10, None), (50, 1, 24, 32, 10, None),
+             (128, 150, 20, 30, 4, 3), (300, 39, 37, 70, 3, 7), (512, 39, 200, 200, 10, 7)]
     err = 0.0
-    for b, f0, fl, h, d in cases:
+    for b, f0, fl, h, d, splits in [c + (None,) for c in cases] + edges:
         x0, xl, w = cin_operands(gen, b, f0, fl, h, d, device)
-        plan = cin.cin_plan(b, f0, fl, h, d, sms=cin.sm_count(device))
+        plan = cin.cin_plan(b, f0, fl, h, d, splits=splits, sms=cin.sm_count(device))
         err = max(err, assert_close(f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d} "
-                                    f"grid={plan.grid}", cin.cin_layer(x0, xl, w),
+                                    f"grid={plan.grid}",
+                                    cin.cin_layer(x0, xl, w, splits=splits),
                                     ref.cin_layer_ref(x0, xl, w)))
+    # the prep launch's w_hi / w_lo bit for bit against the plain layout
+    for f0, fl, h in ((39, 39, 200), (39, 200, 200), (150, 20, 30), (5, 8, 300)):
+        w = cin_operands(gen, 1, f0, fl, h, 1, device)[2]
+        if not torch.equal(cin.prep_weights(w).cpu(),
+                           cin.weight_layout(w.cpu(), cin.cin_plan(1, f0, fl, h, 1))):
+            raise AssertionError(f"cin_layer prep F0={f0} Fl={fl} H={h}: w_hi / w_lo "
+                                 f"differ from the plain layout")
     x0, xl, w = cin_operands(gen, 512, 39, 200, 200, 10, device)
     if not torch.equal(cin.cin_layer(x0, xl, w), cin.cin_layer(x0, xl, w)):
         raise AssertionError("cin_layer: two calls on the split grid differ")
-    log(f"cin_layer: {len(cases)} shapes within rtol = atol = {CIN_TOL} of "
+    log(f"cin_layer: {len(cases) + len(edges)} shapes within rtol = atol = {CIN_TOL} of "
         f"cin_layer_ref (max abs err {err}); two calls at B=512 (grid "
         f"{cin.cin_plan(512, 39, 200, 200, 10, sms=cin.sm_count(device)).grid}) "
-        f"bit-identical")
+        f"bit-identical; the prep's w_hi / w_lo equal the plain layout at 4 shapes")
     return err
+
+
+def check_cin_ptxas(text: str) -> None:
+    """Phase 2: each ``cin_layer`` kernel's registers, stack and spills as
+    ptxas reports them (one line a kernel, the ``wgmma`` widths by name);
+    raises on a spill, on a compiler warning and on ptxas's "Potential
+    Performance Loss" note (wgmma serialised)."""
+    entries, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            sym = m.group(1)
+            width = re.search(r"ILi(\d+)EE", sym)
+            short = re.search(r"(cin_layer_kernel\w*?)(?:ILi|E|$)", sym)
+            cur = dict(name=(short.group(1) if short else sym)
+                       + (f"<{width.group(1)}>" if width else ""))
+            entries.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur["stack"], cur["spill_st"], cur["spill_ld"] = nums[:3]
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    warnings = [line.strip() for line in text.splitlines()
+                if "warning" in line.lower() or "performance loss" in line.lower()]
+    for e in entries:
+        log(f"    ptxas cin_layer: {e['name']}: {e.get('regs')} registers, "
+            f"{e.get('stack')} B stack, spill stores {e.get('spill_st')} B, "
+            f"spill loads {e.get('spill_ld')} B")
+    for w in warnings:
+        log(f"    ptxas cin_layer warning: {w}")
+    if not entries:
+        raise AssertionError("ptxas reported no cin_layer kernel")
+    spilled = [e["name"] for e in entries if e.get("spill_st") or e.get("spill_ld")]
+    if spilled or warnings:
+        raise AssertionError(f"cin_layer: ptxas spills in {spilled}, warnings {warnings}")
 
 
 def rand_int8(gen: torch.Generator, shape, full_range: bool, device) -> torch.Tensor:
@@ -748,6 +806,28 @@ def multi_source_on_core(built, levels: np.ndarray, device) -> dict:
     return dict(a8=a8, f8=f8, launches=launches, err=err)
 
 
+def cin_whole_check(name: str, got: torch.Tensor, x0, xl, w, chunk: int = 2048) -> dict:
+    """``cin_layer``'s whole output against ``cin_layer_ref`` (row chunks,
+    so the plain version's [rows, F0, Fl, D] product fits): the max abs
+    error, the max of |error| / (atol + rtol |plain|), and the mean error
+    along sign(plain), which is negative when the sum drifts toward zero.
+    Raises if an element is outside rtol = atol = CIN_TOL."""
+    from repro_torch.kernels import ref
+    worst = max_abs = along = 0.0
+    for s in range(0, got.shape[0], chunk):
+        want = ref.cin_layer_ref(x0[s:s + chunk], xl[s:s + chunk], w)
+        diff = got[s:s + chunk] - want
+        if not torch.isfinite(got[s:s + chunk]).all():
+            raise AssertionError(f"{name}: non-finite output")
+        worst = max(worst, float((diff.abs() / (CIN_TOL + CIN_TOL * want.abs())).max()))
+        max_abs = max(max_abs, float(diff.abs().max()))
+        along += float((diff * want.sign()).sum(dtype=torch.float64))
+    if worst > 1.0:
+        raise AssertionError(f"{name}: outside rtol = atol = {CIN_TOL} (max |err| / tol "
+                             f"{worst})")
+    return dict(max_abs=max_abs, worst=worst, bias=along / got.numel())
+
+
 def time_cin(serving: dict, device) -> dict:
     """Phase 10, cin_layer: per layer shape at serve_p99 and serve_bulk."""
     from repro_torch.kernels import cin, ref
@@ -768,43 +848,44 @@ def time_cin(serving: dict, device) -> dict:
                 # the same flops once on the fp32 cores
                 bnd = bound_ms(n_bytes, 3 * flops, TF32_TENSOR_FLOPS_PER_S)
                 bnd32 = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
+                plan = cin.cin_plan(b, f0, fl, h, d, sms=cin.sm_count(device))
                 lib = lambda: torch.einsum("hij,bid,bjd->bhd", w, x0, xl)
                 if b == serving["b_bulk"]:
-                    row["bulk_ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 3, 1)
+                    ms = row["bulk_ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 3, 1)
                     row["bulk_bound"], row["bulk_bound32"] = bnd, bnd32
                     rows = spread_rows(b, CIN_CHECK_ROWS, device)
                     row["bulk_err"] = assert_close(
                         f"cin_layer B={b} F0={f0} Fl={fl} H={h} D={d}, "
                         f"{CIN_CHECK_ROWS} rows", cin.cin_layer(x0, xl, w)[rows],
                         ref.cin_layer_ref(x0[rows], xl[rows], w))
+                    whole = cin_whole_check(f"cin_layer B={b} Fl={fl}",
+                                            cin.cin_layer(x0, xl, w), x0, xl, w)
+                    row["bulk_err"] = max(row["bulk_err"], whole["max_abs"])
+                    extra = (f"max abs err {row['bulk_err']:.6e} within rtol = atol = "
+                             f"{CIN_TOL} on {CIN_CHECK_ROWS} spread rows and on all "
+                             f"{b} rows (max |err| / tol {whole['worst']:.6f}, mean err "
+                             f"along sign(plain) {whole['bias']:.6e})")
                 elif b == 4096:
-                    row["ms_4096"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 10, 3)
+                    ms = row["ms_4096"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 10, 3)
                     row["lib_4096"] = time_ms(lib, 5, 1)
+                    extra = f"library einsum {row['lib_4096']:.6f} ms"
                 else:
-                    row["ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 20, 10)
+                    ms = row["ms"] = time_ms(lambda: cin.cin_layer(x0, xl, w), 20, 10)
                     row["plain_ms"] = time_ms(lambda: ref.cin_layer_ref(x0, xl, w), 5, 1)
                     row["lib_ms"] = time_ms(lib, 10, 3)
                     row["bound"], row["bound32"] = bnd, bnd32
-                    row["bytes"], row["flops"] = n_bytes, flops
-                    row["plan"] = cin.cin_plan(b, f0, fl, h, d, sms=cin.sm_count(device))
+                    extra = (f"plain {row['plain_ms']:.6f} ms, library einsum "
+                             f"{row['lib_ms']:.6f} ms")
+                log(f"    cin_layer F0={f0} Fl={fl} H={h} D={d} B={b}: {ms:.6f} ms; "
+                    f"3xTF32 bound {bnd[0]:.6f} ms ({bnd[1]}), {bnd[0] / ms:.6f} of it "
+                    f"(target 0.5); fp32 bound {bnd32[0]:.6f}, {bnd32[0] / ms:.6f} of it; "
+                    f"{flops / ms / 1e9:.6f} TFLOP/s ({3 * flops / ms / 1e9:.6f} on the "
+                    f"tensor cores); plan: wgmma N {plan.n_tile} x {plan.n_tiles} tile(s), "
+                    f"{plan.stages} stages, {plan.splits} split(s), {plan.m_tiles} M tiles, "
+                    f"grid {plan.grid}, {plan.smem_bytes} B shared; {extra}")
                 del x0, xl, w
             torch.cuda.empty_cache()
             timed[(fl, h)] = row
-            plan = row["plan"]
-            log(f"    cin_layer F0={f0} Fl={fl} H={h} D={d}: B={serving['b_p99']} "
-                f"(grid {plan.grid}, {plan.warps} warps, {plan.smem_bytes} B shared) "
-                f"{row['ms']:.6f} ms (plain {row['plain_ms']:.6f}, library einsum "
-                f"{row['lib_ms']:.6f}; 3xTF32 bound {row['bound'][0]:.6f} "
-                f"{row['bound'][1]}, {row['bound'][0] / row['ms']:.6f} of it; fp32 "
-                f"bound {row['bound32'][0]:.6f}, {row['bound32'][0] / row['ms']:.6f} "
-                f"of it; {row['flops'] / row['ms'] / 1e9:.6f} TFLOP/s); B=4096 "
-                f"{row['ms_4096']:.6f} ms (library {row['lib_4096']:.6f}); "
-                f"B={serving['b_bulk']} {row['bulk_ms']:.6f} ms (3xTF32 bound "
-                f"{row['bulk_bound'][0]:.6f}, {row['bulk_bound'][0] / row['bulk_ms']:.6f} "
-                f"of it; fp32 bound {row['bulk_bound32'][0]:.6f}, "
-                f"{row['bulk_bound32'][0] / row['bulk_ms']:.6f} of it; max abs err "
-                f"{row['bulk_err']:.6e} on {CIN_CHECK_ROWS} rows within rtol = atol "
-                f"= {CIN_TOL})")
         row = timed[(fl, h)]
         tot["ms"] += row["ms"]
         tot["plain_ms"] += row["plain_ms"]
@@ -831,8 +912,9 @@ def time_cin(serving: dict, device) -> dict:
 
 
 def time_cin_splits(serving: dict, device) -> None:
-    """Phase 10, cin_layer at serve_p99: the forward's three layers with the
-    F0 sum split over 1-8 blocks, beside the split the plan picks."""
+    """Phase 10, cin_layer at serve_p99: the forward's three layers with K
+    (the (i, j) pairs) split over 1-8 blocks, beside the split the plan
+    picks."""
     from repro_torch.kernels import cin
     gen = torch.Generator(device=device).manual_seed(8)
     b, f0, d, hs = serving["b_p99"], serving["f0"], serving["d"], serving["cin_layers"]
@@ -844,7 +926,7 @@ def time_cin_splits(serving: dict, device) -> None:
                             for x0, xl, w in layers)
     pick = {cin.cin_plan(b, f0, w.shape[2], w.shape[0], d, sms=cin.sm_count(device)).splits
             for _, _, w in layers}
-    log(f"    cin_layer B={b}, the forward's three layers by splits of the F0 sum: "
+    log(f"    cin_layer B={b}, the forward's three layers by splits of K: "
         + ", ".join(f"{k}: {v:.6f} ms" for k, v in times.items())
         + f"; the plan picks {sorted(pick)}")
 
@@ -3033,16 +3115,18 @@ def main() -> int:
     log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_info['seconds']:.2f} s) into {_build.build_info['dir']}")
     for name, text in _build.build_info["ptxas"].items():
+        if name == "cin_layer":
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    ptxas {name}: {line.strip()}")
-            elif name in ("cin_layer", "spmv_mxu") and "Compiling entry" in line:
+            elif name == "spmv_mxu" and "Compiling entry" in line:
                 log(f"    ptxas {name}: {line.strip()[-90:]}")
+    check_cin_ptxas(_build.build_info["ptxas"].get("cin_layer", ""))
     from repro_torch.kernels import cin
-    for fl in (39, 200):
-        plan = cin.cin_plan(262144, 39, fl, 200, 10, sms=cin.sm_count(device))
-        log(f"    cin_layer at Fl={fl}: {plan.warps} warps, {plan.smem_bytes} B of "
-            f"dynamic shared memory per block (above the static smem ptxas reports)")
+    for n_tile in cin.N_TILES:
+        log(f"    cin_layer_kernel<{n_tile}>: {cin.stages_for(n_tile)} ring stages, "
+            f"{cin.smem_for(n_tile)} B of dynamic shared memory per block")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3329,6 +3413,8 @@ def main() -> int:
         dict(name="cin_layer", route="cuda",
              source="src/repro_torch/kernels/csrc/cin_layer.cu",
              replaces="src/repro/kernels/cin.py:64",
+             design="one 3xTF32 GEMM on wgmma.mma_async m64nNk8 tf32 (A = x0 xl "
+                    "formed in registers), w_hi / w_lo through a TMA mbarrier ring",
              launches=serving["launches"], max_abs_err=cin_err,
              ms=cin_t["ms"], plain_ms=cin_t["plain_ms"], bound_ms=cin_t["bound_ms"],
              bound_by=cin_t["bound_by"], library_ms=cin_t["library_ms"],

@@ -319,34 +319,30 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
 # cin_layer: the kernel's 3xTF32 arithmetic, emulated, and its launch plan
 # ---------------------------------------------------------------------------
 
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> the nearest TF32 value (ties away from zero), as
-    ``cvt.rna.tf32.f32`` gives it: 10 mantissa bits kept."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def cin_tf32_emulation(x0, xl, w, passes: int = 3) -> torch.Tensor:
-    """The CUDA kernel's arithmetic in plain torch: per i, P_i = w[:, i] @ xl
-    with each operand split as hi = tf32(a), lo = tf32(a - hi) and the
-    products lo*hi + hi*lo + hi*hi (``passes=3``) or hi*hi alone (one TF32
-    pass), then out += x0[:, i] * P_i in fp32."""
-    wh, xh = tf32_round(w), tf32_round(xl)
-    wl, xlo = tf32_round(w - wh), tf32_round(xl - xh)
-    out = torch.zeros(x0.shape[0], w.shape[0], x0.shape[2])
-    for i in range(x0.shape[1]):
-        p = torch.einsum("hj,bjd->bhd", wh[:, i], xh)
-        if passes == 3:
-            p = (torch.einsum("hj,bjd->bhd", wl[:, i], xh)
-                 + torch.einsum("hj,bjd->bhd", wh[:, i], xlo)) + p
-        out += x0[:, i, None, :] * p
-    return out
+    """The CUDA kernel's arithmetic in plain torch: one GEMM over the padded
+    K of (i, j) pairs in the kernel's order.  z[n, (i, j)] = x0[b, i, d] *
+    xl[b, j, d] rounded to fp32 (n = b * D + d), split as hi = tf32(z),
+    lo = tf32(z - hi), against the prep's w_hi / w_lo; the products
+    lo*hi + hi*lo + hi*hi (``passes=3``) or hi*hi alone (one TF32 pass)."""
+    b, f0, d = x0.shape
+    h, _, fl = w.shape
+    plan = cin.cin_plan(b, f0, fl, h, d)
+    wh, wl = cin.weight_layout(w, plan)                  # [h_pad, k_pad] each
+    pairs = torch.einsum("bid,bjd->bdij", x0, xl).reshape(b * d, f0 * fl)
+    z = torch.cat([pairs, torch.zeros(b * d, 1)], 1)[:, cin.k_index(f0, fl)]
+    zh = cin.tf32_round(z)
+    zl = cin.tf32_round(z - zh)
+    out = zh @ wh.T
+    if passes == 3:
+        out = (zl @ wh.T + zh @ wl.T) + out
+    return out[:, :h].reshape(b, d, h).transpose(1, 2)
 
 
 def test_tf32_round_matches_rna():
     x = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-12, -(1 + 2**-11), 1 + 2**-12,
                       3.0e-38, 123456.789])
-    got = tf32_round(x)
+    got = cin.tf32_round(x)
     # ties go away from zero; below half an ulp rounds down
     assert got[0] == 1.0 and got[1] == 1 + 2**-10 and got[3] == -(1 + 2**-10)
     assert got[2] == 1 + 2**-10 and got[4] == 1.0
@@ -383,41 +379,105 @@ def test_cin_3xtf32_emulation_matches_reference(fl):
     (0, 39, 200, 200, 10)])
 def test_cin_plan(b, f0, fl, h, d):
     plan = cin.cin_plan(b, f0, fl, h, d)
-    assert plan.h_pad == -(-h // 16) * 16 and plan.h_pad - h < 16
-    assert 1 <= plan.warps <= cin.MAX_WARPS
-    cols, h_blocks, splits = plan.grid
-    assert splits == plan.splits and cols * cin.BLOCK_COLS >= b * d
-    assert h_blocks * plan.warps * 16 >= h
-    # every i in exactly one split; split sizes differ by at most one
-    covered = [i for lo, hi in plan.i_ranges for i in range(lo, hi)]
-    assert covered == list(range(f0))
-    sizes = [hi - lo for lo, hi in plan.i_ranges]
+    # filter tiles: a built wgmma width, as few tiles as hold H
+    assert plan.n_tile in cin.N_TILES and plan.h_pad == plan.n_tile * plan.n_tiles >= h
+    assert plan.n_tiles == -(-h // 256) and (plan.n_tiles - 1) * plan.n_tile < h
+    m_tiles, n_tiles, splits = plan.grid
+    assert (m_tiles, n_tiles, splits) == (plan.m_tiles, plan.n_tiles, plan.splits)
+    assert m_tiles * cin.BLOCK_ROWS >= b * d > (m_tiles - 1) * cin.BLOCK_ROWS or b == 0
+    # K: i padded to whole 8-wide blocks, walked in units of (chunk, j);
+    # k_pad whole 32-float boxes
+    assert plan.ib_total == -(-f0 // 8) and plan.k_steps == fl * plan.ib_total
+    assert plan.units == -(-plan.ib_total // cin.CHUNK_IB) * fl
+    assert plan.k_pad % cin.BOX_K == 0 and 0 <= plan.k_pad - 8 * plan.k_steps < cin.BOX_K
+    assert plan.w_split_shape == (2, plan.h_pad, plan.k_pad)
+    # every K unit, and so every k8 step, in exactly one split; split sizes
+    # differ by at most one unit
+    covered = [u for lo, hi in plan.unit_ranges for u in range(lo, hi)]
+    assert covered == list(range(plan.units))
+    sizes = [hi - lo for lo, hi in plan.unit_ranges]
     assert len(sizes) == splits and max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    steps = [q for lo, hi in plan.step_ranges for q in range(lo, hi)]
+    assert steps == list(range(plan.k_steps))
     assert plan.scratch_shape == ((splits, b, h, d) if splits > 1 else None)
+    # the ring: at least two stages, within the 227 KB a block can use
+    assert 2 <= plan.stages <= cin.MAX_STAGES
+    assert plan.smem_bytes == plan.stages * 256 * plan.n_tile + 1024 + 16 * plan.stages
     assert plan.smem_bytes <= 232448
     # the cheapest split under the plan's wave model, the fewest among equals
-    tiles = cols * h_blocks
+    tiles = m_tiles * n_tiles
     if tiles:
-        costs = [cin.split_cost(tiles, f0, s) for s in range(1, f0 + 1)]
+        costs = [cin.split_cost(tiles, plan.k_steps, s) for s in range(1, plan.units + 1)]
         assert costs[splits - 1] == min(costs) and costs.index(min(costs)) == splits - 1
     if (f0, h, d) == (39, 200, 10):
-        assert plan.h_pad == 208 and plan.warps == 13
+        # xDeepFM's widths: one 200-wide tile, no filter padding, 4 stages
+        assert (plan.n_tile, plan.n_tiles, plan.h_pad, plan.stages) == (200, 1, 200, 4)
+        assert plan.ib_total == 5 and plan.k_steps == 5 * fl
         if b == 262144:
-            assert splits == 1 and plan.scratch_shape is None
+            assert splits == 1 and plan.scratch_shape is None and m_tiles == 20480
         if b in (512, 513):
-            # one wave: 64 (65) column blocks x 2 halves of the F0 sum
-            assert splits == 2 and plan.i_ranges == ((0, 20), (20, 39))
-            assert plan.scratch_shape == (2, b, 200, 10)
+            # one wave: 40 (41) row tiles x 3 thirds of K
+            assert splits == 3 and plan.blocks <= 132
+            assert plan.scratch_shape == (3, b, 200, 10)
         if b == 1:
-            assert splits == 39 and plan.blocks == 39
+            assert m_tiles == 1 and splits == 125
 
 
 def test_cin_plan_split_model_order():
-    # the wave model's order of the splits at B = 512 (64 column blocks,
-    # F0 = 39): 2 < 4 < 8 < 5 < 3, one block per SM
-    cost = {s: cin.split_cost(64, 39, s) for s in (2, 3, 4, 5, 8)}
-    assert sorted(cost, key=cost.get) == [2, 4, 8, 5, 3]
-    assert cin.cin_plan(512, 39, 200, 200, 10, splits=5).i_ranges == (
-        (0, 8), (8, 16), (16, 24), (24, 32), (32, 39))
+    # the wave model's order of the splits at B = 512 (40 row tiles, Fl =
+    # 200: 1,000 k8 steps), one block per SM: 3 < 8 < 5 < 2 < 4 < 1
+    cost = {s: cin.split_cost(40, 1000, s) for s in (1, 2, 3, 4, 5, 8)}
+    assert sorted(cost, key=cost.get) == [3, 8, 5, 2, 4, 1]
+    plan = cin.cin_plan(512, 39, 200, 200, 10, splits=5)
+    assert plan.unit_ranges == ((0, 40), (40, 80), (80, 120), (120, 160), (160, 200))
+    assert plan.step_ranges == ((0, 200), (200, 400), (400, 600), (600, 800), (800, 1000))
+    # F0 = 150: four chunks of i (5, 5, 5 and 4 blocks); a split's steps
+    # follow the chunks' widths
+    plan = cin.cin_plan(64, 150, 20, 30, 4, splits=3)
+    assert plan.units == 80 and plan.k_steps == 20 * 19
+    assert plan.unit_ranges == ((0, 26), (26, 53), (53, 80))
+    assert plan.step_ranges == ((0, 130), (130, 265), (265, 380))
     with pytest.raises(ValueError, match="splits"):
-        cin.cin_plan(512, 39, 200, 200, 10, splits=40)
+        cin.cin_plan(512, 39, 200, 200, 10, splits=201)
+
+
+def prep_index_c(f0: int, fl: int, k: int) -> int:
+    """The prep kernel's index arithmetic for one k (csrc/cin_layer.cu,
+    ``cin_layer_kernel_prep``), written out: i * Fl + j, or -1."""
+    ib_total = -(-f0 // 8)
+    q = k >> 3
+    if q >= fl * ib_total:
+        return -1
+    c = q // (cin.CHUNK_IB * fl)
+    r = q - c * cin.CHUNK_IB * fl
+    nib = min(cin.CHUNK_IB, ib_total - cin.CHUNK_IB * c)
+    j = r // nib
+    i = 8 * (cin.CHUNK_IB * c + r - j * nib) + (k & 7)
+    return i * fl + j if i < f0 else -1
+
+
+@pytest.mark.parametrize("f0,fl,h", [(39, 200, 200), (39, 39, 200), (150, 20, 30),
+                                     (12, 20, 70), (5, 8, 300), (3, 1, 8)])
+def test_cin_weight_layout(f0, fl, h):
+    # the prep's w_hi / w_lo in plain torch: every (i, j) once, in the
+    # kernel's K order; zeros in the padding; hi + lo within 2^-22 of w
+    rng = np.random.default_rng(f0 * fl + h)
+    w = torch.from_numpy((rng.normal(size=(h, f0, fl)) / np.sqrt(f0 * fl)).astype(np.float32))
+    plan = cin.cin_plan(512, f0, fl, h, 10)
+    idx = cin.k_index(f0, fl)
+    assert idx.shape == (plan.k_pad,)
+    assert sorted(idx[idx >= 0].tolist()) == list(range(f0 * fl))
+    assert idx.tolist() == [prep_index_c(f0, fl, k) for k in range(plan.k_pad)]
+    ws = cin.weight_layout(w, plan)
+    assert ws.shape == plan.w_split_shape and ws.dtype == torch.float32
+    hi, lo = ws
+    pad = idx < 0
+    assert (hi[:, pad] == 0).all() and (lo[:, pad] == 0).all()
+    assert (hi[h:] == 0).all() and (lo[h:] == 0).all()
+    # both halves are TF32 values (13 low bits clear)
+    assert ((ws.view(torch.int32) & 0x1FFF) == 0).all()
+    got = torch.zeros(h, f0 * fl)
+    got[:, idx[~pad]] = (hi + lo)[:h][:, ~pad]
+    want = w.reshape(h, f0 * fl)
+    assert ((got - want).abs() <= want.abs() * 2.0**-22).all()
+    assert not torch.equal(hi[:h][:, ~pad], want[:, idx[~pad]])   # lo carries bits

@@ -351,13 +351,13 @@ def cin_operands(rng, b, f0, fl, h, d, device):
 @pytest.mark.parametrize("b,f0,fl,h,d", [
     (512, 39, 39, 200, 10), (512, 39, 200, 200, 10), (300, 39, 200, 200, 10),
     (1, 39, 200, 200, 10), (128, 8, 8, 16, 4), (77, 5, 3, 70, 3),
-    # F0 split over 5 blocks with a ragged last slab; B = 7 splits the
-    # filters too; D = 3 and 4 with H = 70
+    # K split over blocks with a ragged last row tile (B = 513), over many
+    # blocks at B = 7; D = 3 and 4 with H = 70 (one 128-wide tile)
     (513, 39, 200, 200, 10), (7, 39, 39, 200, 10), (96, 12, 20, 70, 3),
     (100, 12, 20, 70, 4),
-    # Fl > 312 and F0 > 64 per split: xl and x0 taken in chunks
+    # Fl = 400: 400 K units; F0 = 150: four chunks of i
     (256, 6, 400, 40, 10), (8192, 150, 20, 30, 4),
-    # H = 300: 19 filter tiles in two blocks of up to 16
+    # H = 300: two 200-wide filter tiles
     (40, 5, 8, 300, 4)])
 def test_cin_layer_kernel_matches_plain(cuda, b, f0, fl, h, d):
     # 3xTF32 on the tensor cores against the fp32 oracle (TF32 off):
@@ -371,9 +371,40 @@ def test_cin_layer_kernel_matches_plain(cuda, b, f0, fl, h, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,f0,fl,h,d,splits", [
+    # B * D not a multiple of 64: a row tile ends inside a warpgroup
+    (13, 39, 39, 200, 10, None), (1000, 39, 200, 200, 7, None),
+    # the narrowest and the widest wgmma tile (H = 8 pads to 16)
+    (64, 6, 10, 8, 4, None), (96, 7, 9, 256, 5, None),
+    # Fl = 1: one k8 step a unit; F0 = 1: one i block of 8, seven of them padding
+    (200, 11, 1, 40, 10, None), (50, 1, 24, 32, 10, None),
+    # K units split unevenly, with split boundaries inside a TMA box
+    (300, 39, 37, 70, 3, 7), (512, 39, 200, 200, 10, 7),
+    # several i chunks split across blocks
+    (128, 150, 20, 30, 4, 3)])
+def test_cin_layer_kernel_tile_edges(cuda, b, f0, fl, h, d, splits):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(b * 7 + fl)
+    x0, xl, w = cin_operands(rng, b, f0, fl, h, d, cuda)
+    got = cin.cin_layer(x0, xl, w, splits=splits)
+    assert got.shape == (b, h, d)
+    torch.testing.assert_close(got, ref.cin_layer_ref(x0, xl, w), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f0,fl,h", [(39, 200, 200), (39, 39, 200), (150, 20, 30),
+                                     (5, 8, 300), (3, 1, 8)])
+def test_cin_prep_matches_weight_layout(cuda, f0, fl, h):
+    # the prep launch's w_hi / w_lo equal the plain layout bit for bit
+    w = cin_operands(np.random.default_rng(h), 1, f0, fl, h, 1, cuda)[2]
+    plan = cin.cin_plan(1, f0, fl, h, 1)
+    assert torch.equal(cin.prep_weights(w).cpu(), cin.weight_layout(w.cpu(), plan))
+
+
+@pytest.mark.cuda
 def test_cin_layer_split_path_is_deterministic(cuda):
-    # B = 512 splits the F0 sum over blocks; the partials are summed in a
-    # fixed order, so two calls give the same bits
+    # B = 512 splits K over blocks; the partials are summed in a fixed
+    # order, so two calls give the same bits
     assert cin.cin_plan(512, 39, 200, 200, 10).splits > 1
     x0, xl, w = cin_operands(np.random.default_rng(11), 512, 39, 200, 200, 10, cuda)
     first = cin.cin_layer(x0, xl, w)
