@@ -156,7 +156,10 @@ non-zero and no result line is printed:
      max |logit| (granite at capacity factor 16, so neither form drops);
      each smoke arch's forward on the card against the CPU's, and olmo-1b
      at full width (forward and decode, B = 2, S = 8) against the CPU's,
-     each with cuBLAS's reduced-precision bf16 reduction on and off.  These
+     each with cuBLAS's reduced-precision bf16 reduction on and off; the
+     bf16 ``silu`` and ``gelu`` (XLA's op chains, forward and backward) on
+     the card against the CPU over every finite bf16 input, at most one
+     bf16 ulp apart, with the count of differing inputs.  These
      cut ``prefill_32k`` (32 x 32,768) and ``decode_32k`` (128 x 32,768),
      whose KV cache alone would take ~550 GB; the widths are not cut;
  24. LM training at full width: olmo-1b at B = 8, S = 1,024 (cut from
@@ -319,6 +322,9 @@ LM_TOL = 3e-2
 LM_MOE_TOL = 5e-2
 # olmo-1b at full width on the card against the CPU: B x S tokens
 FULL_CHECK_SHAPE = (2, 8)
+# the bf16 activations on the card against the CPU: CUDA's expf / tanhf are
+# not the CPU's, so a chain's bf16 result may move by one ulp
+ACT_MAX_ULPS = 1
 # phase 24: olmo-1b training, cut from train_4k (256 x 4,096)
 LM_TRAIN_ARCH = "olmo-1b"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 1024, 20
@@ -2250,11 +2256,61 @@ def full_width_card_vs_cpu(device) -> dict:
     return row
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulps between ``a`` and ``b`` (0 for two NaNs, 2^16 for one)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    d = (ordered(a) - ordered(b)).abs()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.where(na & nb, 0, torch.where(na | nb, 1 << 16, d))
+
+
+def activations_card_vs_cpu(device) -> dict:
+    """The port's bf16 ``silu`` and ``gelu``, forward and backward (a unit
+    and a random cotangent), on the card against the CPU over every finite
+    bf16 input: at most ACT_MAX_ULPS apart, the differing inputs counted."""
+    from repro_torch.models import layers as L
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    rng = np.random.default_rng(0)
+    mag = 2.0 ** rng.uniform(-8.0, 8.0, x.numel())
+    g_rand = torch.from_numpy(np.where(rng.random(x.numel()) < 0.5, -mag, mag)
+                              .astype(np.float32)).to(torch.bfloat16)
+
+    def run(fn, dev):
+        xr = x.to(dev).requires_grad_()
+        y = fn(xr)
+        outs = {"forward": y.detach()}
+        for name, g in (("grad g=1", torch.ones_like(x)), ("grad g random", g_rand)):
+            (outs[name],) = torch.autograd.grad(y, xr, g.to(dev), retain_graph=True)
+        return {k: v.cpu() for k, v in outs.items()}
+
+    out = {}
+    for name, fn in (("silu", L.silu), ("gelu", L.gelu)):
+        want, got = run(fn, "cpu"), run(fn, device)
+        for what in want:
+            ulps = bf16_ulps(got[what], want[what])
+            row = (int((ulps > 0).sum()), int(ulps.max()))
+            out[f"{name} {what}"] = row
+            log(f"    bf16 {name} {what}, card vs CPU over {x.numel()} finite inputs: "
+                f"{row[0]} differ, at most {row[1]} ulp (allowed {ACT_MAX_ULPS})")
+            if row[1] > ACT_MAX_ULPS:
+                bad = torch.nonzero(ulps > ACT_MAX_ULPS).flatten()[:4]
+                raise AssertionError(
+                    f"bf16 {name} {what}: the card is {row[1]} ulps off the CPU, e.g. x = "
+                    f"{x[bad].float().tolist()}: card {got[what][bad].float().tolist()}, "
+                    f"CPU {want[what][bad].float().tolist()}")
+    return out
+
+
 def lm_serving_phase(device) -> dict:
     """Phase 23: LM serving at full width (prefill, KV-cache greedy decode,
     decode against prefill) for olmo-1b and granite-moe-1b-a400m, with
     random parameters from ``init_params`` on the card; then each smoke
-    arch's forward on the card against the CPU."""
+    arch's forward on the card against the CPU, and the bf16 activations on
+    the card against the CPU."""
     import dataclasses as dc
     from repro_torch.configs import get
     from repro_torch.data.synthetic import lm_batch
@@ -2357,6 +2413,7 @@ def lm_serving_phase(device) -> dict:
     torch.cuda.empty_cache()
     out["smoke"] = smoke_forward_card_vs_cpu(device)
     out["full"] = full_width_card_vs_cpu(device)
+    out["activations"] = activations_card_vs_cpu(device)
     return out
 
 

@@ -36,9 +36,15 @@ steps sum their gradients with the T3 monitor psum of
 ``models.transformer``; five archs in ``configs.lm_archs``) prefills,
 decodes greedily over a KV cache and trains, with its MoE layers
 dispatched densely, over a mesh's ``model`` shards, or through the T3
-monitor all-to-all.  Entry points run on the card unless the caller
-passes ``device="cpu"``.  The package imports neither
-``jax`` nor anything of ``repro``.
+monitor all-to-all; its bf16 activations are XLA's op chains, forward and
+backward.  The GNN stack (``models.gnn``: GAT, GraphSAGE full-graph and
+sampled blocks, DimeNet, EquiformerV2; ``models.gnn_dist``: the
+owner-partitioned SAGE step over the T3 monitor all-gather) trains on the
+same optimizers.  The dry run (``launch.dryrun``) runs every registry
+cell's step shape-only on ``meta`` tensors, counts its FLOPs, bytes and
+collectives, and ranks the H100 roofline terms on 256- and 512-GPU meshes.
+Entry points run on the card unless the caller passes ``device="cpu"``.
+The package imports neither ``jax`` nor anything of ``repro``.
 """
 from repro_torch import comms, core, kernels, launch, optim, train
 

@@ -247,15 +247,71 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, *, stack: tuple
     return p
 
 
+# XLA on the CPU computes a bf16 activation as a chain of bf16 operations,
+# each rounded: the sigmoid is ``1 / (1 + exp(-x))`` (``logistic_impl``) and
+# ``jax.nn.gelu`` its tanh formula with bf16 constants.  torch rounds the
+# exact sigmoid or gelu once, which differs from XLA's last bit on many
+# inputs and flips MoE routes.  So the bf16 activations below are XLA's
+# chains, and their backward is JAX's jvp rules transposed, also rounded at
+# each step (autograd through the chain rounds other intermediates).
+# float32 inputs keep torch's ``sigmoid`` / ``gelu``, which are closer to
+# XLA's float32 bits than the chain is.
+
+#: ``sqrt(2 / pi)`` and ``0.044715`` rounded to bf16, as ``jax.nn.gelu``
+#: rounds them to a bf16 input's dtype
+_GELU_C = 0.796875
+_GELU_A = 0.044677734375
+
+
+class _SiluBF16(torch.autograd.Function):
+    """``x * (1 / (1 + exp(-x)))``; the backward is ``g*s + (g*x)*(s*(1-s))``
+    (the product rule and ``logistic``'s jvp, ``g * (ans * (1 - ans))``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+class _GeluBF16(torch.autograd.Function):
+    """``x * (0.5 * (1 + tanh(c * (x + a * ((x * x) * x)))))``; the backward
+    transposes the product, ``tanh``'s jvp ``(g + g*ans) * (1 - ans)`` and
+    ``integer_pow``'s ``g * (3 * x**2)``, in JAX's order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t = torch.tanh(_GELU_C * (x + _GELU_A * ((x * x) * x)))
+        cdf = 0.5 * (1 + t)
+        ctx.save_for_backward(x, t, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t, cdf = ctx.saved_tensors
+        c1 = ((g * x) * 0.5) * (1 - t)
+        ct_in = (c1 + c1 * t) * _GELU_C
+        return ((g * cdf) + ct_in) + ((ct_in * _GELU_A) * (3 * (x * x)))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
+    if x.dtype == torch.bfloat16:
+        return _GeluBF16.apply(x)
     return F.gelu(x, approximate="tanh")
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: ``x * sigmoid(x)``, two operations in ``x``'s dtype
-    (``F.silu`` rounds a bf16 input once, which moves a SwiGLU output by
-    several ulps after the down projection)."""
+    """``jax.nn.silu``: ``x * sigmoid(x)`` (``F.silu`` rounds a bf16 input
+    once, which moves a SwiGLU output by several ulps after the down
+    projection)."""
+    if x.dtype == torch.bfloat16:
+        return _SiluBF16.apply(x)
     return x * torch.sigmoid(x)
 
 

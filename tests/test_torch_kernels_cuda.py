@@ -759,6 +759,49 @@ def test_lm_train_step_gradients_on_card_match_cpu(cuda):
     assert int(state.step) == 1 and all(new[k].dtype == card[k].dtype for k in new)
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulps between ``a`` and ``b`` (0 for two NaNs, 2^16 for one)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    d = (ordered(a) - ordered(b)).abs()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.where(na & nb, 0, torch.where(na | nb, 1 << 16, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["silu", "gelu"])
+def test_bf16_activations_on_card_match_cpu(cuda, name):
+    # XLA's bf16 op chains, forward and backward (a unit and a random
+    # cotangent), over every finite bf16 input: the card within one bf16 ulp
+    # of the CPU (CUDA's expf / tanhf are not the CPU's); the differing
+    # inputs are counted in the assertion message
+    from repro_torch.models import layers as L
+    fn = {"silu": L.silu, "gelu": L.gelu}[name]
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    rng = np.random.default_rng(0)
+    mag = 2.0 ** rng.uniform(-8.0, 8.0, x.numel())
+    g_rand = torch.from_numpy(np.where(rng.random(x.numel()) < 0.5, -mag, mag)
+                              .astype(np.float32)).to(torch.bfloat16)
+
+    def run(dev):
+        xr = x.to(dev).requires_grad_()
+        y = fn(xr)
+        outs = [y.detach()]
+        for g in (torch.ones_like(x), g_rand):
+            outs += torch.autograd.grad(y, xr, g.to(dev), retain_graph=True)
+        return [o.cpu() for o in outs]
+
+    for what, got, want in zip(("forward", "grad g=1", "grad g random"), run(cuda),
+                               run("cpu")):
+        assert got.dtype == want.dtype == torch.bfloat16
+        ulps = bf16_ulps(got, want)
+        assert int(ulps.max()) <= 1, (
+            f"{name} {what}: {int((ulps > 0).sum())} of {x.numel()} inputs differ, "
+            f"at most {int(ulps.max())} ulps")
+
+
 # ---------------------------------------------------------------------------
 # The GNN stack on the card (it launches none of the kernels above: its
 # products are torch matmuls and its segment sums index_add, as the JAX

@@ -89,19 +89,30 @@ def smoke(arch: str, **kw):
     return jcfg, dataclasses.replace(get(arch).make_smoke_config(), **kw)
 
 
+#: ``lm_batch``'s (seed, step, batch, seq) for the tests' default batch
+DEFAULT_BATCH = (0, 0, BATCH, SEQ)
+#: seeds and batches beyond the default on which the port's bf16 activations,
+#: before they were XLA's op chains, flipped MoE routes (granite's aux loss
+#: off by 2.6e-3, moonshot's logits by 0.21 x max |logit|)
+ROUTE_FLIP_CASES = [("granite-moe-1b-a400m", 3, (3, 0, 2, 16)),
+                    ("moonshot-v1-16b-a3b", 3, (13, 0, 3, 24))]
+ROUTE_FLIP_IDS = [f"{a}-seed{s}-batch{b[2]}x{b[3]}" for a, s, b in ROUTE_FLIP_CASES]
+
+
 class Refs:
-    """JAX's smoke parameters, batch and reference outputs, per arch, made
-    once for the module."""
+    """JAX's smoke parameters (``init_params(PRNGKey(seed))``), batch
+    (``lm_batch(*batch)``) and reference outputs, per arch, made once for
+    the module."""
 
     def __init__(self):
         self._memo = {}
 
-    def get(self, arch: str, **kw):
-        key = (arch, tuple(sorted(kw.items())))
+    def get(self, arch: str, seed: int = 0, batch: tuple = DEFAULT_BATCH, **kw):
+        key = (arch, seed, batch, tuple(sorted(kw.items())))
         if key not in self._memo:
             jcfg, cfg = smoke(arch, **kw)
-            jp = jjit(lambda key: JT.init_params(key, jcfg), jax.random.PRNGKey(0))
-            batch = JS.lm_batch(0, 0, BATCH, SEQ, jcfg.vocab)
+            jp = jjit(lambda key: JT.init_params(key, jcfg), jax.random.PRNGKey(seed))
+            batch = JS.lm_batch(*batch, jcfg.vocab)
             logits, aux = jjit(lambda p, t: JT.forward(p, t, jcfg), jp, batch["tokens"])
             self._memo[key] = dict(
                 jcfg=jcfg, cfg=cfg, jp=jp, batch=batch, logits=logits, aux=aux,
@@ -219,12 +230,15 @@ def test_decode_attention_and_mlp_equal_to_jax(attn_case):
 # The model: forward, decode, greedy serving, prefill
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_forward_equal_to_jax(refs, arch):
-    r = refs.get(arch)
+@pytest.mark.parametrize(
+    "arch,seed,batch",
+    [(a, 0, DEFAULT_BATCH) for a in LM_ARCHS] + ROUTE_FLIP_CASES,
+    ids=LM_ARCHS + ROUTE_FLIP_IDS)
+def test_forward_equal_to_jax(refs, arch, seed, batch):
+    r = refs.get(arch, seed, batch)
     logits, aux = T.forward(r["params"], r["tokens"], r["cfg"])
     assert logits.dtype == torch.float32
-    assert logits.shape == (BATCH, SEQ, r["cfg"].vocab)
+    assert logits.shape == (batch[2], batch[3], r["cfg"].vocab)
     assert_rel(logits, r["logits"], 3e-2, f"{arch} logits")
     assert abs(float(aux) - float(r["aux"])) <= 1e-3, (float(aux), float(r["aux"]))
     # prefill contracts only the last row: the forward's hidden state there
@@ -299,19 +313,28 @@ def test_greedy_tokens_equal_to_jax(refs, arch):
 def jax_grads(refs):
     memo = {}
 
-    def get_(arch):
-        if arch not in memo:
-            r = refs.get(arch)
-            memo[arch] = jjit(jax.value_and_grad(JTS.make_lm_loss(r["jcfg"])),
-                              r["jp"], r["batch"])
-        return memo[arch]
+    def get_(arch, seed=0, batch=DEFAULT_BATCH):
+        key = (arch, seed, batch)
+        if key not in memo:
+            r = refs.get(arch, seed, batch)
+            memo[key] = jjit(jax.value_and_grad(JTS.make_lm_loss(r["jcfg"])),
+                             r["jp"], r["batch"])
+        return memo[key]
     return get_
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-15b", "granite-moe-1b-a400m"])
-def test_value_and_grad_equal_to_jax(refs, jax_grads, arch):
-    r = refs.get(arch)
-    jloss, jgrads = jax_grads(arch)
+GRAD_ARCHS = ["olmo-1b", "starcoder2-15b", "granite-moe-1b-a400m"]
+
+
+@pytest.mark.parametrize(
+    "arch,seed,batch",
+    [(a, 0, DEFAULT_BATCH) for a in GRAD_ARCHS] + ROUTE_FLIP_CASES[:1],
+    ids=GRAD_ARCHS + ROUTE_FLIP_IDS[:1])
+def test_value_and_grad_equal_to_jax(refs, jax_grads, arch, seed, batch):
+    """The loss and every gradient, also in a MoE model on a seed whose
+    routes the bf16 activations' last bits decide."""
+    r = refs.get(arch, seed, batch)
+    jloss, jgrads = jax_grads(arch, seed, batch)
     batch = {"tokens": r["tokens"], "labels": r["labels"]}
     loss, grads = TS.lm_value_and_grad(r["params"], batch, r["cfg"])
     assert abs(float(loss) - float(jloss)) <= 1e-2, (float(loss), float(jloss))

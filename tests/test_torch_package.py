@@ -41,6 +41,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.data.sampler, repro_torch.configs.gnn_archs\n"
         "import repro_torch.launch.mesh, repro_torch.launch.collective_census\n"
         "import repro_torch.launch.input_specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.data, repro_torch.models\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -49,6 +50,23 @@ def test_import_leaves_jax_and_repro_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("sub", ["data", "models"])
+def test_subpackages_bind_their_modules(sub):
+    """``repro_torch.data`` and ``repro_torch.models`` bind the submodules
+    that ``repro``'s do, with the same ``__all__`` (read from the JAX
+    package's source, not imported)."""
+    import importlib
+
+    tree = ast.parse((REPO / "src" / "repro" / sub / "__init__.py").read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    pkg = importlib.import_module(f"repro_torch.{sub}")
+    assert pkg.__all__ == want
+    for name in want:
+        assert getattr(pkg, name).__name__ == f"repro_torch.{sub}.{name}"
 
 
 def test_no_jax_or_repro_imports_in_source():
