@@ -1,0 +1,10 @@
+"""sssp_gteps: the specification's harmonic-mean TEPS over every SSSP
+search of the window, each search's traversed edges over its own time, in
+1e9."""
+from portbench.bench.teps import harmonic_mean_teps
+
+
+def read(ctx):
+    if ctx.kernel != "sssp":
+        return None
+    return harmonic_mean_teps(ctx.edges, ctx.times_s) / 1e9
