@@ -20,12 +20,17 @@ with ``|V|`` the active (non-isolated) vertices.  ``frontier`` and
 every level ends in the fused ``frontier_update`` kernel, and a bottom-up
 level starts with the ``core_spmv`` kernel over the dense heavy core.
 
-JAX's ``lax.while_loop`` becomes a host loop that synchronises once per
-level, on the size of the next frontier (the bitmap engine reads it from
-its epilogue kernel's popcount); the direction switch is then decided on
-the host.  ``lax.cond`` over the edge chunks becomes a gather of the live
-chunks (a top-down level also reads their indices back).  The outputs
-(parent, level and every stats trace) are bitwise equal to the JAX
+JAX's ``lax.while_loop`` becomes a host loop that synchronises each level
+on the size of the next frontier (the bitmap engine reads it from its
+epilogue kernel's popcount); the direction switch is then decided on the
+host.  ``lax.cond`` over the edge chunks becomes a gather of the live
+chunks, so a top-down level of the bitmap engines synchronises again:
+``torch.nonzero`` reads the live chunks' count back.  Each level also
+writes its direction and frontier size (and, in the bitmap engines, its
+chunk count) into the stats from host ints, and each such write is a
+host-to-device copy that synchronises.  The single-device bitmap engine
+marks its phases for ``torch.profiler`` (:mod:`repro_torch.tracing`).  The
+outputs (parent, level and every stats trace) are bitwise equal to the JAX
 engines'.
 """
 from __future__ import annotations
@@ -47,6 +52,7 @@ from repro_torch.core.heavy import HeavyCore, pack_bitmap, padded_bitmap_words, 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bitmap_ops import WORDS_PER_TILE
 from repro_torch.kernels.ref import BIG, popcount_u32
+from repro_torch.tracing import mark, recording
 
 MAX_LEVELS = 64
 TOP_DOWN, BOTTOM_UP = 0, 1
@@ -247,10 +253,26 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                      n_active: int, root: int, core: HeavyCore | None, *,
                      alpha: float, beta: float, max_levels: int,
                      tail, fault=None) -> BFSResult:
-    """One bitmap-resident traversal from ``root`` (host loop, one sync a
-    level).  ``tail`` is :func:`bottom_up_tail` of the graph; ``fault`` a
-    :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
-    corrupts the level's epilogue (None: the clean traversal)."""
+    """One bitmap-resident traversal from ``root`` (host loop: a level
+    synchronises on the next frontier's size, on each of its three stats
+    written from host ints, and in a top-down level on ``torch.nonzero``'s
+    count of the live chunks).  ``tail`` is :func:`bottom_up_tail` of the
+    graph; ``fault`` a :class:`~repro_torch.core.faults.FaultSpec` whose
+    ``parent`` site corrupts the level's epilogue (None: the clean
+    traversal).
+
+    While a ``torch.profiler`` session records, the loop marks its phases
+    ``repro_torch.bfs.<phase>`` (:mod:`repro_torch.tracing`), each running
+    to the next mark: ``start`` (the state's allocations), ``sync`` (blocked
+    on the level's readback, then the direction decision), ``level.td`` /
+    ``level.bu`` (the level's host work), ``core`` and ``relax`` (their
+    enqueue), ``compact`` (blocked on the live-chunk count), ``epilogue``
+    (pack, ``frontier_update``, sentinels, level fill), ``stats`` (one
+    before each synchronising write of a host int into the stats: the first
+    blocks on the level's work), ``finish`` (the result) and ``done``."""
+    traced = recording()
+    if traced:
+        mark("repro_torch.bfs.start")
     v = chunks.num_vertices
     dev = degree.device
     i32 = torch.int32
@@ -285,23 +307,38 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     lvl, direction = 0, TOP_DOWN
     while lvl < max_levels:
         if lvl > 0:
-            in_count = int(count)  # the level's one synchronisation
+            if traced:
+                mark("repro_torch.bfs.sync")
+            in_count = int(count)  # the level's synchronisation on its size
             vis_count += in_count
         if in_count == 0:
             break
         direction = _switch_direction(direction, in_count, vis_count,
                                       n_active, alpha, beta)
+        if traced:
+            mark("repro_torch.bfs.level.bu" if direction == BOTTOM_UP
+                 else "repro_torch.bfs.level.td")
         unvisited = parent_ext[:v] == v
         if direction == BOTTOM_UP:
             if core is not None:
+                if traced:
+                    mark("repro_torch.bfs.core")
                 _core_bottom_up_resident(core, frontier_bm, visited_bm,
                                          parent_ext, v)
+            if traced:
+                mark("repro_torch.bfs.relax")
             _relax_edges(tail_src, tail_dst, None, frontier_bm, visited_bm,
                          parent_ext, v)
             nsc = chunks.n_chunks  # full scan
         else:
-            live = torch.nonzero(chunk_frontier_mask(chunks, frontier_bm)).squeeze(1)
+            live_mask = chunk_frontier_mask(chunks, frontier_bm)
+            if traced:
+                mark("repro_torch.bfs.compact")
+            # a second synchronisation: nonzero reads its count back
+            live = torch.nonzero(live_mask).squeeze(1)
             nsc = int(live.numel())
+            if traced:
+                mark("repro_torch.bfs.relax")
             _relax_edges(chunks.src[live].reshape(-1),
                          chunks.dst[live].reshape(-1),
                          chunks.valid[live].reshape(-1),
@@ -309,6 +346,8 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
 
         # Epilogue: pack the newly-found delta, then the fused kernel does
         # mask / merge / popcount in one pass, into the idle pair.
+        if traced:
+            mark("repro_torch.bfs.epilogue")
         newly = (parent_ext[:v] != v) & unvisited
         if fires(fault, "parent", level=lvl, root=root):
             # the frontier still comes from the uncorrupted delta
@@ -329,17 +368,22 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
         # scanned-edge estimate: TD scans frontier adjacency (m_f), BU the
         # unvisited adjacency.
         stats_se[lvl] = m_f if direction == TOP_DOWN else nnz_total - deg_vis
-        stats_dir[lvl] = direction
-        stats_fs[lvl] = in_count
-        stats_ch[lvl] = nsc
+        # Writing a host int into a device tensor is a host-to-device copy
+        # that synchronises: the first of these waits for the level's work.
+        for buf, x in ((stats_dir, direction), (stats_fs, in_count), (stats_ch, nsc)):
+            if traced:
+                mark("repro_torch.bfs.stats")
+            buf[lvl] = x
 
         frontier_bm, visited_bm = next_bm, new_visited_bm
         m_f, deg_vis = m_next, deg_vis + m_next
         lvl += 1
 
+    if traced:
+        mark("repro_torch.bfs.finish")
     parent = parent_ext[:v]
     parent = torch.where(parent == v, -1, parent)
-    return BFSResult(
+    result = BFSResult(
         parent=parent, level=level,
         stats=BFSStats(
             stats_dir, stats_fs, stats_se,
@@ -347,6 +391,9 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
             torch.tensor(chunks.n_chunks, dtype=i32, device=dev), stats_ok,
         ),
     )
+    if traced:
+        mark("repro_torch.bfs.done")
+    return result
 
 
 def _run_batch(chunks, degree, n_active, roots, core, **kw) -> BFSResult:
@@ -589,7 +636,7 @@ def _run_bitmap_sharded(shards: list, comm, sg, root: int, *, alpha: float,
     in_count_t = None
     while lvl < max_levels:
         if lvl > 0:
-            in_count = int(in_count_t)  # the level's one synchronisation
+            in_count = int(in_count_t)  # the level's synchronisation on its size
             vis_count += in_count
         if in_count == 0:
             break

@@ -40,6 +40,7 @@ from repro_torch.core.hybrid_bfs import (
     BFSResult, BFSStats, _exchange_delta, _shared, stack_results,
 )
 from repro_torch.kernels.ref import popcount_u32
+from repro_torch.tracing import count, mark, recording
 
 #: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
 SSSP_EXCHANGES = ("hier_min", "flat")
@@ -75,7 +76,18 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
     pass B, each at least every entry it meets.  ``fault`` (a
     :class:`~repro_torch.core.faults.FaultSpec`) with the ``parent`` site
     corrupts the improved vertices' parents after pass B, by round.
+
+    While a ``torch.profiler`` session records, the loop marks its phases
+    ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`): ``start``,
+    ``sync`` (blocked on the changed set's size), ``round`` (the round's
+    enqueue), ``finish`` (the result) and ``done``; and it counts
+    ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, read
+    back once at the end) and ``sssp.scanned_edges`` (the entries the
+    rounds' two passes read, padding included).
     """
+    traced = recording()
+    if traced:
+        mark("repro_torch.sssp.start")
     if chunks.weight is None:
         raise ValueError("SSSP needs a weighted ChunkedEdgeView")
     v = chunks.num_vertices
@@ -104,9 +116,13 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
     n_changed, rnd = 1, 0
     while rnd < max_rounds:
         if rnd > 0:
+            if traced:
+                mark("repro_torch.sssp.sync")
             n_changed = int(n_changed_t)  # the round's one synchronisation
         if n_changed == 0:
             break
+        if traced:
+            mark("repro_torch.sssp.round")
         dist = dist_ext[:v]
         # The frontier: changed vertices in the minimum bucket.
         bkt = torch.where(changed, dist // delta, INF_U32)
@@ -148,11 +164,13 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
         dist_ext, prev_b = new_dist_ext, b
         rnd += 1
 
+    if traced:
+        mark("repro_torch.sssp.finish")
     parent = parent_ext[:v]
     parent = torch.where(parent == v, -1, parent)
     dist = dist_ext[:v]
     dist_i = torch.where(dist == INF_U32, -1, dist).to(i32)
-    return BFSResult(
+    result = BFSResult(
         parent=parent, level=dist_i,
         stats=BFSStats(
             stats_b, stats_fs, stats_se,
@@ -161,6 +179,12 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
             torch.tensor(0, dtype=i32, device=dev), stats_ok,
         ),
     )
+    if traced:
+        # one readback a traced search (a copy, no kernel)
+        count("sssp.frontier_edges", sum(stats_se[:rnd].tolist()))
+        count("sssp.scanned_edges", rnd * src.numel())
+        mark("repro_torch.sssp.done")
+    return result
 
 
 def _run_sssp_batch(chunks: ChunkedEdgeView, degree: torch.Tensor, roots, *,

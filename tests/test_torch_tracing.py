@@ -1,0 +1,146 @@
+"""The port's phase marks and counters (``repro_torch.tracing``) in the
+bitmap BFS level loop and the SSSP round loop, at scale 10 on the CPU.
+
+Marks are recorded only under ``torch.profiler``, in the order the loops
+run; they follow the levels and directions of ``stats``; the SSSP counters
+equal what ``stats`` says of the rounds; and a search's outputs are the
+same with the profiler on and off.
+"""
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import tracing
+from repro_torch.core.hybrid_bfs import BOTTOM_UP
+from repro_torch.core.pipeline import Graph500Config, build, search_keys
+from repro_torch.core.plan import compile_plan
+
+torch.set_num_threads(2)
+
+KERNELS = ("bfs", "sssp")
+_COMPILED: dict = {}
+
+
+def compiled(kernel):
+    """(CompiledBFS, search keys) of the scale-10 graph for ``kernel``:
+    the ``pre-g500`` rung (heavy core, bitmap engine), or SSSP."""
+    if kernel not in _COMPILED:
+        kw = dict(scale=10, seed=3, n_roots=4, device="cpu")
+        cfg = (Graph500Config.ladder("pre-g500", **kw) if kernel == "bfs"
+               else Graph500Config(kernel="sssp", heavy_threshold=None, **kw))
+        built = build(cfg)
+        _COMPILED[kernel] = (compile_plan(cfg.to_plan(), built, device="cpu"),
+                             [int(r) for r in search_keys(cfg, built)])
+    return _COMPILED[kernel]
+
+
+def traced(kernel, key=0):
+    """One search under the profiler: (result, its mark names in order,
+    the counters it left)."""
+    c, roots = compiled(kernel)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = c.bfs(roots[key])
+    prefix = f"repro_torch.{kernel}."
+    marks = sorted((e for e in prof.events() if e.name.startswith(prefix)),
+                   key=lambda e: e.time_range.start)
+    return res, [e.name[len(prefix):] for e in marks], tracing.counters()
+
+
+def expected_marks(kernel, res):
+    """The marks a search with these stats makes, in order."""
+    n = int(res.stats.levels)
+    out = ["start"]
+    for i in range(n):
+        if i:
+            out.append("sync")
+        if kernel == "sssp":
+            out.append("round")
+        elif int(res.stats.direction[i]) == BOTTOM_UP:
+            out += ["level.bu", "core", "relax", "epilogue"] + ["stats"] * 3
+        else:
+            out += ["level.td", "compact", "relax", "epilogue"] + ["stats"] * 3
+    return out + ["sync", "finish", "done"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_no_profiler_records_no_mark_and_no_count(kernel, monkeypatch):
+    calls = []
+    real = torch._C._profiler._RecordFunctionFast
+
+    def spy(name, *a, **kw):
+        calls.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", spy)
+    c, roots = compiled(kernel)
+    tracing.reset()
+    c.bfs(roots[1])
+    assert calls == []
+    assert tracing.counters() == {}
+    tracing.mark("repro_torch.test")
+    tracing.count("test", 3)
+    assert calls == [] and tracing.counters() == {}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_marks_run_in_order_from_start_to_done(kernel):
+    res, marks, _ = traced(kernel)
+    assert marks[0] == "start" and marks[-1] == "done"
+    assert marks == expected_marks(kernel, res)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("key", [0, 2])
+def test_level_marks_number_the_levels_in_their_directions(kernel, key):
+    res, marks, _ = traced(kernel, key)
+    n = int(res.stats.levels)
+    if kernel == "sssp":
+        assert marks.count("round") == n
+        return
+    levels = [m for m in marks if m.startswith("level.")]
+    assert len(levels) == n
+    assert [int(m == "level.bu") for m in levels] == res.stats.direction[:n].tolist()
+    assert set(res.stats.direction[:n].tolist()) == {0, 1}   # both directions ran
+
+
+@pytest.mark.parametrize("key", [0, 1, 2, 3])
+def test_compact_marks_exactly_the_top_down_levels(key):
+    res, marks, _ = traced("bfs", key)
+    per_level, cur = [], None
+    for m in marks:
+        if m.startswith("level."):
+            cur = [m]
+            per_level.append(cur)
+        elif cur is not None and m not in ("sync", "finish", "done"):
+            cur.append(m)
+    n = int(res.stats.levels)
+    assert len(per_level) == n
+    for lv, d in zip(per_level, res.stats.direction[:n].tolist()):
+        assert ("compact" in lv) == (d == 0)
+        assert lv.count("compact") <= 1
+
+
+@pytest.mark.parametrize("key", [0, 1, 2, 3])
+def test_sssp_counters_follow_the_rounds(key):
+    res, _, counts = traced("sssp", key)
+    c, _ = compiled("sssp")
+    rounds = int(res.stats.levels)
+    assert counts == {
+        "sssp.frontier_edges": int(res.stats.scanned_edges[:rounds].long().sum()),
+        "sssp.scanned_edges": rounds * c.graph.chunks.src.numel()}
+    assert 0 < counts["sssp.frontier_edges"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_outputs_equal_with_the_profiler_on_and_off(kernel):
+    c, roots = compiled(kernel)
+    for key in range(len(roots)):
+        off = c.bfs(roots[key])
+        on, marks, _ = traced(kernel, key)
+        assert marks
+        assert torch.equal(on.parent, off.parent)
+        assert torch.equal(on.level, off.level)
+        for f in off.stats._fields:
+            a, b = getattr(on.stats, f), getattr(off.stats, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
