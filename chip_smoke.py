@@ -67,7 +67,10 @@ non-zero and no result line is printed:
      distances, every stats trace) equal the per-root rows; hmean TEPS,
      rounds per root, δ, and a profile of one root; parents and distances
      equal to ``sssp_oracle`` on ``grid_graph(256)`` and on a scale-14
-     Kronecker graph built on the card, 2 roots each;
+     Kronecker graph built on the card, 2 roots each; ``sssp_relax`` at
+     scale 22 (one launch a round; on the round with most frontier entries:
+     its time, the plain version's, its bound, words equal to the plain
+     version's);
  13. checked execution on phase 5's graph and keys: a persistent parent
      fault on one root through ``pre-g500-batch`` (``check="full"``,
      ``retries=1``, ``fallback=True``): only that root detected, one
@@ -256,6 +259,8 @@ CIN_CHECK_ROWS = 4096
 
 SCALE_CHECK = 16
 SCALE_MAIN = 20
+# sssp_relax is timed at the SSSP benchmark cell's scale
+SCALE_RELAX = 22
 N_ROOTS = 16
 # the roots of phases 11 and 12 (cut these, never N_ROOTS, to save time)
 LADDER_ROOTS = 16
@@ -1251,6 +1256,84 @@ def sssp_phase(device) -> dict:
                                                  device=device),
                         device, 2, True, 64)
     return first
+
+
+def time_sssp_relax(device) -> dict:
+    """Phase 12: ``sssp_relax`` at the SSSP benchmark cell's shapes (scale
+    22, δ-stepping over the degree-sorted Kronecker graph of graph seed 2):
+    the operands of the round with the most frontier entries in one search
+    are kept, and the kernel (the frontier's scans, compaction and relax:
+    one C-entry call) and the plain version are timed on them, the state
+    restored before each call; the kernel's words equal the plain
+    version's.  The bound is bytes: the frontier's rows (int32 dst and
+    weight, 8 B an entry) and the frontier degrees (4 B a vertex), each read
+    once, over the memory rate; the state's random reads and the atomics
+    stay in the L2 and are not in it."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import ops, ref
+    cfg = pipeline.Graph500Config(kernel="sssp", heavy_threshold=None,
+                                  scale=SCALE_RELAX, n_roots=1, seed=2, device=device)
+    built = pipeline.build(cfg)
+    compiled = compile_plan(cfg.to_plan(), built, device=device)
+    key = int(pipeline.search_keys(cfg, built)[0])
+    rows = compiled.graph.rows
+    best = {}
+    real = ops.sssp_relax
+
+    def keep(state, changed, front_deg, *rest):
+        entries = int(front_deg.sum())
+        if entries > best.get("entries", -1):
+            best.update(entries=entries, state=state.clone(), changed=changed.clone(),
+                        front_deg=front_deg.clone(), n_front=int((front_deg > 0).sum()))
+        return real(state, changed, front_deg, *rest)
+
+    ops.sssp_relax = keep
+    try:
+        ops.reset_launch_counts()
+        res = compiled.bfs(key)
+        sync(device)
+        launches = ops.launch_counts()["sssp_relax"]
+    finally:
+        ops.sssp_relax = real
+    rounds = int(res.stats.levels)
+    if launches != rounds:
+        raise AssertionError(f"sssp_relax: {launches} launches over {rounds} rounds")
+    args = (best["front_deg"], rows.row_start, rows.dst, rows.weight)
+    st, ch = best["state"].clone(), best["changed"].clone()
+
+    def timed(fn, reps):
+        times = []
+        for _ in range(reps):
+            st.copy_(best["state"])
+            ch.copy_(best["changed"])
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(st, ch, *args)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    plain_ms = timed(ref.sssp_relax_ref, 5)
+    want = (st.clone(), ch.clone())
+    ms = timed(ops.sssp_relax, 30)
+    if not (torch.equal(st, want[0]) and torch.equal(ch, want[1])):
+        raise AssertionError("sssp_relax: the kernel's state or changed set differs "
+                             "from the plain version's on the kept round")
+    v = built.n_vertices
+    bound = bound_ms(8 * best["entries"] + 4 * v, 0)
+    log(f"    sssp_relax at scale {SCALE_RELAX} (key {key}, {rounds} rounds, "
+        f"{launches} launches): the round with most frontier entries has "
+        f"{best['n_front']} frontier vertices with out-edges, {best['entries']} "
+        f"entries of {rows.dst.shape[0]} padded; kernel {ms:.6f} ms (median of 30, "
+        f"CUDA events), plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
+        f"({bound[1]}: 8 B an entry + 4 B a vertex); kernel words equal the plain "
+        f"version's")
+    out = dict(ms=ms, plain_ms=plain_ms, bound=bound, launches=launches)
+    del best, st, ch, want, compiled, built
+    torch.cuda.empty_cache()
+    return out
 
 
 def sync(device) -> None:
@@ -3328,6 +3411,7 @@ def main() -> int:
 
     log(f"[12] Graph500 SSSP at scale {SCALE_MAIN}, {SSSP_ROOTS} roots")
     sssp_rows = sssp_phase(device)
+    relax_t = time_sssp_relax(device)
 
     log(f"[13] checked execution at scale {SCALE_MAIN} (phase 5's graph and keys)")
     t0 = time.perf_counter()
@@ -3478,6 +3562,14 @@ def main() -> int:
              fp32_bound_ms=cin_t["fp32_bound_ms"],
              bulk_ms=cin_t["bulk_ms"], bulk_bound_ms=cin_t["bulk_bound_ms"],
              bulk_fp32_bound_ms=cin_t["bulk_fp32_bound_ms"]),
+        # sssp_relax: one scale-22 search's launches; ms on its largest round
+        dict(name="sssp_relax", route="cuda",
+             source="src/repro_torch/kernels/csrc/sssp_relax.cu",
+             replaces="none (the JAX engine's two jnp scatter-min passes)",
+             launches=relax_t["launches"], max_abs_err=0,
+             ms=relax_t["ms"], plain_ms=relax_t["plain_ms"],
+             bound_ms=relax_t["bound"][0], bound_by=relax_t["bound"][1],
+             library_ms=None),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

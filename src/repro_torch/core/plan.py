@@ -68,8 +68,8 @@ from repro_torch.core.hybrid_bfs import (
 )
 from repro_torch.core.kernels import kernel_spec, validate_result_batch
 from repro_torch.core.sssp_steps import (
-    _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width,
-    sssp_max_rounds,
+    WeightedRows, _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width,
+    sssp_max_rounds, weighted_rows,
 )
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.validate import failure_report
@@ -272,6 +272,7 @@ class PreparedGraph:
     core: Optional[HeavyCore] = None
     chunks: Optional[ChunkedEdgeView] = None
     sharded: Optional[ShardedGraph] = None
+    rows: Optional[WeightedRows] = None   # the SSSP relax's source rows
 
 
 class ServeBatch(NamedTuple):
@@ -303,13 +304,15 @@ class Graph500Result:
 
 def _prepare(built, plan: TraversalPlan, dev, n_dev_vertex: int) -> PreparedGraph:
     """The graph-side inputs of ``plan``: ``built``'s, with the chunked edge
-    view (single-device and root layouts) or the dst-owned shard partition
-    (vertex-sharded layouts) built when missing, and JAX's ValueErrors."""
+    view (single-device and root layouts of BFS), the weighted rows
+    (those of SSSP) or the dst-owned shard partition (vertex-sharded
+    layouts) built when missing, and JAX's ValueErrors."""
     pg = PreparedGraph(ev=getattr(built, "ev", None),
                        degree=getattr(built, "degree", None),
                        core=getattr(built, "core", None),
                        chunks=getattr(built, "chunks", None),
-                       sharded=getattr(built, "sharded", None))
+                       sharded=getattr(built, "sharded", None),
+                       rows=getattr(built, "rows", None))
     needs_w = kernel_spec(plan.kernel).needs_weights
     if needs_w and pg.ev is not None and pg.ev.weight is None:
         raise ValueError(f"kernel={plan.kernel!r} needs edge weights: attach "
@@ -349,9 +352,11 @@ def _prepare(built, plan: TraversalPlan, dev, n_dev_vertex: int) -> PreparedGrap
         raise ValueError("plan needs built.ev (an EdgeView)")
     if pg.degree is None:
         raise ValueError("plan needs built.degree")
-    if plan.engine == "bitmap" and (
-            pg.chunks is None or pg.chunks.n_chunks != plan.n_chunks
-            or (needs_w and pg.chunks.weight is None)):
+    if needs_w:
+        if pg.rows is None:
+            pg.rows = weighted_rows(pg.ev, pg.degree)
+    elif plan.engine == "bitmap" and (
+            pg.chunks is None or pg.chunks.n_chunks != plan.n_chunks):
         pg.chunks = chunk_edge_view(pg.ev, plan.n_chunks)
     return pg
 
@@ -415,25 +420,26 @@ def _root_lanes(c: "CompiledBFS") -> list:
         if dev not in copies:
             g = c.graph
             mv = (lambda t: None if t is None else t.to(dev))
-            chunks = dataclasses.replace(
-                g.chunks, **{f: mv(getattr(g.chunks, f)) for f in
-                             ("src", "dst", "valid", "src_lo", "src_hi", "weight")})
+            view, fields = ((g.rows, ("row_start", "dst", "weight")) if g.rows is not None
+                            else (g.chunks, ("src", "dst", "valid", "src_lo", "src_hi",
+                                             "weight")))
+            edges = dataclasses.replace(view, **{f: mv(getattr(view, f)) for f in fields})
             tail = None if c.tail is None else tuple(map(mv, c.tail))
             core = (None if c.core is None
                     else dataclasses.replace(c.core, a_core=mv(c.core.a_core)))
-            copies[dev] = (chunks, mv(g.degree), core, tail)
+            copies[dev] = (edges, mv(g.degree), core, tail)
         return copies[dev]
 
     p = c.plan
     lanes = []
     for dev in c.mesh.devices:
-        chunks, degree, core, tail = on(dev)
+        edges, degree, core, tail = on(dev)
         if p.kernel == "sssp":
-            lanes.append(lambda roots, chunks=chunks, degree=degree: _run_sssp_batch(
-                chunks, degree, roots, delta=c.delta, max_rounds=c.max_rounds,
+            lanes.append(lambda roots, rows=edges, degree=degree: _run_sssp_batch(
+                rows, degree, roots, delta=c.delta, max_rounds=c.max_rounds,
                 fault=c.fault))
         else:
-            lanes.append(lambda roots, chunks=chunks, degree=degree, core=core, tail=tail:
+            lanes.append(lambda roots, chunks=edges, degree=degree, core=core, tail=tail:
                          _run_batch(chunks, degree, c.n_active, roots, core,
                                     alpha=p.alpha, beta=p.beta,
                                     max_levels=p.max_levels, tail=tail,
@@ -505,7 +511,7 @@ class CompiledBFS:
         device (the warm-up of a single-device plan)."""
         g, p = self.graph, self.plan
         if p.kernel == "sssp":
-            return _run_sssp_impl(g.chunks, g.degree, root, delta=self.delta,
+            return _run_sssp_impl(g.rows, g.degree, root, delta=self.delta,
                                   max_rounds=self.max_rounds, fault=self.fault)
         if p.engine == "bitmap":
             return _run_bitmap_impl(g.chunks, g.degree, self.n_active, root,
@@ -558,7 +564,7 @@ class CompiledBFS:
         if self._lanes is not None:
             return self._run_lanes(roots)
         if p.kernel == "sssp":
-            return _run_sssp_batch(g.chunks, g.degree, roots, delta=self.delta,
+            return _run_sssp_batch(g.rows, g.degree, roots, delta=self.delta,
                                    max_rounds=self.max_rounds, fault=self.fault)
         return _run_batch(g.chunks, g.degree, self.n_active, roots, self.core,
                           alpha=p.alpha, beta=p.beta, max_levels=p.max_levels,
@@ -618,7 +624,7 @@ class CompiledBFS:
                                 kernel=p.kernel)
         self._fallback = compile_plan(
             fb_plan, PreparedGraph(ev=g.ev, degree=g.degree, core=g.core,
-                                   chunks=g.chunks),
+                                   chunks=g.chunks, rows=g.rows),
             device=self.device, fault=self.fault)
         return self._fallback
 

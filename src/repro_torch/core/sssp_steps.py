@@ -3,17 +3,23 @@
 Counterpart of the single-device engine of ``repro.core.sssp_steps``.  The
 traversal lifecycle is the BFS one with three substitutions:
 
-  * **state carrier** — the changed set and a distance plane holding the
-    JAX package's uint32 distances (``INF_U32`` = unreached) in int64, so
-    ``dist // δ``, the bucket minimum and the comparisons behave as in
-    uint32; the round's frontier is *derived*: the changed vertices in the
-    minimum δ-bucket.  The JAX engine packs the changed set into a bitmap;
-    a ``bool [V]`` carries the same set here.
-  * **relax rule** — two scatter-min passes a round: pass A min-relaxes
-    distances over the frontier's out-edges, pass B rebuilds the parents of
-    the improved vertices as the *minimum source among edges achieving the
-    post-relax distance*, so the final parent is a pure function of the
-    final distances and bitwise-checkable against :func:`sssp_oracle`.
+  * **state carrier** — the changed set and one packed key per vertex,
+    ``(dist << 32) | parent`` as the bits of a uint64 in an int64 plane,
+    with the JAX package's uint32 distances (``INF_U32`` = unreached) in
+    the high half and the parent (``V`` = none) in the low half; the
+    round's frontier is *derived*: the changed vertices in the minimum
+    δ-bucket.  The JAX engine packs the changed set into a bitmap; a
+    ``bool [V]`` carries the same set here.
+  * **relax rule** — the JAX engine's two scatter-min passes a round (pass
+    A min-relaxes distances over the frontier's out-edges, pass B rebuilds
+    the improved vertices' parents as the *minimum source among edges
+    achieving the post-relax distance*, so the final parent is a pure
+    function of the final distances and bitwise-checkable against
+    :func:`sssp_oracle`) become one unsigned minimum of the packed keys
+    over the frontier's rows (:func:`repro_torch.kernels.ops.sssp_relax`,
+    a hand-written kernel on the card).  Its lexicographic order gives
+    both passes' answer: a smaller distance wins with its least source, and
+    a tie with a vertex's distance lowers its parent as pass B does.
   * **result contract** — parents keep the BFS conventions and the distance
     plane rides the result's ``level`` slot as int32 (-1 unreached), so the
     plan, runner and validation layers serve both kernels.
@@ -23,23 +29,28 @@ changed set, relaxes all its out-edges (light and heavy together), and
 re-enters every improved vertex.  The JAX ``lax.while_loop`` becomes a host
 loop with one synchronisation a round, on the size of the changed set; the
 batch runs the roots one after another, which gives the rows of the JAX
-engine's vmapped batch (whose finished roots stop changing).
+engine's vmapped batch (whose finished roots stop changing).  The relax
+walks the rows of a source-sorted edge view (:class:`WeightedRows`, built
+once by ``compile_plan``); the vertex-sharded engine keeps the two passes
+over its dst-owned edges.
 """
 from __future__ import annotations
 
 import heapq
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.comms import hierarchical as _hier
-from repro_torch.core.bfs_steps import ChunkedEdgeView
+from repro_torch.core.bfs_steps import EdgeView
 from repro_torch.core.faults import corrupt_parent, fires
 from repro_torch.core.heavy import pack_bitmap, testbit
 from repro_torch.core.hybrid_bfs import (
     BFSResult, BFSStats, _exchange_delta, _shared, stack_results,
 )
-from repro_torch.kernels.ref import popcount_u32
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import popcount_u32, wrap_i32
 from repro_torch.tracing import count, mark, recording
 
 #: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
@@ -65,48 +76,73 @@ def sssp_max_rounds(max_levels: int) -> int:
     return max(int(max_levels), DEFAULT_MAX_ROUNDS)
 
 
-def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
-                   delta: int, max_rounds: int, fault=None) -> BFSResult:
-    """One δ-stepping SSSP from ``root`` over the flat edge view (the
-    chunked layout reshaped back, as the JAX engine does: which chunks a
-    bucket touches depends on the weights, not the degree order).
+@dataclass
+class WeightedRows:
+    """A weighted, source-sorted edge view as rows: vertex u's out-edges are
+    entries ``[row_start[u], row_start[u] + degree[u])``."""
 
-    Inactive lanes scatter the pass's neutral value into their own
-    destination rather than into slot ``V``: ``INF_U32`` in pass A, ``V`` in
-    pass B, each at least every entry it meets.  ``fault`` (a
-    :class:`~repro_torch.core.faults.FaultSpec`) with the ``parent`` site
-    corrupts the improved vertices' parents after pass B, by round.
+    row_start: torch.Tensor   # [V] int64
+    dst: torch.Tensor         # [E_pad] int32
+    weight: torch.Tensor      # [E_pad] int32 bit view of the uint32 weights
+
+
+def weighted_rows(ev: EdgeView, degree: torch.Tensor) -> WeightedRows:
+    """The rows of ``ev`` (set-up, once a plan): the row offsets are the
+    exclusive cumulative sum of ``degree``.  Raises unless the valid entries
+    are the first ``sum(degree)``, padding only after them, and their
+    sources run through the vertices in order, ``degree[u]`` entries each
+    (the CSR layout ``build_csr`` gives).  The weights keep their 32 bits in
+    an int32 plane: exact for every uint32 weight."""
+    if ev.weight is None:
+        raise ValueError("SSSP needs a weighted EdgeView")
+    v = ev.num_vertices
+    if degree.shape != (v,):
+        raise ValueError(f"degree has shape {tuple(degree.shape)}, the view {v} vertices")
+    ends = torch.cumsum(degree, 0, dtype=torch.int64)
+    n = int(ends[-1]) if v else 0
+    ids = torch.arange(v, dtype=torch.int32, device=degree.device)
+    if (n > ev.valid.shape[0] or not bool(ev.valid[:n].all())
+            or bool(ev.valid[n:].any())
+            or not torch.equal(ev.src[:n], torch.repeat_interleave(ids, degree,
+                                                                   output_size=n))):
+        raise ValueError("SSSP needs a source-sorted edge view with degree[u] entries "
+                         "for each vertex u in order and the padding after them (the "
+                         "layout build_csr gives)")
+    return WeightedRows(row_start=ends - degree, dst=ev.dst.contiguous(),
+                        weight=wrap_i32(ev.weight).contiguous())
+
+
+def _run_sssp_impl(rows: WeightedRows, degree: torch.Tensor, root: int, *,
+                   delta: int, max_rounds: int, fault=None) -> BFSResult:
+    """One δ-stepping SSSP from ``root`` over ``rows``.
+
+    ``fault`` (a :class:`~repro_torch.core.faults.FaultSpec`) with the
+    ``parent`` site corrupts the improved vertices' parents after the
+    relax, by round.
 
     While a ``torch.profiler`` session records, the loop marks its phases
     ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`): ``start``,
     ``sync`` (blocked on the changed set's size), ``round`` (the round's
-    enqueue), ``finish`` (the result) and ``done``; and it counts
+    enqueue), ``finish`` (the sentinels and the result) and ``done``; and it counts
     ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, read
     back once at the end) and ``sssp.scanned_edges`` (the entries the
-    rounds' two passes read, padding included).
+    rounds' relax reads: the frontiers' rows and no others, so the same
+    sum).
     """
     traced = recording()
     if traced:
         mark("repro_torch.sssp.start")
-    if chunks.weight is None:
-        raise ValueError("SSSP needs a weighted ChunkedEdgeView")
-    v = chunks.num_vertices
+    v = degree.shape[0]
     dev = degree.device
     i32, i64 = torch.int32, torch.int64
     root = int(root)
-    src = chunks.src.reshape(-1)
-    dst = chunks.dst.reshape(-1).long()
-    valid = chunks.valid.reshape(-1)
-    wgt = chunks.weight.reshape(-1)
-    src_ext = torch.where(valid, src, v).long()  # padding reads slot V
 
-    parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
-    parent_ext[root] = root
-    dist_ext = torch.full((v + 1,), INF_U32, dtype=i64, device=dev)
-    dist_ext[root] = 0
+    # (INF_U32 << 32) | V, unreached with no parent, as int64 bits
+    state = torch.full((v,), (INF_U32 << 32 | v) - (1 << 64), dtype=i64, device=dev)
+    state[root] = root                      # distance 0, its own parent
     changed = torch.zeros(v, dtype=torch.bool, device=dev)
     changed[root] = True
-    prev_b = torch.zeros((), dtype=i64, device=dev)
+    bs = torch.empty(max_rounds, dtype=i64, device=dev)   # each round's bucket
 
     stats_b = torch.full((max_rounds,), -1, dtype=i32, device=dev)
     stats_fs = torch.zeros(max_rounds, dtype=i32, device=dev)
@@ -123,52 +159,39 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
             break
         if traced:
             mark("repro_torch.sssp.round")
-        dist = dist_ext[:v]
+        dist = (state >> 32) & INF_U32
         # The frontier: changed vertices in the minimum bucket.
         bkt = torch.where(changed, dist // delta, INF_U32)
         b = bkt.min()
         front = changed & (bkt == b)
-        front_ext = torch.cat([front, front.new_zeros(1)])
-
-        # Pass A: distance min-relax over frontier out-edges (uint32 sums).
-        active = front_ext[src_ext]
-        cand = torch.where(active, (dist_ext[src_ext] + wgt) & INF_U32, INF_U32)
-        new_dist_ext = dist_ext.scatter_reduce(0, dst, cand, "amin",
-                                               include_self=True)
-        improved = new_dist_ext[:v] < dist
-
-        # Pass B: parent = min source achieving the post-relax distance;
-        # improved vertices reset to the sentinel first.
-        pbase = torch.where(improved, v, parent_ext[:v])
-        pext = torch.cat([pbase, parent_ext.new_full((1,), v)])
-        won = active & (cand == new_dist_ext[dst])
-        parent_ext = pext.scatter_reduce(0, dst, torch.where(won, src, v),
-                                         "amin", include_self=True)
+        front_deg = torch.where(front, degree, 0)
+        changed ^= front                     # the frontier leaves the changed set
+        ops.sssp_relax(state, changed, front_deg, rows.row_start, rows.dst, rows.weight)
         if fires(fault, "parent", level=rnd, root=root):
-            parent_ext[:v] = corrupt_parent(
-                fault, parent_ext[:v], improved,
-                torch.arange(v, dtype=i32, device=dev), v, level=rnd, root=root)
-
-        changed = (changed & ~front) | improved
+            improved = ((state >> 32) & INF_U32) < dist
+            parent = corrupt_parent(fault, state & INF_U32, improved,
+                                    torch.arange(v, dtype=i64, device=dev), v,
+                                    level=rnd, root=root)
+            state = (state & ~INF_U32) | parent
         n_changed_t = changed.sum()
-
-        # In-loop sentinels: bucket monotone, frontier nonempty, round
-        # within bound; a healthy round reads 7.
-        fs = front.sum().to(i32)
-        ok = ((b >= prev_b).to(i32) + 2 * (fs > 0).to(i32)
-              + 4 * int(rnd + 1 <= max_rounds))
-        stats_b[rnd] = b.clamp(max=0x7FFFFFFF).to(i32)
-        stats_fs[rnd] = fs
-        stats_se[rnd] = torch.where(front, degree, 0).sum().to(i32)
-        stats_ok[rnd] = ok
-        dist_ext, prev_b = new_dist_ext, b
+        bs[rnd] = b
+        stats_fs[rnd] = front.sum()
+        stats_se[rnd] = front_deg.sum()
         rnd += 1
 
     if traced:
         mark("repro_torch.sssp.finish")
-    parent = parent_ext[:v]
+    if rnd:
+        # The rounds' sentinels, from the buckets the loop kept: bucket
+        # monotone, frontier nonempty, round within bound (every round ran
+        # below it); a healthy round reads 7.
+        b = bs[:rnd]
+        stats_b[:rnd] = b.clamp(max=0x7FFFFFFF)
+        prev = torch.cat([b.new_zeros(1), b[:-1]])
+        stats_ok[:rnd] = (b >= prev).to(i32) + 2 * (stats_fs[:rnd] > 0).to(i32) + 4
+    parent = (state & INF_U32).to(i32)
     parent = torch.where(parent == v, -1, parent)
-    dist = dist_ext[:v]
+    dist = (state >> 32) & INF_U32
     dist_i = torch.where(dist == INF_U32, -1, dist).to(i32)
     result = BFSResult(
         parent=parent, level=dist_i,
@@ -181,17 +204,18 @@ def _run_sssp_impl(chunks: ChunkedEdgeView, degree: torch.Tensor, root: int, *,
     )
     if traced:
         # one readback a traced search (a copy, no kernel)
-        count("sssp.frontier_edges", sum(stats_se[:rnd].tolist()))
-        count("sssp.scanned_edges", rnd * src.numel())
+        edges = sum(stats_se[:rnd].tolist())
+        count("sssp.frontier_edges", edges)
+        count("sssp.scanned_edges", edges)
         mark("repro_torch.sssp.done")
     return result
 
 
-def _run_sssp_batch(chunks: ChunkedEdgeView, degree: torch.Tensor, roots, *,
+def _run_sssp_batch(rows: WeightedRows, degree: torch.Tensor, roots, *,
                     delta: int, max_rounds: int, fault=None) -> BFSResult:
     """The roots one after another, stacked into ``[R, ...]`` leaves."""
     return stack_results([
-        _run_sssp_impl(chunks, degree, int(r), delta=delta, max_rounds=max_rounds,
+        _run_sssp_impl(rows, degree, int(r), delta=delta, max_rounds=max_rounds,
                        fault=fault)
         for r in roots])
 

@@ -1,0 +1,302 @@
+// Frontier-driven δ-stepping relax for Hopper (sm_90a): one C-entry call a
+// round, four launches (the frontier's scan in three, then the relax).
+//
+// Replaces: no TPU kernel.  The JAX engine relaxes a round with two plain
+//   `jnp` scatter-min passes over every edge entry (src/repro/core/
+//   sssp_steps.py): at Graph500 scale 22 a round so reads all ~128M
+//   directed entries twice, with one atomic per lane, active or not, while
+//   ~14% of them leave the round's frontier.  This kernel walks only the
+//   frontier's rows.
+//
+// The state is one uint64 per vertex, (dist << 32) | parent, and a candidate
+//   from frontier vertex u over an edge of weight w is
+//   ((dist[u] + w) mod 2^32) << 32 | u, taken in with one unsigned 64-bit
+//   atomicMin.  The lexicographic minimum is what the two passes gave: a
+//   smaller distance wins with the least source achieving it, and on a tie
+//   with the vertex's distance the least source replaces a larger parent.
+//   The thread whose atomic lowered the distance half sets changed[v].  The
+//   candidates use the distances the compaction read, before the relax,
+//   so a frontier vertex improved in the same round relaxes from its
+//   round-start distance, as the passes did.
+//
+// What bounds it on this card: the L2's atomics and random 8-byte reads of
+//   the state, not device memory.  A round reads each frontier entry's dst
+//   and weight once (8 B, coalesced: a row is contiguous), and the state
+//   word of its destination (4,194,304 vertices x 8 B = 32 MB at scale 22,
+//   which the 50 MB L2 holds).  The atomic is issued only when the candidate
+//   is below the state word just read, so a hub destination that the first
+//   candidates settled takes no further atomics.
+//
+// What the design does about it: the work is balanced by edges, not by
+//   vertices, since degree-sorted rows run from 1 to over 10^5 entries.  A
+//   three-pass scan over the frontier degrees (per-block sums of vertices
+//   with entries and of entries; one block scans those sums; each block
+//   scans its vertices again and writes its frontier vertices) compacts the
+//   frontier into a list (vertex, round-start distance, first entry in the
+//   round's order of entries) in vertex order, reading the degrees twice
+//   and writing nothing V-sized but the list.  The relax kernel is
+//   persistent: each block takes tiles of kTile consecutive frontier
+//   entries, finds the list range that covers the tile with two binary
+//   searches, stages that range (at most kTile vertices: each has an entry)
+//   in shared memory, and maps each entry to its vertex by a binary search
+//   there.  A warp's lanes read consecutive entries.  Both totals (listed
+//   vertices, their entries) are read on the device, so the round needs no
+//   host synchronisation.
+//
+// C interface (loaded with ctypes): returns cudaGetLastError() (0 = success).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 4;                  // entries (relax) or vertices (scan) a thread takes
+constexpr int kTile = kThreads * kItems;   // entries or vertices a block takes at once
+constexpr int kBlocksPerSm = 8;            // 32 registers a thread
+constexpr int kMaxBlocks = 132 * kBlocksPerSm;
+constexpr int kOffsetThreads = 1024;       // the one block that scans the block sums
+
+// Frontier vertices with entries, and their entries.
+struct Count {
+  int n;
+  long long e;
+};
+
+// Exclusive scan of one Count a thread over the block (kBlock threads, a
+// multiple of 32 up to 1024); *total gets the block's sum in every thread.
+template <int kBlock>
+__device__ __forceinline__ Count block_scan(Count x, Count* total) {
+  constexpr int kWarps = kBlock / 32;
+  __shared__ int s_n[kWarps];
+  __shared__ long long s_e[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Count inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, inc.n, d);
+    const long long e = __shfl_up_sync(0xffffffffu, inc.e, d);
+    if (lane >= d) {
+      inc.n += n;
+      inc.e += e;
+    }
+  }
+  if (lane == 31) {
+    s_n[warp] = inc.n;
+    s_e[warp] = inc.e;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = lane < kWarps ? s_n[lane] : 0;
+    long long e = lane < kWarps ? s_e[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int n2 = __shfl_up_sync(0xffffffffu, n, d);
+      const long long e2 = __shfl_up_sync(0xffffffffu, e, d);
+      if (lane >= d) {
+        n += n2;
+        e += e2;
+      }
+    }
+    if (lane < kWarps) {
+      s_n[lane] = n;
+      s_e[lane] = e;
+    }
+  }
+  __syncthreads();
+  Count out = {inc.n - x.n, inc.e - x.e};
+  if (warp > 0) {
+    out.n += s_n[warp - 1];
+    out.e += s_e[warp - 1];
+  }
+  *total = Count{s_n[kWarps - 1], s_e[kWarps - 1]};
+  __syncthreads();  // the next call may overwrite s_n / s_e
+  return out;
+}
+
+// The thread's kItems consecutive vertices: their degrees (0 off the
+// frontier and past the end) and their Count.
+__device__ __forceinline__ Count load_degrees(const int* __restrict__ front_deg,
+                                              int64_t n_vertices, int64_t v0, int* deg) {
+  Count x = {0, 0};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    deg[k] = v0 + k < n_vertices ? front_deg[v0 + k] : 0;
+    if (deg[k] > 0) {
+      x.n += 1;
+      x.e += deg[k];
+    }
+  }
+  return x;
+}
+
+// Pass 1: each block's Count over its kTile vertices.
+__global__ void __launch_bounds__(kThreads)
+sssp_relax_count_kernel(const int* __restrict__ front_deg, int64_t n_vertices,
+                        int* __restrict__ part_n, long long* __restrict__ part_e) {
+  int deg[kItems];
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+  Count total;
+  block_scan<kThreads>(load_degrees(front_deg, n_vertices, v0, deg), &total);
+  if (threadIdx.x == 0) {
+    part_n[blockIdx.x] = total.n;
+    part_e[blockIdx.x] = total.e;
+  }
+}
+
+// Pass 2, one block: the block sums become exclusive offsets in place;
+// totals = {frontier vertices with entries, their entries}.
+__global__ void __launch_bounds__(kOffsetThreads)
+sssp_relax_offsets_kernel(int* __restrict__ part_n, long long* __restrict__ part_e,
+                          int64_t n_parts, long long* __restrict__ totals) {
+  Count carry = {0, 0};
+  for (int64_t base = 0; base < n_parts; base += kOffsetThreads) {
+    const int64_t i = base + threadIdx.x;
+    const Count x = i < n_parts ? Count{part_n[i], part_e[i]} : Count{0, 0};
+    Count total;
+    const Count ex = block_scan<kOffsetThreads>(x, &total);
+    if (i < n_parts) {
+      part_n[i] = carry.n + ex.n;
+      part_e[i] = carry.e + ex.e;
+    }
+    carry.n += total.n;
+    carry.e += total.e;
+  }
+  if (threadIdx.x == 0) {
+    totals[0] = carry.n;
+    totals[1] = carry.e;
+  }
+}
+
+// Pass 3: each block scans its vertices again from its offset and lists its
+// frontier vertices with entries.
+__global__ void __launch_bounds__(kThreads)
+sssp_relax_compact_kernel(const int* __restrict__ front_deg,
+                          const unsigned long long* __restrict__ state,
+                          int64_t n_vertices, const int* __restrict__ part_n,
+                          const long long* __restrict__ part_e,
+                          int* __restrict__ flist, int64_t* __restrict__ fstart,
+                          unsigned* __restrict__ fdist) {
+  int deg[kItems];
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+  Count total;
+  Count at = block_scan<kThreads>(load_degrees(front_deg, n_vertices, v0, deg), &total);
+  at.n += part_n[blockIdx.x];
+  at.e += part_e[blockIdx.x];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (deg[k] > 0) {
+      flist[at.n] = static_cast<int>(v0 + k);
+      fstart[at.n] = at.e;
+      fdist[at.n] = static_cast<unsigned>(state[v0 + k] >> 32);
+      at.n += 1;
+      at.e += deg[k];
+    }
+  }
+}
+
+// The number of entries of a[0, n) that are <= x (a sorted ascending).
+__device__ __forceinline__ int count_le(const int64_t* a, int n, int64_t x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+sssp_relax_kernel(const long long* __restrict__ totals,
+                  const int* __restrict__ flist,
+                  const int64_t* __restrict__ fstart,
+                  const unsigned* __restrict__ fdist,
+                  const int64_t* __restrict__ row_start,
+                  const int* __restrict__ dst,
+                  const unsigned* __restrict__ weight,
+                  unsigned long long* __restrict__ state,
+                  unsigned char* __restrict__ changed) {
+  __shared__ int s_rel[kTile];        // list entry's first entry - tile start (>= 0)
+  __shared__ int64_t s_row[kTile];    // row_start[u] - fstart: entry e sits at row e + s_row
+  __shared__ int s_src[kTile];
+  __shared__ unsigned s_dist[kTile];
+  __shared__ int s_range[2];
+
+  const int n_list = static_cast<int>(totals[0]);
+  const int64_t total = totals[1];
+  const int64_t n_tiles = (total + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t t0 = t * kTile;
+    const int64_t t_last = (t0 + kTile < total ? t0 + kTile : total) - 1;
+    if (threadIdx.x < 2) {
+      s_range[threadIdx.x] =
+          count_le(fstart, n_list, threadIdx.x == 0 ? t0 : t_last) - 1;
+    }
+    __syncthreads();
+    const int base = s_range[0];
+    const int n = s_range[1] - base + 1;
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const int64_t fs = fstart[base + j];
+      const int u = flist[base + j];
+      s_rel[j] = fs > t0 ? static_cast<int>(fs - t0) : 0;
+      s_row[j] = row_start[u] - fs;
+      s_src[j] = u;
+      s_dist[j] = fdist[base + j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int r = k * kThreads + threadIdx.x;
+      if (t0 + r > t_last) break;
+      int lo = 0, hi = n - 1;                 // the last j with s_rel[j] <= r
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_rel[mid] <= r) lo = mid; else hi = mid - 1;
+      }
+      const int64_t row = t0 + r + s_row[lo];
+      const unsigned v = static_cast<unsigned>(__ldg(dst + row));
+      const unsigned nd = s_dist[lo] + __ldg(weight + row);   // mod 2^32
+      const unsigned long long cand =
+          (static_cast<unsigned long long>(nd) << 32) | static_cast<unsigned>(s_src[lo]);
+      if (cand < __ldcg(state + v)) {
+        const unsigned long long old = atomicMin(state + v, cand);
+        if (nd < static_cast<unsigned>(old >> 32)) changed[v] = 1;
+      }
+    }
+    __syncthreads();   // the staged range is read before the next tile's
+  }
+}
+
+}  // namespace
+
+// The scratch, from the caller: part_n int32 and part_e int64 of
+// ceil(n_vertices / 1024) entries each, totals int64 [2], and the list
+// flist int32, fstart int64, fdist uint32 of n_vertices entries each.
+extern "C" int sssp_relax_launch(void* state, void* changed, const void* front_deg,
+                                 const void* row_start, const void* dst,
+                                 const void* weight, void* part_n, void* part_e,
+                                 void* totals, void* flist, void* fstart, void* fdist,
+                                 int64_t n_vertices, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n_parts = (n_vertices + kTile - 1) / kTile;
+  const auto* deg = static_cast<const int*>(front_deg);
+  sssp_relax_count_kernel<<<static_cast<unsigned>(n_parts), kThreads, 0, s>>>(
+      deg, n_vertices, static_cast<int*>(part_n), static_cast<long long*>(part_e));
+  sssp_relax_offsets_kernel<<<1, kOffsetThreads, 0, s>>>(
+      static_cast<int*>(part_n), static_cast<long long*>(part_e), n_parts,
+      static_cast<long long*>(totals));
+  sssp_relax_compact_kernel<<<static_cast<unsigned>(n_parts), kThreads, 0, s>>>(
+      deg, static_cast<const unsigned long long*>(state), n_vertices,
+      static_cast<const int*>(part_n), static_cast<const long long*>(part_e),
+      static_cast<int*>(flist), static_cast<int64_t*>(fstart),
+      static_cast<unsigned*>(fdist));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sssp_relax_kernel<<<kMaxBlocks, kThreads, 0, s>>>(
+      static_cast<const long long*>(totals), static_cast<const int*>(flist),
+      static_cast<const int64_t*>(fstart), static_cast<const unsigned*>(fdist),
+      static_cast<const int64_t*>(row_start), static_cast<const int*>(dst),
+      static_cast<const unsigned*>(weight),
+      static_cast<unsigned long long*>(state),
+      static_cast<unsigned char*>(changed));
+  return static_cast<int>(cudaGetLastError());
+}

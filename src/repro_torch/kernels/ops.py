@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
+from repro_torch.kernels import sssp_relax as relax_kernel
 
 #: device types that take the plain versions
 _PLAIN = ("cpu", "meta")
@@ -23,6 +24,7 @@ KERNELS = {
     "core_spmv": frontier_spmv.KERNEL,
     "spmv_mxu": spmv_mxu.KERNEL,
     "cin_layer": cin.KERNEL,
+    "sssp_relax": relax_kernel.KERNEL,
 }
 
 
@@ -78,3 +80,17 @@ def cin_layer(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.Tens
     if x0.device.type in _PLAIN:
         return ref.cin_layer_ref(x0, xl, w)
     return cin.cin_layer(x0, xl, w)
+
+
+def sssp_relax(state: torch.Tensor, changed: torch.Tensor, front_deg: torch.Tensor,
+               row_start: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor) -> None:
+    """One δ-stepping round's relax over the frontier's rows, in place.
+
+    ``state`` int64 [V] holds the uint64 keys ``(dist << 32) | parent``,
+    ``changed`` bool [V] gains the vertices whose distance fell,
+    ``front_deg`` int32 [V] is the frontier's out-degrees (0 elsewhere),
+    and vertex u's row is ``[row_start[u], row_start[u] + front_deg[u])`` of
+    ``dst`` / ``weight`` (int32, the weights' uint32 bit view)."""
+    if state.device.type in _PLAIN:
+        return ref.sssp_relax_ref(state, changed, front_deg, row_start, dst, weight)
+    return relax_kernel.sssp_relax(state, changed, front_deg, row_start, dst, weight)

@@ -149,3 +149,59 @@ def cin_layer_ref(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.
     """
     outer = torch.einsum("bid,bjd->bijd", x0, xl)
     return torch.einsum("hij,bijd->bhd", w, outer)
+
+
+def check_relax_inputs(state, changed, front_deg, row_start, dst, weight) -> None:
+    """The relax's operands: int64 ``state`` [V], bool ``changed`` [V], int32
+    ``front_deg`` [V], int64 ``row_start`` [V], int32 ``dst`` and ``weight``
+    (the uint32 weights' bit view) of one length, contiguous, on one
+    device.  The engine calls this once a round, so the passing case reads
+    cheap tensor attributes only."""
+    v, dev = state.shape[0] if state.dim() == 1 else -1, state.device
+    n_e = dst.shape[0] if dst.dim() == 1 else -1
+    for name, t, dtype, n in (("state", state, torch.int64, v),
+                              ("changed", changed, torch.bool, v),
+                              ("front_deg", front_deg, torch.int32, v),
+                              ("row_start", row_start, torch.int64, v),
+                              ("dst", dst, torch.int32, n_e),
+                              ("weight", weight, torch.int32, n_e)):
+        if (t.dtype is not dtype or t.dim() != 1 or t.shape[0] != n
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"sssp_relax: {name} must be contiguous {dtype} [{n}] on "
+                             f"{dev} (state int64 [V] with V >= 1, dst and weight of one "
+                             f"length), got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if v < 1:
+        raise ValueError("sssp_relax: the state needs at least one vertex")
+
+
+_SIGN = -2**63   # the top bit of an int64
+
+
+def sssp_relax_ref(state, changed, front_deg, row_start, dst, weight) -> None:
+    """One round's relax over the frontier's rows, in place.
+
+    ``state`` int64 [V] holds each vertex's uint64 key ``(dist << 32) |
+    parent``; ``front_deg`` int32 [V] the frontier vertices' out-degrees (0
+    off the frontier); the row of vertex u is ``[row_start[u], row_start[u] +
+    degree)`` of ``dst`` and ``weight`` (int32 bit view of uint32 weights).
+    Each entry offers ``((dist[u] + w) mod 2^32) << 32 | u`` to its
+    destination, with ``dist[u]`` read before the round; the state keeps
+    the unsigned minimum and ``changed`` is set where the distance half
+    fell.  torch has no uint64 minimum, so the keys are compared as int64
+    with the top bit flipped (``key ^ 2^63``), which orders them as
+    unsigned: an unflipped key with ``dist >= 2^31`` would read negative.
+    """
+    check_relax_inputs(state, changed, front_deg, row_start, dst, weight)
+    u = torch.nonzero(front_deg > 0).squeeze(1)
+    deg = front_deg[u].to(torch.int64)
+    src = torch.repeat_interleave(u, deg)
+    first = torch.cumsum(deg, 0) - deg
+    rows = row_start[src] + torch.arange(src.shape[0], device=src.device) \
+        - torch.repeat_interleave(first, deg)
+    d = dst[rows].to(torch.int64)
+    nd = ((state[src] >> 32) + to_u64(weight[rows])) & _U32
+    # the flipped candidate (nd - 2^31) * 2^32 + src: exact in int64
+    cand = (nd - 2**31) * 2**32 + src
+    new = (state ^ _SIGN).scatter_reduce(0, d, cand, "amin", include_self=True) ^ _SIGN
+    changed |= ((new >> 32) & _U32) < ((state >> 32) & _U32)
+    state.copy_(new)

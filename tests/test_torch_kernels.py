@@ -14,7 +14,7 @@ from repro.kernels import ops as jax_ops, ref as jref
 from repro.kernels.bitmap_ops import frontier_update as jax_frontier_update
 from repro.kernels.frontier_spmv import core_spmv as jax_core_spmv
 from repro.kernels.spmv_mxu import spmv_mxu as jax_spmv_mxu
-from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu
+from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu, sssp_relax
 
 torch.set_num_threads(2)
 
@@ -183,6 +183,9 @@ def test_cpu_dispatch_never_launches():
     a, f = _min_neighbour_case()
     ops.core_spmv(to_t(a), to_t(f))
     ops.frontier_update(to_t(a[0]), to_t(a[1]))
+    one = torch.ones(1, dtype=torch.int32)
+    ops.sssp_relax(torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.bool), one,
+                   torch.zeros(1, dtype=torch.int64), one - 1, one)
     assert ops.launch_counts() == before
 
 
@@ -301,18 +304,47 @@ def test_cin_layer_plain_matches_jax(b, f0, fl, h, d):
     np.testing.assert_allclose(plain.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer"])
+@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer", "sssp_relax"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         if wrapper == "spmv_mxu":
             spmv_mxu.spmv_mxu(torch.zeros((128, 128), dtype=torch.int8),
                               torch.zeros((128, 128), dtype=torch.int8))
-        else:
+        elif wrapper == "cin_layer":
             cin.cin_layer(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
                           torch.zeros((6, 3, 5)))
+        else:
+            sssp_relax.sssp_relax(*_relax_operands())
     assert ops.launch_counts() == before
-    assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer"}
+    assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer",
+                           "sssp_relax"}
+
+
+def _relax_operands(**change):
+    """Valid ``sssp_relax`` operands on the CPU (3 vertices, 4 entries),
+    with the named ones replaced."""
+    args = dict(state=torch.zeros(3, dtype=torch.int64), changed=torch.zeros(3, dtype=torch.bool),
+                front_deg=torch.tensor([1, 0, 3], dtype=torch.int32),
+                row_start=torch.tensor([0, 1, 1]), dst=torch.tensor([1, 0, 1, 2], dtype=torch.int32),
+                weight=torch.ones(4, dtype=torch.int32))
+    args.update(change)
+    return tuple(args.values())
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(state=torch.zeros(3, dtype=torch.int32)), "state must be contiguous torch.int64"),
+    (dict(changed=torch.zeros(4, dtype=torch.bool)), r"changed must be contiguous torch.bool \[3\]"),
+    (dict(front_deg=torch.ones(3, dtype=torch.int64)), "front_deg must be contiguous torch.int32"),
+    (dict(weight=torch.ones(5, dtype=torch.int32)), r"weight must be contiguous torch.int32 \[4\]"),
+    (dict(dst=torch.arange(8, dtype=torch.int32)[::2]), "dst must be contiguous"),
+    (dict(state=torch.zeros(0, dtype=torch.int64), changed=torch.zeros(0, dtype=torch.bool),
+          front_deg=torch.zeros(0, dtype=torch.int32), row_start=torch.zeros(0, dtype=torch.int64)),
+     "at least one vertex"),
+])
+def test_sssp_relax_refuses_bad_operands(change, match):
+    with pytest.raises(ValueError, match=match):
+        ops.sssp_relax(*_relax_operands(**change))
 
 
 # ---------------------------------------------------------------------------

@@ -181,9 +181,14 @@ def test_kernel_launches_counted(cuda):
     ops.multi_source_spmv(a8, a8)
     x = torch.ones((4, 3, 2), device=cuda)
     ops.cin_layer(x, x, torch.ones((5, 3, 3), device=cuda))
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    ops.sssp_relax(torch.zeros(1, dtype=torch.int64, device=cuda),
+                   torch.zeros(1, dtype=torch.bool, device=cuda), one,
+                   torch.zeros(1, dtype=torch.int64, device=cuda), one - 1, one)
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "frontier_update": 1, "core_spmv": 1, "spmv_mxu": 1, "cin_layer": 1}
+        "frontier_update": 1, "core_spmv": 1, "spmv_mxu": 1, "cin_layer": 1,
+        "sssp_relax": 1}
 
 
 @pytest.mark.cuda
@@ -273,6 +278,121 @@ def test_sssp_on_card_matches_oracle(cuda, family, batch):
         p, d = sssp_oracle(*args, int(r))
         np.testing.assert_array_equal(parent.cpu().numpy(), p)
         np.testing.assert_array_equal(dist.cpu().numpy(), d)
+
+
+def weighted_graph(family, device):
+    """(weighted EdgeView, degree) of a small graph of ``family``, built on
+    ``device``; ``hub``: a star whose centre has a row of 70,000 entries,
+    on a ring."""
+    from repro_torch.core import build_csr, edge_view, kronecker, with_edge_weights
+    from repro_torch.core.kronecker import EdgeList
+    from repro_torch.data.graphs import erdos_renyi_graph, grid_graph
+    if family == "kronecker":
+        el = kronecker.generate_edges(3, 12, device=device)
+    elif family == "grid":
+        el = grid_graph(64, seed=5, device=device)
+    elif family == "erdos_renyi":
+        el = erdos_renyi_graph(4096, seed=7, device=device)
+    else:
+        n = 70_001
+        ids = torch.arange(1, n, dtype=torch.int32, device=device)
+        el = EdgeList(src=torch.cat([torch.zeros_like(ids), ids]),
+                      dst=torch.cat([ids, ids % (n - 1) + 1]), num_vertices=n)
+    g = build_csr(el)
+    return with_edge_weights(edge_view(g), seed=2), g.degree
+
+
+def relax_round(ev, degree, seed, density):
+    """A round's relax operands on ev's device: distances in a narrow range
+    (ties), some past 2^31, some unreached; a frontier of reached vertices."""
+    rng = np.random.default_rng(seed)
+    v = ev.num_vertices
+    dist = rng.integers(0, 600, v).astype(np.uint64)
+    dist[rng.random(v) < 0.1] += 2**31
+    dist[rng.random(v) < 0.3] = 0xFFFFFFFF
+    parent = np.where(dist == 0xFFFFFFFF, v, rng.integers(0, v, v)).astype(np.uint64)
+    front = (rng.random(v) < density) & (dist != 0xFFFFFFFF)
+    front[0] = dist[0] != 0xFFFFFFFF
+    changed = front | (rng.random(v) < 0.1)
+    dev = ev.dst.device
+    state = torch.from_numpy(((dist << np.uint64(32)) | parent).view(np.int64)).to(dev)
+    front_t = torch.from_numpy(front).to(dev)
+    return (state, torch.from_numpy(changed).to(dev) & ~front_t,
+            torch.where(front_t, degree, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["kronecker", "grid", "erdos_renyi", "hub"])
+@pytest.mark.parametrize("density", [0.02, 0.6])
+def test_sssp_relax_kernel_matches_plain(cuda, family, density):
+    # bit for bit: the unsigned minimum of the packed keys does not depend
+    # on the atomics' order; twice on the card gives the same words
+    from repro_torch.core.sssp_steps import weighted_rows
+    ev, degree = weighted_graph(family, cuda)
+    rows = weighted_rows(ev, degree)
+    if family == "hub":
+        assert int(degree.max()) > 65_536
+    state, changed, front_deg = relax_round(ev, degree, 11, density)
+    outs = []
+    for fn in (ref.sssp_relax_ref, ops.sssp_relax, ops.sssp_relax):
+        st, ch = state.clone(), changed.clone()
+        fn(st, ch, front_deg, rows.row_start, rows.dst, rows.weight)
+        outs.append((st, ch))
+    torch.cuda.synchronize()
+    for st, ch in outs[1:]:
+        assert torch.equal(st, outs[0][0])
+        assert torch.equal(ch, outs[0][1])
+    assert not torch.equal(outs[0][0], state)      # the round changed something
+
+
+@pytest.mark.cuda
+def test_sssp_relax_scratch_per_stream(cuda):
+    # two streams each keep their own scratch; a new vertex count on a
+    # stream replaces its scratch
+    from repro_torch.core.sssp_steps import weighted_rows
+    from repro_torch.kernels import sssp_relax
+    ev, degree = weighted_graph("erdos_renyi", cuda)
+    rows = weighted_rows(ev, degree)
+    state, changed, front_deg = relax_round(ev, degree, 3, 0.3)
+    args = (front_deg, rows.row_start, rows.dst, rows.weight)
+    want_s, want_c = state.clone(), changed.clone()
+    ref.sssp_relax_ref(want_s, want_c, *args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = [(state.clone(), changed.clone()) for _ in range(2)]
+    with torch.cuda.stream(side):
+        ops.sssp_relax(*outs[0], *args)
+    ops.sssp_relax(*outs[1], *args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for st, ch in outs:
+        assert torch.equal(st, want_s) and torch.equal(ch, want_c)
+    dev = torch.cuda.current_device()
+    v = ev.num_vertices
+    main = torch.cuda.current_stream().cuda_stream
+    assert sssp_relax.scratch_for(dev, side.cuda_stream, v) != \
+        sssp_relax.scratch_for(dev, main, v)
+    assert sssp_relax._scratch[(dev, main)][0] == v
+    sssp_relax.scratch_for(dev, main, v + 1)
+    assert sssp_relax._scratch[(dev, main)][0] == v + 1
+
+
+@pytest.mark.cuda
+def test_sssp_relax_one_launch_a_round(cuda):
+    from repro_torch.core.plan import PreparedGraph, TraversalPlan, compile_plan
+    ev, degree = weighted_graph("kronecker", cuda)
+    c = compile_plan(TraversalPlan(kernel="sssp", batch_roots=False),
+                     PreparedGraph(ev=ev, degree=degree), device=cuda)
+    root = int(torch.argmax(degree))
+    before = ops.launch_counts()
+    res = c.bfs(root)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    rounds = int(res.stats.levels)
+    assert rounds > 1
+    assert {k: after[k] - before[k] for k in after} == {
+        "frontier_update": 0, "core_spmv": 0, "spmv_mxu": 0, "cin_layer": 0,
+        "sssp_relax": rounds}
 
 
 # ---------------------------------------------------------------------------

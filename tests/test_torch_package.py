@@ -98,6 +98,14 @@ def test_kernel_sources_exist_with_headers():
         assert 'extern "C" int' in text and "cudaGetLastError" in text
 
 
+def test_sssp_relax_source_says_it_replaces_no_tpu_kernel():
+    text = (PKG / "kernels" / "csrc" / "sssp_relax.cu").read_text()
+    head = text[:4000]
+    assert "Replaces: no TPU kernel" in head and "src/repro/core/" in head
+    assert "What bounds it" in head and "What the design does" in head
+    assert 'extern "C" int' in text and "cudaGetLastError" in text
+
+
 def test_every_kernel_source_has_a_counted_wrapper():
     from repro_torch.kernels import ops
     sources = sorted(p.stem for p in (PKG / "kernels" / "csrc").glob("*.cu"))

@@ -39,6 +39,7 @@ from repro_torch.core.validate import (
     SSSP_CHECK_NAMES, failure_report, validate_sssp, validate_sssp_batch,
 )
 from repro_torch.data import graphs
+from repro_torch.kernels import ops as kernels_ops
 
 torch.set_num_threads(2)
 
@@ -205,6 +206,112 @@ def test_port_graph_families_equal_jax():
 
 
 # ---------------------------------------------------------------------------
+# The relax: one unsigned minimum of packed keys against the two passes
+# ---------------------------------------------------------------------------
+
+INF = sssp_steps.INF_U32
+TOP = 2**31   # distances at or above it set the key's top bit
+
+
+def two_pass_step(src, dst, wgt, dist, parent, front):
+    """One round's relax as the engine ran it with two scatter-min passes:
+    pass A min-relaxes the distances over the frontier's out-edges, pass B
+    rebuilds the parents of the improved vertices as the least source
+    achieving the new distance (the others keep theirs unless a tie lowers
+    it).  Returns the new distances, parents and the improved set."""
+    v = dist.shape[0]
+    dist_ext = torch.cat([dist, dist.new_full((1,), INF)])
+    front_ext = torch.cat([front, front.new_zeros(1)])
+    active = front_ext[src]
+    cand = torch.where(active, (dist_ext[src] + wgt) & INF, INF)
+    new_dist = dist_ext.scatter_reduce(0, dst, cand, "amin", include_self=True)
+    improved = new_dist[:v] < dist
+    pext = torch.cat([torch.where(improved, v, parent), parent.new_full((1,), v)])
+    won = active & (cand == new_dist[dst])
+    new_parent = pext.scatter_reduce(0, dst, torch.where(won, src, v), "amin",
+                                     include_self=True)
+    return new_dist[:v], new_parent[:v], improved
+
+
+def relax_case(name):
+    """(V, directed entries (u, x, w) sorted by u, dist, parent, frontier,
+    changed): hand-built rounds, or a seeded random one."""
+    u = INF
+    if name == "several_sources":
+        # 3 is reached at 15 from 0, 1 and 2 at once (least source 0); 4
+        # improves from 20 to 13 through 1; 5 stays
+        edges = [(0, 3, 5), (1, 3, 3), (1, 4, 1), (2, 3, 2), (2, 4, 1), (2, 5, 9)]
+        return 6, edges, [10, 12, 13, u, 20, 1], [6, 0, 0, 6, 5, 0], [1, 1, 1, 0, 0, 0], \
+            [1, 1, 1, 0, 1, 0]
+    if name == "tie_lowers_parent":
+        # 3 keeps distance 15 and its parent falls from 2 to 1 (pass B's
+        # include_self on the old parent); 4's tie from a larger source
+        # leaves 2 unchanged
+        edges = [(1, 3, 3), (1, 4, 8), (3, 4, 1), (5, 3, 5), (5, 4, 2)]
+        return 6, edges, [0, 12, 9, 15, 20, 10], [0, 0, 0, 2, 2, 0], [0, 1, 0, 0, 0, 1], \
+            [0, 1, 0, 0, 0, 1]
+    if name == "top_bit_keys":
+        # distances past 2^31 make the int64 key negative: a signed minimum
+        # without the flipped top bit would order them wrongly
+        edges = [(0, 1, 3), (0, 2, 1), (0, 3, 2), (0, 4, 1), (4, 0, 9)]
+        return 5, edges, [TOP + 7, u, TOP + 9, TOP + 9, 5], [0, 5, 4, 4, 0], \
+            [1, 0, 0, 0, 0], [1, 0, 0, 0, 1]
+    if name == "unreached_corner":
+        # a candidate of exactly INF_U32 against an unreached (INF, V): the
+        # parent falls to the source, the distance stays; a sum past 2^32
+        # wraps, as uint32 arithmetic does
+        edges = [(0, 1, 10), (0, 2, 12), (0, 3, 11)]
+        return 4, edges, [2**32 - 11, u, u, 40], [0, 4, 4, 0], [1, 0, 0, 0], [1, 0, 0, 0]
+    if name == "frontier_improved":
+        # 1 is on the frontier and improved by 0 in the same round: its own
+        # out-edge relaxes from its distance before the round
+        edges = [(0, 1, 1), (1, 2, 1), (2, 0, 50)]
+        return 3, edges, [0, 9, u], [0, 0, 3], [1, 1, 0], [1, 1, 0]
+    rng = np.random.default_rng(int(name.split("_")[1]))
+    v = 40
+    n = 240
+    pairs = sorted(zip(rng.integers(0, v, n).tolist(), rng.integers(0, v, n).tolist()))
+    edges = [(a, b, int(w)) for (a, b), w in zip(pairs, rng.integers(1, 12, n))]
+    dist = np.where(rng.random(v) < 0.3, u, rng.integers(0, 30, v))
+    dist[(rng.random(v) < 0.2) & (dist != u)] += TOP  # some past 2^31
+    parent = np.where(dist == u, v, rng.integers(0, v, v))
+    front = (rng.random(v) < 0.4) & (dist != u)
+    changed = front | (rng.random(v) < 0.2)
+    return v, edges, dist.tolist(), parent.tolist(), front.tolist(), changed.tolist()
+
+
+@pytest.mark.parametrize("case", ["several_sources", "tie_lowers_parent", "top_bit_keys",
+                                  "unreached_corner", "frontier_improved", "random_0",
+                                  "random_1", "random_2"])
+def test_sssp_relax_equals_the_two_pass_step(case):
+    v, edges, dist, parent, front, changed = relax_case(case)
+    src = torch.tensor([e[0] for e in edges], dtype=torch.int64)
+    dst = torch.tensor([e[1] for e in edges], dtype=torch.int64)
+    wgt = torch.tensor([e[2] for e in edges], dtype=torch.int64)
+    dist = torch.tensor(dist, dtype=torch.int64)
+    parent = torch.tensor(parent, dtype=torch.int64)
+    front = torch.tensor(front, dtype=torch.bool)
+    changed = torch.tensor(changed, dtype=torch.bool) | front
+    want_d, want_p, improved = two_pass_step(src, dst, wgt, dist, parent, front)
+
+    degree = torch.bincount(src, minlength=v).to(torch.int32)
+    row_start = torch.cumsum(degree, 0, dtype=torch.int64) - degree
+    key = (dist.numpy().astype(np.uint64) << np.uint64(32)) | parent.numpy().astype(np.uint64)
+    state = torch.from_numpy(key.view(np.int64).copy())
+    got_changed = changed & ~front
+    kernels_ops.sssp_relax(state, got_changed, torch.where(front, degree, 0), row_start,
+                           dst.to(torch.int32), wgt.to(torch.int32))
+    got = state.numpy().view(np.uint64)
+    np.testing.assert_array_equal(got >> np.uint64(32), want_d.numpy().astype(np.uint64))
+    np.testing.assert_array_equal(got & np.uint64(INF), want_p.numpy().astype(np.uint64))
+    assert torch.equal(got_changed, (changed & ~front) | improved)
+    if case == "tie_lowers_parent":
+        assert not improved[3] and int(want_p[3]) == 1
+    if case == "unreached_corner":
+        assert int(want_d[1]) == INF and int(want_p[1]) == 0 and int(want_d[2]) == 1
+
+
+# ---------------------------------------------------------------------------
 # Validation
 # ---------------------------------------------------------------------------
 
@@ -367,6 +474,28 @@ def test_sssp_requires_weight_plane():
                                              tp.ev.num_vertices), degree=tp.degree)
     with pytest.raises(ValueError, match="weight"):
         compile_plan(TraversalPlan(kernel="sssp"), pg, device="cpu")
+
+
+@pytest.mark.parametrize("fault", ["unsorted", "padding_inside"])
+def test_sssp_refuses_an_edge_view_not_in_rows(fault):
+    # the relax walks each vertex's row [row_start[u], row_start[u] + degree[u]):
+    # an edge view in another order, or with padding among the valid entries,
+    # is refused when the plan is compiled
+    _, tp, _ = weighted("erdos_renyi")
+    ev = tp.ev
+    n = int(tp.degree.sum())
+    if fault == "unsorted":
+        perm = torch.cat([torch.arange(n)[torch.randperm(n, generator=torch.Generator()
+                                                          .manual_seed(0))],
+                          torch.arange(n, ev.src.shape[0])])
+    else:
+        perm = torch.cat([torch.tensor([ev.src.shape[0] - 1]), torch.arange(ev.src.shape[0] - 1)])
+        assert not bool(ev.valid[-1])
+    bad = bfs_steps.EdgeView(ev.src[perm], ev.dst[perm], ev.valid[perm], ev.num_vertices,
+                             ev.weight[perm])
+    with pytest.raises(ValueError, match="source-sorted"):
+        compile_plan(TraversalPlan(kernel="sssp"), PreparedGraph(ev=bad, degree=tp.degree),
+                     device="cpu")
 
 
 def test_sssp_unported_options_still_raise():
