@@ -4,13 +4,16 @@ Set-up generates the timed graph and its search keys from the
 configuration's ``graph_seed`` (:mod:`portbench.bench.inputs`), hands the
 edge list to the program's Graph500 step 2 (``pipeline.build``: CSR, degree
 sort, heavy core, weights) and compiles the configuration's pinned plan
-(``compile_plan``).  The cell's traffic kind (``portbench/traffic/<kind>.py``,
-named by the mix's ``kind``) warms up and then drives the window: it calls
-the program through a :class:`Recorder`, which times each call alone on the
-host clock, ended by a device synchronisation, counts each answer's
-traversed edges after its clock stops, and keeps a sample of the answers
-drawn from the seed.  With ``trace`` the window is the mix's first
-``trace_searches`` calls under ``torch.profiler``, for the per-layer metrics.
+(``compile_plan``).  An SSSP configuration's weight scheme
+(``portbench/weights/<scheme>.py``) adds its knobs to the program's
+configuration and gives the reference its weights.  The cell's traffic kind
+(``portbench/traffic/<kind>.py``, named by the mix's ``kind``) warms up and
+then drives the window: it calls the program through a :class:`Recorder`,
+which times each call alone on the host clock, ended by a device
+synchronisation, counts each answer's traversed edges after its clock stops,
+and keeps a sample of the answers drawn from the seed.  With ``trace`` the
+window is the mix's first ``trace_searches`` calls under ``torch.profiler``,
+for the per-layer metrics, which also read the program's counters over it.
 
 After the window: the window's peak device memory is read, the program's
 state is freed, and the reference (:mod:`portbench.bench.compare`) checks
@@ -61,6 +64,8 @@ class Context:
     core_outputs: list = field(default_factory=list)  # traced core_spmv outputs
     core_words: int = 0
     bitmap_words: int = 0
+    num_vertices: int = 0
+    counters: dict = field(default_factory=dict)    # the program's, over the traced window
 
 
 @dataclass
@@ -152,9 +157,9 @@ def load_program(root: Path):
     return prog
 
 
-def program_config(doc: dict, graph_seed: int, device: str):
+def program_config(doc: dict, graph_seed: int, device: str, weights):
     """The program's ``Graph500Config`` of a configuration file, on the
-    graph drawn from ``graph_seed``."""
+    graph drawn from ``graph_seed``; ``weights`` is its weight scheme."""
     from repro_torch.core.pipeline import Graph500Config
 
     kw = dict(doc["program"])
@@ -162,7 +167,7 @@ def program_config(doc: dict, graph_seed: int, device: str):
     kw.update(scale=doc["scale"], edge_factor=doc["edge_factor"], seed=graph_seed,
               n_roots=doc["search_keys"], kernel=doc["kernel"], device=device)
     if doc["kernel"] == "sssp":
-        kw["max_weight"] = doc["max_weight"]
+        kw.update(weights.program_kw(doc))
     return Graph500Config.ladder(rung, **kw) if rung else Graph500Config(**kw)
 
 
@@ -200,7 +205,7 @@ class _CoreCapture:
         self.ops.core_spmv = self.orig
 
 
-def _set_up(doc: dict, graph_seed: int, device: str, phases: dict):
+def _set_up(doc: dict, graph_seed: int, device: str, phases: dict, weights):
     """The program built on the graph drawn from ``graph_seed``, and the
     keys (input labels, on the host); ``phases`` gets the time each step
     ended."""
@@ -213,7 +218,7 @@ def _set_up(doc: dict, graph_seed: int, device: str, phases: dict):
     src, dst = inputs.graph(doc, graph_seed, dev)
     keys = inputs.search_keys(graph_seed, src, dst, v, doc["search_keys"])
     phases["inputs"] = time.perf_counter()
-    cfg = program_config(doc, graph_seed, device)
+    cfg = program_config(doc, graph_seed, device, weights)
     built = build(cfg, edges=EdgeList(src=src, dst=dst, num_vertices=v))
     del src, dst
     phases["build"] = time.perf_counter()
@@ -242,12 +247,12 @@ def _free(dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def _check(doc: dict, graph_seed: int, keys, out: compare.Outputs, dev) -> dict:
+def _check(doc: dict, graph_seed: int, keys, out: compare.Outputs, dev, weights) -> dict:
     """The reference's verdict on ``out``, from the inputs drawn anew."""
     src, dst = inputs.graph(doc, graph_seed, dev)
     inp = compare.Inputs(src=src, dst=dst, num_vertices=1 << doc["scale"],
                          keys=keys.to(dev), kernel=doc["kernel"], seed=graph_seed,
-                         max_weight=doc.get("max_weight", 255))
+                         weights=weights, doc=doc)
     return compare.compare(out, inp)
 
 
@@ -261,6 +266,7 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
     doc = {**bench.config(cell.config), **(overrides or {})}
     mix = bench.traffic(cell.traffic)
     kind = bench.kind(mix["kind"])
+    weights = bench.weights(doc.get("weights"))
     if require_chip:
         if not torch.cuda.is_available():
             raise NoChip("no CUDA device: this benchmark runs on the card only")
@@ -271,12 +277,13 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
     on_card = dev.type == "cuda"
     phases = {"start": t_start}
     load_program(root)
+    from repro_torch import tracing
     from repro_torch.core.heavy import padded_bitmap_words
     from repro_torch.kernels import ops as kops
     phases["import"] = time.perf_counter()
 
     # ---- set-up: the inputs, the program's build and plan, the warm-up ----
-    prog, keys = _set_up(doc, doc["graph_seed"], device, phases)
+    prog, keys = _set_up(doc, doc["graph_seed"], device, phases, weights)
     kind.warm(prog, mix, seed)
     _sync(dev)
     phases["warmup"] = time.perf_counter()
@@ -290,6 +297,7 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
                    mix["trace_searches"] if trace else None, mix["checked_searches"],
                    seed, trace, prog.roots)
     prof = capture = None
+    counted = tracing.counters()
     with contextlib.ExitStack() as stack:
         if trace:
             from torch.profiler import ProfilerActivity, profile
@@ -299,6 +307,7 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
         kind.window(prog, mix, seed, rec)
         _sync(dev)
         window_s = time.perf_counter() - rec.w0
+    counted = {k: n - counted.get(k, 0) for k, n in tracing.counters().items()}
 
     # ---- after the window: the peak, then the program's state freed ----
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
@@ -312,7 +321,7 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
     _free(dev)
 
     t_ref = time.perf_counter()
-    res_win = _check(doc, doc["graph_seed"], keys, out, dev)
+    res_win = _check(doc, doc["graph_seed"], keys, out, dev, weights)
     del out
     _free(dev)
     ref_s = time.perf_counter() - t_ref
@@ -320,14 +329,14 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
     # ---- the checked graph, drawn from the run's seed ----
     t_seeded = time.perf_counter()
     cseed = inputs.checked_graph_seed(seed)
-    prog, ckeys = _set_up(doc, cseed, device, {})
+    prog, ckeys = _set_up(doc, cseed, device, {}, weights)
     rec = Recorder(dev, prog.built.degree, math.inf, mix["checked_searches"], sys.maxsize,
                    seed, False, prog.roots)
     kind.window(prog, mix, seed, rec)
     out = _outputs(prog, rec)
     del prog, rec
     _free(dev)
-    res_seeded = _check(doc, cseed, ckeys, out, dev)
+    res_seeded = _check(doc, cseed, ckeys, out, dev, weights)
     del out
     _free(dev)
     seeded_s = time.perf_counter() - t_seeded
@@ -340,7 +349,8 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
 
     ctx = Context(kernel=doc["kernel"], setup_s=setup_s, times_s=times, edges=edges,
                   construction_s=construction_s, levels=levels,
-                  core_words=core_words, bitmap_words=bitmap_words)
+                  core_words=core_words, bitmap_words=bitmap_words,
+                  num_vertices=1 << doc["scale"], counters=counted)
     device_info = {"platform": "gpu" if on_card else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
                    "count": cell.chips, "memory_peak_bytes": int(peak)}
@@ -380,7 +390,7 @@ def run(root, cell_name: str, seed: int, seconds: float, trace: bool, *,
         key_edges[m] = key_edges.get(m, 0) + 1
     lines.append(f"keys by the traversed edges of their component: {key_edges}")
     if trace and ctx.trace is not None:
-        for frag in ("core_spmv", "frontier_update"):
+        for frag in ("core_spmv", "frontier_update", "sssp_relax"):
             us, n = tracemod.kernel_time(ctx.trace, frag)
             if n:
                 lines.append(f"{frag}: {n} launches, {us / n:.3f} us each on the device")

@@ -16,12 +16,27 @@ same generated edge list, keys and seed:
                       a tree parent the specification accepts: unreached
                       vertices with a parent, a root not its own parent, a
                       parent that is no neighbour, or one that does not lie
-                      one level up (BFS) / at distance minus the edge's weight
-                      (SSSP);
+                      one level up (BFS) / at a distance that the edge's
+                      weight adds up to the vertex's (SSSP); under a weight
+                      scheme whose weights can be 0, also a reached vertex
+                      whose chain of parents does not reach the key;
   ``root_invalid``    searches in the window whose key is not its own
                       parent at level (distance) 0 in their answer.
 
 Each is an exact count, so each limit is 0 (``LIMITS``).
+
+SSSP's weights, distances and their sums are in the dtype of the
+configuration's weight scheme (``portbench/weights/<scheme>.py``), which
+also reads the program's planes.  Real (float32) weights need no tolerance:
+each relaxation is one float32 add rounded to nearest, and fl(x + w) is
+monotone in x and never below x (w >= 0).  So every label-correcting order,
+the reference's Bellman-Ford and the program's delta-stepping alike, reaches
+the same least fixed point: for each vertex the minimum, over the paths from
+the key, of the path's float32 fold.  The parent test fl(dist[p] + w) ==
+dist[v] is exact for the same reason.  A zero weight lets two vertices at
+one distance pass that test as each other's parent, so a scheme with zero
+weights has its parents' chains followed to the key as well (pointer
+jumping), the specification's tree check.
 """
 from __future__ import annotations
 
@@ -31,9 +46,8 @@ import torch
 
 from portbench.reference.graph import build_graph
 from portbench.reference.search import (
-    bfs_levels, components, sssp_distances, traversed_edges,
+    bfs_levels, components, reached, sssp_distances, traversed_edges,
 )
-from portbench.reference.weights import edge_weights
 
 LIMITS = {"graph_mismatch": 0, "edges_mismatch": 0, "level_mismatch": 0,
           "parent_invalid": 0, "root_invalid": 0}
@@ -71,15 +85,16 @@ class Inputs:
     keys: torch.Tensor     # [n_keys] input labels
     kernel: str            # "bfs" | "sssp"
     seed: int
-    max_weight: int = 255
+    weights: object = None  # SSSP: the weight scheme (``Benchmark.weights``)
+    doc: dict = field(default_factory=dict)   # the configuration
 
 
-def graph_mismatch(out: Outputs, g, w_ref) -> int:
+def graph_mismatch(out: Outputs, g, w_ref, weights=None) -> int:
     bad = int((out.degree.to(torch.int64) != g.degree).sum())
     n = min(out.nnz, g.nnz)
     diff = (out.src[:n].to(torch.int64) != g.src[:n]) | (out.dst[:n].to(torch.int64) != g.dst[:n])
     if w_ref is not None:
-        diff |= out.weight[:n].to(torch.int64) != w_ref[:n]
+        diff |= weights.decode_weights(out.weight[:n]) != w_ref[:n]
     return bad + int(diff.sum()) + abs(out.nnz - g.nnz)
 
 
@@ -95,17 +110,41 @@ def bfs_parent_invalid(g, parent, level_ref, root: int) -> int:
     return int(bad.sum()) + int(int(p[root]) != root)
 
 
-def sssp_parent_invalid(g, weight, parent, dist_ref, root: int) -> int:
+def sssp_parent_invalid(g, weight, parent, dist_ref, root: int, chains: bool = False) -> int:
+    """With ``chains``, a reached vertex whose parents' chain does not reach
+    ``root`` counts too."""
     v = g.num_vertices
     p = parent.to(torch.int64)
     ids = torch.arange(v, device=p.device)
-    reached = dist_ref >= 0
+    hit = reached(dist_ref)
     pc = p.clamp(0, v - 1)
     found, pos = g.edge_index(pc, ids)
-    ok = ((p >= 0) & (p < v) & found & (dist_ref[pc] >= 0)
+    ok = ((p >= 0) & (p < v) & found & hit[pc]
           & (dist_ref[pc] + weight[pos] == dist_ref))
-    bad = (reached & (ids != root) & ~ok) | (~reached & (p != -1))
+    bad = (hit & (ids != root) & ~ok) | (~hit & (p != -1))
+    if chains:
+        bad |= hit & ~reaches_root(torch.where(ok, pc, ids), root)
     return int(bad.sum()) + int(int(p[root]) != root)
+
+
+def reaches_root(up: torch.Tensor, root: int) -> torch.Tensor:
+    """bool [V]: whether each vertex's chain through ``up`` (a vertex's
+    parent, or itself where the chain stops) reaches ``root``, by pointer
+    jumping: after k doublings ``up`` is each vertex's 2^k-th ancestor, and
+    a chain that reaches the root does so within V - 1 steps."""
+    up = up.clone()
+    up[root] = root
+    for _ in range(max(1, (up.numel() - 1).bit_length())):
+        up = up[up]
+    return up == root
+
+
+def distance_mismatch(weights, level, dist_ref) -> int:
+    """Vertices whose program distance differs from the reference's, or
+    that one side reached and the other did not."""
+    dist, got = weights.decode_distances(level)
+    want = reached(dist_ref)
+    return int(((got != want) | (want & (dist != dist_ref))).sum())
 
 
 def compare(out: Outputs, inp: Inputs) -> dict:
@@ -113,9 +152,9 @@ def compare(out: Outputs, inp: Inputs) -> dict:
     answers found wrong and of those checked whole, and the traversed-edge
     count of each key's component (``key_edges``)."""
     g = build_graph(inp.src, inp.dst, inp.num_vertices)
-    w_ref = (edge_weights(g.src, g.dst, seed=inp.seed, max_weight=inp.max_weight)
+    w_ref = (inp.weights.reference(g.src, g.dst, seed=inp.seed, doc=inp.doc)
              if inp.kernel == "sssp" else None)
-    nums = {"graph_mismatch": graph_mismatch(out, g, w_ref)}
+    nums = {"graph_mismatch": graph_mismatch(out, g, w_ref, inp.weights)}
 
     roots = g.new_from_old[inp.keys.to(torch.int64)]
     m_ref = traversed_edges(g, components(g), roots).cpu().tolist()
@@ -132,11 +171,13 @@ def compare(out: Outputs, inp: Inputs) -> dict:
         root = int(roots[k])
         if inp.kernel == "sssp":
             ref = sssp_distances(g, w_ref, root)
-            pb = sssp_parent_invalid(g, w_ref, parent, ref, root)
+            pb = sssp_parent_invalid(g, w_ref, parent, ref, root,
+                                     chains=inp.weights.ZERO_WEIGHTS)
+            lb = distance_mismatch(inp.weights, level, ref)
         else:
             ref = bfs_levels(g, root)
             pb = bfs_parent_invalid(g, parent, ref, root)
-        lb = int((level.to(torch.int64) != ref).sum())
+            lb = int((level.to(torch.int64) != ref).sum())
         lev_bad, par_bad = lev_bad + lb, par_bad + pb
         if lb or pb:
             wrong.add(i)

@@ -4,8 +4,10 @@ comparison.  It has to come out as not correct.
 
   BFS   the duplicate edges are not merged, so the graph and every search's
         traversed-edge count (the TEPS numerator) differ.
-  SSSP  the weights keep only their top 4 bits (the int4 step below the
-        configuration's 8-bit weights), so the weights and the distances
+  SSSP  the weight scheme's control weights (``reference(..., control=True)``
+        of ``portbench/weights/<scheme>.py``: for ``hash_int`` each weight's
+        top 4 bits, the int4 step below 8-bit weights; for ``uniform_f32``
+        each weight rounded to bfloat16), so the weights and the distances
         differ.
 """
 from __future__ import annotations
@@ -18,7 +20,6 @@ from portbench.reference.search import (
     bfs_levels, bfs_parents, components, sssp_distances, sssp_parents,
     traversed_edges,
 )
-from portbench.reference.weights import edge_weights
 
 
 def control_outputs(doc: dict, inp: compare.Inputs, n_searches: int) -> compare.Outputs:
@@ -27,30 +28,34 @@ def control_outputs(doc: dict, inp: compare.Inputs, n_searches: int) -> compare.
     sssp = doc["kernel"] == "sssp"
     g = build_graph(inp.src, inp.dst, inp.num_vertices, dedupe=sssp)
     roots = g.new_from_old[inp.keys.to(torch.int64)]
-    w = (edge_weights(g.src, g.dst, seed=inp.seed, max_weight=inp.max_weight, bits=4)
+    w = (inp.weights.reference(g.src, g.dst, seed=inp.seed, doc=inp.doc, control=True)
          if sssp else None)
     m = traversed_edges(g, components(g), roots).cpu().tolist()
     checked = []
     for i in range(n_searches):
         root = int(roots[i])
         if sssp:
-            level = sssp_distances(g, w, root)
-            parent = sssp_parents(g, w, level, root)
+            dist = sssp_distances(g, w, root)
+            parent = sssp_parents(g, w, dist, root)
+            level = inp.weights.encode_distances(dist)
         else:
             level = bfs_levels(g, root)
             parent = bfs_parents(g, level, root)
         checked.append((i, i, parent, level))
     return compare.Outputs(nnz=g.nnz, src=g.src, dst=g.dst, degree=g.degree,
-                           weight=w, search_keys=list(range(n_searches)),
+                           weight=inp.weights.encode_weights(w) if sssp else None,
+                           search_keys=list(range(n_searches)),
                            search_edges=m[:n_searches], checked=checked,
                            search_roots=[(int(c[2][int(roots[c[1]])]), int(c[3][int(roots[c[1]])]))
                                          for c in checked])
 
 
-def run_control(doc: dict, seed: int, device, n_searches: int, checked: bool = False) -> dict:
+def run_control(doc: dict, weights, seed: int, device, n_searches: int,
+                checked: bool = False) -> dict:
     """The compared numbers of the control on the cell's timed graph (or,
     with ``checked``, on the graph a run of ``seed`` checks), its first
-    ``n_searches`` keys in an order drawn from ``seed``."""
+    ``n_searches`` keys in an order drawn from ``seed``; ``weights`` is the
+    configuration's weight scheme."""
     dev = torch.device(device)
     v = 1 << doc["scale"]
     gseed = inputs.checked_graph_seed(seed) if checked else doc["graph_seed"]
@@ -59,8 +64,7 @@ def run_control(doc: dict, seed: int, device, n_searches: int, checked: bool = F
     order = torch.randperm(len(keys), generator=torch.Generator().manual_seed(seed))
     keys = keys[order.to(dev)]
     inp = compare.Inputs(src=src, dst=dst, num_vertices=v, keys=keys,
-                         kernel=doc["kernel"], seed=gseed,
-                         max_weight=doc.get("max_weight", 255))
+                         kernel=doc["kernel"], seed=gseed, weights=weights, doc=doc)
     out = control_outputs(doc, inp, n_searches)
     res = compare.compare(out, inp)
     return {"numbers": res["numbers"], "correct": compare.verdict(res["numbers"])}

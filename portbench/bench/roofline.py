@@ -23,6 +23,18 @@ def bound_s(n_bytes: float, n_ops: float) -> float:
     return max(n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S)
 
 
+def sssp_relax_bound_s(frontier_entries: int, rounds: int, vertices: int) -> float:
+    """The ``sssp_relax`` call of each of ``rounds`` rounds over ``vertices``
+    vertices, whose frontiers' rows hold ``frontier_entries`` entries in all:
+    the frontier's scan reads each vertex's frontier degree (int32, 4 B), and
+    the relax each frontier entry's destination and weight (int32 each,
+    8 B), an add and a compare.  Left out, so the count stays a lower bound:
+    the scan's second read of the degrees, the frontier list it writes and
+    the relax reads back, the rows' offsets, and the packed state's reads
+    and atomics, which the L2 holds at scale 22 (8 B a vertex)."""
+    return bound_s(4 * vertices * rounds + 8 * frontier_entries, 2 * frontier_entries)
+
+
 def frontier_update_bound_s(words: int) -> float:
     """``frontier_update`` over int32 bitmaps of ``words`` words: reads the
     raw delta and the visited map, writes the next frontier and the new

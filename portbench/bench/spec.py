@@ -11,9 +11,17 @@ per-layer metric is found by its name:
                  and ``window(prog, mix, seed, rec)``, which drive the
                  program (see :mod:`portbench.bench.cell`)
   per-layer      ``portbench/metrics/<metric>.py`` (a ``read(ctx)`` function)
+  edge weights   ``portbench/weights/<scheme>.py``, named by a configuration's
+                 ``"weights"`` key (``hash_int`` where it has none): the
+                 weights' definition and their control (``reference``), how
+                 to read the program's weight and answer planes
+                 (``decode_weights``, ``decode_distances``) and to write the
+                 reference's answers in them (``encode_weights``,
+                 ``encode_distances``), whether a weight can be 0
+                 (``ZERO_WEIGHTS``), and the program's knobs (``program_kw``)
 
-so a later cell, configuration, mix, kind or metric is a new file and a new
-entry, with no edit to the harness.
+so a later cell, configuration, mix, kind, metric or weight scheme is a new
+file and a new entry, with no edit to the harness.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from pathlib import Path
 
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+#: The weight scheme of a configuration that names none.
+DEFAULT_WEIGHTS = "hash_int"
 
 
 @dataclass(frozen=True)
@@ -87,6 +97,13 @@ class Benchmark:
         """The module ``portbench/traffic/<name>.py`` of a traffic kind."""
         return _module(self.bench_dir / "traffic" / f"{_checked(name)}.py",
                        "portbench_traffic_" + name)
+
+    def weights(self, name: str | None = None):
+        """The module ``portbench/weights/<name>.py`` of a weight scheme;
+        ``hash_int`` when ``name`` is None."""
+        name = DEFAULT_WEIGHTS if name is None else name
+        return _module(self.bench_dir / "weights" / f"{_checked(name)}.py",
+                       "portbench_weights_" + name)
 
     def metrics_for(self, cell: str, trace: bool) -> list[Metric]:
         ms = self.per_layer if trace else self.end_to_end

@@ -39,10 +39,11 @@ def main(argv=None) -> int:
     bench = Benchmark(ROOT)
     cell = bench.cell(args.workload)
     doc = bench.config(cell.config)
+    weights = bench.weights(doc.get("weights"))
     for seed in (int(s) for s in args.seeds.split(",")):
         for graph in ("timed", "checked"):
             t0 = time.perf_counter()
-            res = run_control(doc, seed, "cuda", args.searches, checked=graph == "checked")
+            res = run_control(doc, weights, seed, "cuda", args.searches, checked=graph == "checked")
             print(json.dumps({"workload": cell.name, "seed": seed, "graph": graph, **res,
                               "seconds": time.perf_counter() - t0}), flush=True)
             torch.cuda.empty_cache()

@@ -31,14 +31,19 @@ def _mix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def edge_weights(u: torch.Tensor, v: torch.Tensor, *, seed: int, max_weight: int,
-                 bits: int | None = None) -> torch.Tensor:
-    """int64 weights in [1, max_weight] of the entries u -> v."""
+def pair_hash(u: torch.Tensor, v: torch.Tensor, *, seed: int) -> torch.Tensor:
+    """int64 in [0, 2^32): the 32-bit finalizer hash of the sorted pair
+    (min(u, v), max(u, v)) and ``seed``, so symmetric in u and v."""
     a = torch.minimum(u, v).to(torch.int64) & U32
     b = torch.maximum(u, v).to(torch.int64) & U32
     h = _mix32((_mul32(a, 0x9E3779B9) + (int(seed) & U32)) & U32)
-    h = _mix32(h ^ _mul32(b, 0x85EBCA6B))
-    w = 1 + h % int(max_weight)
+    return _mix32(h ^ _mul32(b, 0x85EBCA6B))
+
+
+def edge_weights(u: torch.Tensor, v: torch.Tensor, *, seed: int, max_weight: int,
+                 bits: int | None = None) -> torch.Tensor:
+    """int64 weights in [1, max_weight] of the entries u -> v."""
+    w = 1 + pair_hash(u, v, seed=seed) % int(max_weight)
     if bits is not None:
         w = w | ((1 << (8 - bits)) - 1)
     return w

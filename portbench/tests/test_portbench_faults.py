@@ -119,6 +119,7 @@ def test_the_control_is_not_correct(name):
     doc = {**b.config(c.config), **SMALL}
     for seed in (SEED, SEED + 1, SEED + 2):
         for checked in (False, True):
-            res = run_control(doc, seed, "cpu", 4, checked=checked)
+            res = run_control(doc, b.weights(doc.get("weights")), seed, "cpu", 4,
+                              checked=checked)
             assert res["correct"] is False
             assert res["numbers"]["graph_mismatch"] > 0

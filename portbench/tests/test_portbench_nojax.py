@@ -44,8 +44,8 @@ def _imports(path: Path) -> set:
 @pytest.mark.parametrize("path", sorted(BENCH.rglob("*.py")), ids=lambda p: str(p.relative_to(BENCH)))
 def test_no_file_imports_jax_or_the_jax_package(path):
     assert not _imports(path) & set(cell.FORBIDDEN)
-    if "reference" in path.parts or path.name in ("compare.py", "control.py", "inputs.py",
-                                                  "teps.py", "roofline.py"):
+    if ({"reference", "weights"} & set(path.parts)
+            or path.name in ("compare.py", "control.py", "inputs.py", "teps.py", "roofline.py")):
         assert "repro_torch" not in _imports(path)
 
 

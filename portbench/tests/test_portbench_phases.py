@@ -92,26 +92,15 @@ def test_the_bfs_readers_on_the_hand_made_trace():
     assert b.reader("launch_idle_ms_per_level.bfs")(ctx) == pytest.approx(0.095 / 2)
 
 
-def test_the_sssp_readers_on_the_hand_made_trace(monkeypatch):
+def test_the_sssp_readers_on_the_hand_made_trace():
     b = Benchmark(ROOT)
     ctx = _ctx("sssp", SSSP, [2, 1])
     assert phases.of(ctx, "sssp").steps == sum(ctx.levels)
     assert b.reader("sync_idle_ms_per_round.sssp")(ctx) == pytest.approx(0.030 / 3)
-    cell.load_program(ROOT)
-    from repro_torch import tracing
-    monkeypatch.setattr(tracing, "_counts", {"sssp.frontier_edges": 30,
-                                             "sssp.scanned_edges": 1200})
-    assert b.reader("useful_edge_share.sssp")(ctx) == pytest.approx(2.5)
-    assert b.reader("useful_edge_share.sssp")(_ctx("sssp", None, [2, 1])) is None
-    monkeypatch.setattr(tracing, "_counts", {})
-    assert b.reader("useful_edge_share.sssp")(ctx) is None
-    monkeypatch.setitem(sys.modules, "repro_torch.tracing", None)   # a program without it
-    assert b.reader("useful_edge_share.sssp")(ctx) is None
 
 
 NEW = ("host_ms_per_level.bfs", "syncs_per_level.bfs", "sync_idle_ms_per_level.bfs",
-       "launch_idle_ms_per_level.bfs", "sync_idle_ms_per_round.sssp",
-       "useful_edge_share.sssp")
+       "launch_idle_ms_per_level.bfs", "sync_idle_ms_per_round.sssp")
 
 
 @pytest.mark.parametrize("name", NEW)
@@ -122,8 +111,7 @@ def test_a_reader_leaves_the_metric_out_without_its_marks(name):
     tr = BFS if kernel == "bfs" else SSSP
     assert b.reader(name)(_ctx(other, tr, [2])) is None
     assert b.reader(name)(_ctx(kernel, None, [2])) is None
-    if name != "useful_edge_share.sssp":
-        assert b.reader(name)(_ctx(kernel, TR, [3, 5])) is None   # a program without marks
+    assert b.reader(name)(_ctx(kernel, TR, [3, 5])) is None   # a program without marks
 
 
 def test_marks_leave_the_device_metrics_unchanged():
@@ -135,7 +123,6 @@ def test_marks_leave_the_device_metrics_unchanged():
                                                   ("done", 295)]), key=lambda h: h[1]),
                          TR.launches)
     for name, kernel in [("idle_share.bfs", "bfs"), ("ops_per_level.bfs", "bfs"),
-                         ("scatter_min_ms_per_search.sssp", "sssp"),
                          ("idle_share.sssp", "sssp"), ("ops_per_round.sssp", "sssp")]:
         before = b.reader(name)(_ctx(kernel, TR, [3, 5]))
         assert before is not None

@@ -11,6 +11,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from portbench.bench import compare, roofline, teps  # noqa: E402
+from portbench.bench.spec import Benchmark  # noqa: E402
 from portbench.reference.graph import build_graph  # noqa: E402
 from portbench.reference.search import (  # noqa: E402
     bfs_levels, bfs_parents, components, sssp_distances, sssp_parents, traversed_edges,
@@ -114,7 +115,8 @@ def test_comparison_counts_each_kind_of_fault():
 
 def test_sssp_comparison_checks_weights():
     inp = compare.Inputs(src=SRC, dst=DST, num_vertices=6, keys=torch.tensor([0]),
-                         kernel="sssp", seed=9)
+                         kernel="sssp", seed=9, weights=Benchmark(ROOT).weights("hash_int"),
+                         doc={"max_weight": 255})
     g = build_graph(SRC, DST, 6)
     w = edge_weights(g.src, g.dst, seed=9, max_weight=255)
     d = sssp_distances(g, w, 1)
@@ -143,3 +145,11 @@ def test_core_spmv_bytes_follow_the_first_hit():
     assert roofline.core_spmv_bound_s(out, words) == pytest.approx(expect)
     assert roofline.frontier_update_bound_s(1024) == pytest.approx(
         (16 * 1024 + 4) / roofline.HBM_BYTES_PER_S)
+
+
+def test_sssp_relax_bytes_are_the_scan_and_the_frontier_rows():
+    # two rounds over 1,000 vertices whose frontiers hold 5,000 entries
+    assert roofline.sssp_relax_bound_s(5000, 2, 1000) == pytest.approx(
+        (4 * 1000 * 2 + 8 * 5000) / roofline.HBM_BYTES_PER_S)
+    # scale 22, a search's 21 rounds over its 420,937,999 entries: about 1.1 ms
+    assert 1.0e-3 < roofline.sssp_relax_bound_s(420_937_999, 21, 1 << 22) < 1.2e-3

@@ -68,7 +68,6 @@ def test_readers_on_the_hand_made_trace():
     assert b.reader("idle_share.bfs")(sssp) is None
     assert b.reader("ops_per_level.bfs")(bfs) == pytest.approx(4 / 8)
     assert b.reader("ops_per_round.sssp")(sssp) == pytest.approx(4 / 8)
-    assert b.reader("scatter_min_ms_per_search.sssp")(sssp) == pytest.approx(80 / 1e3 / 2)
     share = b.reader("core_spmv_roofline.bfs")(bfs)
     bound = roofline.core_spmv_bound_s(torch.tensor([0, 40]), 8)
     assert share == pytest.approx(100 * bound / 20e-6)
@@ -76,6 +75,31 @@ def test_readers_on_the_hand_made_trace():
     assert fu == pytest.approx(100 * roofline.frontier_update_bound_s(1024) / 2e-6)
     for name in ("core_spmv_roofline.bfs", "frontier_update_roofline.bfs"):
         assert b.reader(name)(_ctx("bfs", trace=None)) is None
+
+
+# one traced SSSP search of three rounds: the relax's four kernels, 300 us of
+# device time between them, beside a kernel of another name
+RELAX = trace.Trace(
+    spans=[(0.0, 1000.0)],
+    device=[("sssp_relax_count_kernel", 0.0, 20.0), ("sssp_relax_offsets_kernel", 20.0, 30.0),
+            ("sssp_relax_compact_kernel", 30.0, 50.0), ("sssp_relax_kernel", 50.0, 300.0),
+            ("reduce_kernel", 300.0, 400.0)],
+    host=[])
+
+
+def test_the_sssp_relax_roofline():
+    b = Benchmark(ROOT)
+    read = b.reader("sssp_relax_roofline.sssp")
+    ctx = _ctx("sssp", trace=RELAX, levels=[3], num_vertices=1 << 10,
+               counters={"sssp.frontier_edges": 40_000})
+    bound = (4 * 1024 * 3 + 8 * 40_000) / roofline.HBM_BYTES_PER_S
+    assert read(ctx) == pytest.approx(100 * bound / 300e-6)
+    assert 0 < read(ctx) <= 100
+    assert read(_ctx("sssp", trace=RELAX, levels=[3], num_vertices=1 << 10)) is None  # no counter
+    assert read(_ctx("sssp", levels=[3], num_vertices=1 << 10,
+                     counters={"sssp.frontier_edges": 40_000})) is None  # no relax kernel
+    assert read(_ctx("bfs", trace=RELAX, levels=[3],
+                     counters={"sssp.frontier_edges": 40_000})) is None
 
 
 def test_readers_without_a_trace_leave_the_metric_out():
