@@ -21,7 +21,25 @@ per-layer metric is found by its name:
                  (``ZERO_WEIGHTS``), and the program's knobs (``program_kw``)
 
 so a later cell, configuration, mix, kind, metric or weight scheme is a new
-file and a new entry, with no edit to the harness.
+file and a new entry, with no edit to the harness or its tests.
+
+Adding a cell: the change adds, as new files, its configuration under
+``configs/`` (and, where it needs them, a traffic mix, a traffic kind, a
+weight scheme and the readers of new per-layer metrics), and, as new entries
+appended to the lists of ``BENCHMARK.json``, the configuration to
+``configs``, the cell to ``workloads`` and each new metric to ``end_to_end``
+or ``per_layer``.  The one change to an entry that is there: the new cell's
+name appended to the ``workloads`` list of each metric it reports, at least
+``<kernel>_gteps`` of its configuration's kernel and one per-layer metric
+(``setup_s`` has no list: every cell reports it).  Nothing else changes: no
+file there, no bound, no item of a list taken out or reordered.  The tests
+hold the invariants over whatever cells there are
+(``portbench/tests/invariants.py``: found by name, at most 24 cells, 1 or 4
+chips with at most a quarter of the cells, or one, on 4, the kernel ``bfs``
+or ``sssp``, the accepted cells present, each pair of configuration and mix
+once, each cell's kernel metric reported), and run the faults of
+``correct`` on every one-chip cell; a four-chip cell brings its own, the
+exchange between chips left out among them.
 """
 from __future__ import annotations
 

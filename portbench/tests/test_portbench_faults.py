@@ -2,7 +2,11 @@
 for a card skipped): true for the program as it is, false with the timed
 path broken underneath, once per fault a cell can have, and false for the
 control (the reference with one guarantee broken in the program's place).
-Neither cell has an exchange between chips to leave out: both run on one."""
+
+The cases are every one-chip cell of ``BENCHMARK.json``, each with the
+metrics its entries say it reports.  A one-chip cell has no exchange
+between chips to leave out.  A four-chip cell brings its own faults,
+the exchange left out among them, in the change that adds it."""
 import sys
 import time
 from pathlib import Path
@@ -17,8 +21,10 @@ if str(ROOT) not in sys.path:
 from portbench.bench import cell  # noqa: E402
 from portbench.bench.control import run_control  # noqa: E402
 from portbench.bench.spec import Benchmark  # noqa: E402
+from portbench.tests import invariants  # noqa: E402
 
-CELLS = ["bfs-spec-s22", "sssp-spec-s22"]
+BENCH = Benchmark(ROOT)
+CELLS = invariants.one_chip_cells(ROOT)
 SMALL = {"scale": 9, "search_keys": 16}
 SEED = 2**31 + 77
 
@@ -41,17 +47,35 @@ def test_the_program_as_it_is_is_correct(name):
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] > 0
     assert list(r)[-1] == "checks"
     assert all(c["value"] == 0 for c in r["checks"].values())
-    metric = "bfs_gteps" if name.startswith("bfs") else "sssp_gteps"
-    assert set(r["metrics"]) == {metric, "setup_s"}
+    metric = invariants.kernel_metric(BENCH, name)
+    # the end-to-end metrics the entries give the cell, each taken on the host
+    assert set(r["metrics"]) == {m.name for m in BENCH.metrics_for(name, trace=False)
+                                 if m.source == "host_clock"}
     assert r["metrics"][metric]["value"] > 0
+
+
+def _readable_without_a_device_trace(name, counters):
+    """The per-layer metrics of a cell that a run with no device trace can
+    read: not those of the device trace, and of the others those whose
+    reader gives a value from what such a run holds (the program's spans
+    and counters, the host's clock)."""
+    ctx = cell.Context(kernel=invariants.kernel_of(BENCH, name), setup_s=1.0,
+                       times_s=[0.1, 0.2], edges=[10, 10], construction_s=0.5,
+                       levels=[3, 4], num_vertices=1 << SMALL["scale"], counters=counters)
+    return {m.name for m in BENCH.metrics_for(name, trace=True)
+            if m.source != "device_trace" and BENCH.reader(m.name)(ctx) is not None}
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_traced_run_reports_its_layer_metrics_it_can_read(name):
+    cell.load_program(ROOT)
+    from repro_torch import tracing
+    before = tracing.counters()
     r = _run(name, trace=True)
+    counters = {k: n - before.get(k, 0) for k, n in tracing.counters().items()}
     assert r["correct"] is True
-    # no device trace on the CPU: only the program's own span is read
-    assert set(r["metrics"]) == {"construction_s"}
+    # no device trace on the CPU: only what the program and the host give
+    assert set(r["metrics"]) == _readable_without_a_device_trace(name, counters)
 
 
 def _unchanged(monkeypatch):
@@ -107,19 +131,17 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     assert r["correct"] is False
     assert r["failed"] > 0
     if fault is _half_left_out:      # every stale answer, sampled or not
-        checked = Benchmark(ROOT).traffic("spec_keys")["checked_searches"]
+        checked = BENCH.traffic(BENCH.cell(name).traffic)["checked_searches"]
         assert r["checks"]["root_invalid"]["value"] >= (r["attempted"] - checked) // 2 - 1
         assert r["checks"]["seeded_root_invalid"]["value"] >= checked // 2 - 1
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(name):
-    b = Benchmark(ROOT)
-    c = b.cell(name)
-    doc = {**b.config(c.config), **SMALL}
+    doc = {**BENCH.config(BENCH.cell(name).config), **SMALL}
     for seed in (SEED, SEED + 1, SEED + 2):
         for checked in (False, True):
-            res = run_control(doc, b.weights(doc.get("weights")), seed, "cpu", 4,
+            res = run_control(doc, BENCH.weights(doc.get("weights")), seed, "cpu", 4,
                               checked=checked)
             assert res["correct"] is False
             assert res["numbers"]["graph_mismatch"] > 0

@@ -1,6 +1,8 @@
 """BENCHMARK.json and the files it names: discovery by name, the contract's
-names and units, and a cell, configuration, traffic mix, traffic kind and
-metric added as new files."""
+names and units, the invariants of whatever cells it holds
+(:mod:`portbench.tests.invariants`), each shown to fail where broken, and a
+cell, configuration, traffic mix, traffic kind and metric added as new
+files."""
 import json
 import re
 import shutil
@@ -17,6 +19,7 @@ if str(ROOT) not in sys.path:
 from portbench.bench.spec import NAME_RE, UNIT_RE, Benchmark  # noqa: E402
 from portbench.bench import cell  # noqa: E402
 from portbench.bench.cell import Context  # noqa: E402
+from portbench.tests import invariants  # noqa: E402
 
 DOC = json.loads((ROOT / "BENCHMARK.json").read_text())
 SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
@@ -57,29 +60,90 @@ def test_metric_entries(metric):
 
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
-    b = Benchmark(ROOT)
-    for cell in b.cells:
-        e2e = [m.name for m in b.metrics_for(cell, trace=False)]
-        assert "setup_s" in e2e and len(e2e) >= 2
-        assert b.metrics_for(cell, trace=True)
+    """``setup_s``, the end-to-end metric of the cell's kernel, and a layer."""
+    assert invariants.reports(ROOT) == []
 
 
 def test_cells_configs_traffic_and_readers_are_found_by_name():
-    b = Benchmark(ROOT)
-    assert set(b.cells) == {"bfs-spec-s22", "sssp-spec-s22"}
-    for c in DOC["configs"]:
-        assert (ROOT / c["file"]).is_file()
-        assert c["file"].startswith("portbench/configs/")
-        doc = b.config(c["name"])
-        for key in c["reduced"]:
-            assert key in doc["reduced_from"]
-    for cell in b.cells.values():
-        assert cell.chips == 1
-        assert b.config(cell.config)["kernel"] in ("bfs", "sssp")
-        kind = b.kind(b.traffic(cell.traffic)["kind"])
-        assert callable(kind.warm) and callable(kind.window)
-    for m in b.end_to_end + b.per_layer:
-        assert callable(b.reader(m.name))
+    """And every other invariant of :mod:`portbench.tests.invariants`."""
+    assert invariants.problems(ROOT) == []
+
+
+def _cell(doc, name, config="g500-sssp-s22", chips=1, traffic="spec_keys", reports=None):
+    """Appends a cell, and its name to the ``workloads`` of the metrics named
+    in ``reports`` (by default its kernel's end-to-end metric and the
+    per-layer metrics of its kernel)."""
+    doc["workloads"].append({"name": name, "config": config, "traffic": traffic,
+                             "chips": chips, "why": "a test"})
+    kernel = "bfs" if "bfs" in config else "sssp"
+    if reports is None:
+        reports = [m["name"] for m in doc["end_to_end"] + doc["per_layer"]
+                   if m["name"] == kernel + "_gteps" or m["name"].endswith("." + kernel)]
+    for m in doc["end_to_end"] + doc["per_layer"]:
+        if m["name"] in reports and "workloads" in m:
+            m["workloads"].append(name)
+
+
+def _two_chips(doc, root):
+    _cell(doc, "sssp-two-s22", chips=2, traffic="spec_keys_0")
+
+
+def _twenty_five(doc, root):
+    for i in range(25 - len(doc["workloads"])):
+        _cell(doc, f"sssp-more-{i}", traffic=f"spec_keys_{i}")
+
+
+def _two_four_chip(doc, root):
+    # a second four-chip cell beside three one-chip cells
+    _cell(doc, "sssp-one-s22", traffic="spec_keys_0")
+    _cell(doc, "bfs-four-a", config="g500-bfs-s22", chips=4, traffic="spec_keys_1")
+    _cell(doc, "bfs-four-b", config="g500-bfs-s22", chips=4, traffic="spec_keys_2")
+
+
+def _no_kernel_metric(doc, root):
+    # an SSSP cell that reports BFS's end-to-end metric and SSSP's layers:
+    # setup_s and another end-to-end metric, but not its kernel's
+    _cell(doc, "sssp-wrong-s22", traffic="spec_keys_0",
+          reports=["bfs_gteps", "relax_ms_per_search.sssp"])
+
+
+def _accepted_gone(doc, root):
+    doc["workloads"] = [w for w in doc["workloads"] if w["name"] != "bfs-spec-s22"]
+
+
+def _same_pair(doc, root):
+    _cell(doc, "sssp-again-s22")
+
+
+def _other_kernel(doc, root):
+    cfg = json.loads((root / "portbench/configs/g500-sssp-s22.json").read_text())
+    cfg["kernel"] = "pagerank"
+    (root / "portbench/configs/g500-pr-s22.json").write_text(json.dumps(cfg))
+    doc["configs"].append({"name": "g500-pr-s22", "source": "a test",
+                           "file": "portbench/configs/g500-pr-s22.json",
+                           "reduced": ["scale"], "why": "a test"})
+
+
+@pytest.mark.parametrize("change,invariant", [
+    (_two_chips, invariants.chips), (_twenty_five, invariants.cell_count),
+    (_two_four_chip, invariants.chips), (_no_kernel_metric, invariants.reports),
+    (_accepted_gone, invariants.accepted_cells), (_same_pair, invariants.pairs),
+    (_other_kernel, invariants.kernels),
+], ids=["two_chips", "25_cells", "second_four_chip_cell", "no_kernel_metric",
+        "accepted_cell_gone", "pair_twice", "other_kernel"])
+def test_a_benchmark_that_breaks_an_invariant_fails_it(tmp_path, change, invariant):
+    """Each invariant, held by the benchmark as it is, fails on a copy that
+    breaks it and no other."""
+    _, doc = _tmp_benchmark(tmp_path)
+    mix = (ROOT / "portbench/traffic/spec_keys.json").read_text()
+    for i in range(24):     # a mix of its own for each added cell
+        (tmp_path / "portbench/traffic" / f"spec_keys_{i}.json").write_text(mix)
+    change(doc, tmp_path)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(doc))
+    assert invariant(ROOT) == []
+    assert invariant(tmp_path) != []
+    assert [p for f in invariants.INVARIANTS if f is not invariant
+            for p in f(tmp_path)] == []
 
 
 def _tmp_benchmark(tmp_path):
