@@ -214,7 +214,12 @@ non-zero and no result line is printed:
      ``meta`` and once on the card: the FLOPs by dtype equal, the roofline's
      largest term no more than the phase's measured ms, the achieved share
      of each dtype's peak, and the counter's peak bytes against
-     ``torch.cuda.max_memory_allocated``.
+     ``torch.cuda.max_memory_allocated``;
+ 28. (run right after phase 12) ``bfs_relax`` at the BFS benchmark cell's
+     shapes: scale 22, ``pre-g500``, one search with one launch a level;
+     its largest top-down level and its first bottom-up level timed against
+     the plain version and the byte bound, parents and the count of entries
+     read equal to the plain version's (``time_bfs_relax``).
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -1332,6 +1337,115 @@ def time_sssp_relax(device) -> dict:
         f"version's")
     out = dict(ms=ms, plain_ms=plain_ms, bound=bound, launches=launches)
     del best, st, ch, want, compiled, built
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_bfs_relax(device) -> dict:
+    """Phase 28: ``bfs_relax`` at the BFS benchmark cell's shapes (scale 22,
+    the ``pre-g500`` rung over the degree-sorted Kronecker graph of graph
+    seed 2): one search's level with the most frontier entries among its
+    top-down levels, and its first bottom-up level (after the core step),
+    are kept, and the kernel and the plain version are timed on each, the
+    parents restored before each call; the kernel's parents and its count
+    of entries read equal the plain version's.  The bounds are bytes: top-
+    down the frontier's rows (int32 dst, 4 B an entry) and the frontier
+    bitmap (4 B a word), bottom-up each vertex's parent (4 B) and the row
+    entries the walks read (4 B each), each read once, over the memory
+    rate; the bitmaps' random reads and the atomics stay in the L2."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.heavy import unpack_bitmap
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import ops, ref
+    cfg = pipeline.Graph500Config.ladder("pre-g500", scale=SCALE_RELAX, n_roots=1, seed=2,
+                                         device=device)
+    built = pipeline.build(cfg)
+    compiled = compile_plan(cfg.to_plan(), built, device=device)
+    key = int(pipeline.search_keys(cfg, built)[0])
+    rows, degree = compiled.bfs_rows, built.degree
+    kept: dict = {}
+    real_td, real_bu = ops.bfs_relax_top_down, ops.bfs_relax_bottom_up
+
+    def keep_td(frontier_bm, visited_bm, deg, row_start, dst, parent_ext):
+        front = unpack_bitmap(frontier_bm, deg.shape[0])
+        entries = int(deg[front].sum())
+        if entries > kept.get("td", {}).get("entries", -1):
+            kept["td"] = dict(entries=entries, n_front=int(front.sum()),
+                              args=(frontier_bm.clone(), visited_bm.clone()),
+                              parent=parent_ext.clone())
+        return real_td(frontier_bm, visited_bm, deg, row_start, dst, parent_ext)
+
+    def keep_bu(frontier_bm, parent_ext, *rest):
+        if "bu" not in kept:
+            kept["bu"] = dict(args=(frontier_bm.clone(),), parent=parent_ext.clone(),
+                              unvisited=int((parent_ext[:-1] == parent_ext.shape[0] - 1).sum()))
+        return real_bu(frontier_bm, parent_ext, *rest)
+
+    ops.bfs_relax_top_down, ops.bfs_relax_bottom_up = keep_td, keep_bu
+    try:
+        ops.reset_launch_counts()
+        res = compiled.bfs(key)
+        sync(device)
+        launches = ops.launch_counts()["bfs_relax"]
+    finally:
+        ops.bfs_relax_top_down, ops.bfs_relax_bottom_up = real_td, real_bu
+    levels = int(res.stats.levels)
+    n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
+    if launches != levels or "td" not in kept or "bu" not in kept:
+        raise AssertionError(f"bfs_relax: {launches} launches over {levels} levels "
+                             f"({n_bu} bottom-up)")
+    v = built.n_vertices
+    out = dict(launches=launches, levels=levels, n_bu=n_bu)
+    for side in ("td", "bu"):
+        k = kept[side]
+        p = k["parent"].clone()
+        read = torch.zeros((), dtype=torch.int64, device=device)
+
+        def call(fn, p=p, k=k, read=read, side=side):
+            p.copy_(k["parent"])
+            read.zero_()
+            if side == "td":
+                fn(*k["args"], degree, rows.row_start, rows.dst, p)
+            else:
+                fn(k["args"][0], p, degree, rows.row_start, rows.dst, rows.core_deg, read)
+
+        def timed(fn, reps):
+            times = []
+            for _ in range(reps):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                p.copy_(k["parent"])
+                read.zero_()
+                e0.record()
+                call(fn)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            return statistics.median(times)
+
+        plain = (ref.bfs_relax_top_down_ref, ref.bfs_relax_bottom_up_ref)[side == "bu"]
+        kernel = (ops.bfs_relax_top_down, ops.bfs_relax_bottom_up)[side == "bu"]
+        plain_ms = timed(plain, 5)
+        want = (p.clone(), int(read))
+        ms = timed(kernel, 30)
+        if not torch.equal(p, want[0]) or int(read) != want[1]:
+            raise AssertionError(f"bfs_relax ({side}): the kernel's parents or entries read "
+                                 f"differ from the plain version's on the kept level")
+        if side == "td":
+            bound = bound_ms(4 * k["entries"] + 4 * k["args"][0].shape[0], 0)
+            what = (f"top-down level with most frontier entries: {k['n_front']} frontier "
+                    f"vertices, {k['entries']} entries; bound 4 B an entry + 4 B a word")
+        else:
+            bound = bound_ms(4 * v + 4 * want[1], 0)
+            what = (f"first bottom-up level: {k['unvisited']} vertices without a parent "
+                    f"after the core step, {want[1]} row entries read; bound 4 B a "
+                    f"vertex + 4 B an entry read")
+        log(f"    bfs_relax at scale {SCALE_RELAX} (key {key}, {levels} levels, {n_bu} "
+            f"bottom-up, {launches} launches), {what}: kernel {ms:.6f} ms (median of 30, "
+            f"CUDA events), plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
+            f"({bound[1]}); parents and count equal the plain version's")
+        out[side] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+    del kept, compiled, built, res
     torch.cuda.empty_cache()
     return out
 
@@ -3413,6 +3527,9 @@ def main() -> int:
     sssp_rows = sssp_phase(device)
     relax_t = time_sssp_relax(device)
 
+    log(f"[28] bfs_relax at scale {SCALE_RELAX} (run after phase 12)")
+    bfs_relax_t = time_bfs_relax(device)
+
     log(f"[13] checked execution at scale {SCALE_MAIN} (phase 5's graph and keys)")
     t0 = time.perf_counter()
     checked = checked_execution(cfg_b, built, roots, res_root.parent, device)
@@ -3570,6 +3687,16 @@ def main() -> int:
              ms=relax_t["ms"], plain_ms=relax_t["plain_ms"],
              bound_ms=relax_t["bound"][0], bound_by=relax_t["bound"][1],
              library_ms=None),
+        # bfs_relax: one scale-22 search's launches; ms on its largest
+        # top-down level, bu_* on its first bottom-up level
+        dict(name="bfs_relax", route="cuda",
+             source="src/repro_torch/kernels/csrc/bfs_relax.cu",
+             replaces="none (the JAX engine's jnp scatter-min over edge lanes)",
+             launches=bfs_relax_t["launches"], max_abs_err=0,
+             ms=bfs_relax_t["td"]["ms"], plain_ms=bfs_relax_t["td"]["plain_ms"],
+             bound_ms=bfs_relax_t["td"]["bound"][0], bound_by=bfs_relax_t["td"]["bound"][1],
+             bu_ms=bfs_relax_t["bu"]["ms"], bu_plain_ms=bfs_relax_t["bu"]["plain_ms"],
+             bu_bound_ms=bfs_relax_t["bu"]["bound"][0], library_ms=None),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,11 +23,15 @@ level starts with the ``core_spmv`` kernel over the dense heavy core.
 JAX's ``lax.while_loop`` becomes a host loop that synchronises each level
 on the size of the next frontier (the bitmap engine reads it from its
 epilogue kernel's popcount); the direction switch is then decided on the
-host.  ``lax.cond`` over the edge chunks becomes a gather of the live
-chunks, so a top-down level of the bitmap engines synchronises again:
-``torch.nonzero`` reads the live chunks' count back.  Each level also
-writes its direction and frontier size (and, in the bitmap engines, its
-chunk count) into the stats from host ints, and each such write is a
+host.  A top-down level of the bitmap engines synchronises again on the
+count of the live edge chunks (the chunks ``lax.cond`` relaxes, and the
+``scanned_chunks`` stat): the vertex-sharded engine gathers those chunks
+and relaxes their lanes, while the single-device engine relaxes with the
+hand-written ``bfs_relax`` kernel, one call a level over the rows of
+:func:`bfs_rows`: the frontier's rows top-down, each unvisited vertex's
+row up to its first frontier neighbour bottom-up.  Each level also writes
+its direction and frontier size (and, in the bitmap engines, its chunk
+count) into the stats from host ints, and each such write is a
 host-to-device copy that synchronises.  The single-device bitmap engine
 marks its phases for ``torch.profiler`` (:mod:`repro_torch.tracing`).  The
 outputs (parent, level and every stats trace) are bitwise equal to the JAX
@@ -52,6 +56,7 @@ from repro_torch.core.heavy import HeavyCore, pack_bitmap, padded_bitmap_words, 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bitmap_ops import WORDS_PER_TILE
 from repro_torch.kernels.ref import BIG, popcount_u32
+from repro_torch import tracing
 from repro_torch.tracing import mark, recording
 
 MAX_LEVELS = 64
@@ -201,19 +206,45 @@ def _run_legacy(ev: EdgeView, degree: torch.Tensor, n_active: int, root: int,
 # The bitmap-resident engine.
 # ---------------------------------------------------------------------------
 
-def bottom_up_tail(chunks: ChunkedEdgeView, core: HeavyCore | None):
-    """(src, dst) of the valid edges a bottom-up level relaxes after the
-    core step: every valid edge but the core-to-core ones.
+@dataclasses.dataclass
+class BFSRows:
+    """The rows the bitmap engine's relax walks: vertex u's neighbours are
+    entries ``[row_start[u], row_start[u] + degree[u])`` of ``dst``, in
+    ascending order, and the first ``core_deg[u]`` of a core row (u below
+    ``len(core_deg)``) lie inside the dense core."""
 
-    Compacted once per graph.  The JAX engine masks the same edges in
-    place; a scatter-min gives the same parents either way.
-    """
-    src = chunks.src.reshape(-1)
-    dst = chunks.dst.reshape(-1)
-    keep = chunks.valid.reshape(-1)
-    if core is not None:
-        keep = keep & ~((src < core.k) & (dst < core.k))
-    return src[keep], dst[keep]
+    row_start: torch.Tensor   # [V] int64
+    dst: torch.Tensor         # [E_pad] int32
+    core_deg: torch.Tensor    # [min(K, V)] int32; empty without a core
+
+
+def bfs_rows(ev: EdgeView, degree: torch.Tensor, core: HeavyCore | None) -> BFSRows:
+    """The rows of ``ev`` (set-up, once a plan): the row offsets are the
+    exclusive cumulative sum of ``degree``.  Raises unless the valid entries
+    are the first ``sum(degree)``, padding only after them, their sources
+    run through the vertices in order, ``degree[u]`` entries each, and each
+    row ascends (the layout ``build_csr`` gives: the bottom-up walk stops at
+    a row's first frontier neighbour, which must be its least)."""
+    v = ev.num_vertices
+    if degree.shape != (v,):
+        raise ValueError(f"degree has shape {tuple(degree.shape)}, the view {v} vertices")
+    ends = torch.cumsum(degree, 0, dtype=torch.int64)
+    n = int(ends[-1]) if v else 0
+    ids = torch.arange(v, dtype=torch.int32, device=degree.device)
+    src, dst = ev.src[:n], ev.dst[:n]
+    if (n > ev.valid.shape[0] or not bool(ev.valid[:n].all())
+            or bool(ev.valid[n:].any())
+            or not torch.equal(src, torch.repeat_interleave(ids, degree, output_size=n))
+            or bool(((dst[1:] < dst[:-1]) & (src[1:] == src[:-1])).any())):
+        raise ValueError("the bitmap BFS engine needs a source-sorted edge view with "
+                         "degree[u] entries for each vertex u in order, each row "
+                         "ascending, and the padding after them (the layout build_csr "
+                         "gives)")
+    kk = 0 if core is None else min(core.k, v)
+    in_core = (src < kk) & (dst < kk)
+    core_deg = torch.bincount(src[in_core].to(torch.int64), minlength=kk)[:kk]
+    return BFSRows(row_start=ends - degree, dst=ev.dst.contiguous(),
+                   core_deg=core_deg.to(torch.int32))
 
 
 def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
@@ -234,32 +265,19 @@ def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
     prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], v)))
 
 
-def _relax_edges(sc, dc, vc, frontier_bm, visited_bm, parent_ext, v: int) -> None:
-    """One edge-parallel relax pass in bitmap space, in place.
-
-    Lanes that are not active scatter the sentinel ``v`` into their own
-    destination rather than into the scratch slot ``V``: every parent entry
-    is at most ``v``, so the result is the JAX engine's, and the atomics do
-    not all pile onto one address.  ``vc`` None means every lane is valid.
-    """
-    active = testbit(frontier_bm, sc) & ~testbit(visited_bm, dc)
-    if vc is not None:
-        active &= vc
-    cand = torch.where(active, sc, v)
-    parent_ext.scatter_reduce_(0, dc.long(), cand, "amin", include_self=True)
-
-
 def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                      n_active: int, root: int, core: HeavyCore | None, *,
                      alpha: float, beta: float, max_levels: int,
-                     tail, fault=None) -> BFSResult:
+                     rows: BFSRows, fault=None) -> BFSResult:
     """One bitmap-resident traversal from ``root`` (host loop: a level
     synchronises on the next frontier's size, on each of its three stats
-    written from host ints, and in a top-down level on ``torch.nonzero``'s
-    count of the live chunks).  ``tail`` is :func:`bottom_up_tail` of the
-    graph; ``fault`` a :class:`~repro_torch.core.faults.FaultSpec` whose
-    ``parent`` site corrupts the level's epilogue (None: the clean
-    traversal).
+    written from host ints, and in a top-down level on the count of the live
+    chunks).  ``rows`` is :func:`bfs_rows` of the graph, which a level's
+    relax (one ``bfs_relax`` call) walks: a top-down level the frontier's
+    rows, a bottom-up level each still-unvisited vertex's row up to its
+    first frontier neighbour; ``fault`` a
+    :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
+    corrupts the level's epilogue (None: the clean traversal).
 
     While a ``torch.profiler`` session records, the loop marks its phases
     ``repro_torch.bfs.<phase>`` (:mod:`repro_torch.tracing`), each running
@@ -269,7 +287,11 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     enqueue), ``compact`` (blocked on the live-chunk count), ``epilogue``
     (pack, ``frontier_update``, sentinels, level fill), ``stats`` (one
     before each synchronising write of a host int into the stats: the first
-    blocks on the level's work), ``finish`` (the result) and ``done``."""
+    blocks on the level's work), ``finish`` (the result) and ``done``; and
+    it counts ``bfs.bu_entries_read`` (the row entries the bottom-up relax
+    read, summed on the device) and ``bfs.bu_entries_unvisited`` (the
+    bottom-up levels' unvisited adjacency, ``scanned_edges``), read back
+    once at the end."""
     traced = recording()
     if traced:
         mark("repro_torch.bfs.start")
@@ -278,8 +300,8 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     i32 = torch.int32
     w = padded_bitmap_words(v)
     root = int(root)
-    tail_src, tail_dst = tail
     nnz_total = degree.sum().to(i32)
+    bu_read = torch.zeros((), dtype=torch.int64, device=dev) if traced else None
 
     parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
     parent_ext[root] = root
@@ -327,22 +349,19 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                                          parent_ext, v)
             if traced:
                 mark("repro_torch.bfs.relax")
-            _relax_edges(tail_src, tail_dst, None, frontier_bm, visited_bm,
-                         parent_ext, v)
+            kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
+                                     rows.dst, rows.core_deg, bu_read)
             nsc = chunks.n_chunks  # full scan
         else:
             live_mask = chunk_frontier_mask(chunks, frontier_bm)
             if traced:
                 mark("repro_torch.bfs.compact")
-            # a second synchronisation: nonzero reads its count back
-            live = torch.nonzero(live_mask).squeeze(1)
-            nsc = int(live.numel())
+            # a second synchronisation: the live chunks' count, read back
+            nsc = int(live_mask.sum())
             if traced:
                 mark("repro_torch.bfs.relax")
-            _relax_edges(chunks.src[live].reshape(-1),
-                         chunks.dst[live].reshape(-1),
-                         chunks.valid[live].reshape(-1),
-                         frontier_bm, visited_bm, parent_ext, v)
+            kops.bfs_relax_top_down(frontier_bm, visited_bm, degree, rows.row_start,
+                                    rows.dst, parent_ext)
 
         # Epilogue: pack the newly-found delta, then the fused kernel does
         # mask / merge / popcount in one pass, into the idle pair.
@@ -392,6 +411,12 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
         ),
     )
     if traced:
+        # one copy back a traced search; an untraced one reads nothing back
+        read, unvisited = torch.stack([
+            bu_read, torch.where(stats_dir[:lvl] == BOTTOM_UP, stats_se[:lvl], 0).sum()
+        ]).tolist()
+        tracing.count("bfs.bu_entries_read", read)
+        tracing.count("bfs.bu_entries_unvisited", unvisited)
         mark("repro_torch.bfs.done")
     return result
 

@@ -63,8 +63,8 @@ from repro_torch.core.distributed_bfs import (
 )
 from repro_torch.core.heavy import HeavyCore
 from repro_torch.core.hybrid_bfs import (
-    MAX_LEVELS, SENTINEL_OK, BFSResult, _run_batch, _run_bitmap_impl,
-    _run_bitmap_sharded, _run_legacy, bottom_up_tail, shard_inputs, stack_results,
+    MAX_LEVELS, SENTINEL_OK, BFSResult, BFSRows, _run_batch, _run_bitmap_impl,
+    _run_bitmap_sharded, _run_legacy, bfs_rows, shard_inputs, stack_results,
 )
 from repro_torch.core.kernels import kernel_spec, validate_result_batch
 from repro_torch.core.sssp_steps import (
@@ -390,18 +390,18 @@ def compile_plan(plan: TraversalPlan, built, *, device=None, mesh: Optional[Mesh
     # the BFS kernel consults it.
     core = pg.core if plan.kernel == "bfs" else None
     delta = max_rounds = 0
-    tail = None
+    rows = None
     if plan.kernel == "sssp":
         w = pg.ev.weight if pg.ev is not None else pg.sharded.weight
         delta = bucket_width(int(w.max()))
         max_rounds = sssp_max_rounds(plan.max_levels)
     elif plan.engine == "bitmap" and not vertexy:
-        tail = bottom_up_tail(pg.chunks, core)
+        rows = bfs_rows(pg.ev, pg.degree, core)
     compiled = CompiledBFS(
         plan=plan, graph=pg, device=dev,
         num_vertices=pg.sharded.v_orig if vertexy else pg.ev.num_vertices,
         n_active=pg.sharded.n_active if vertexy else int((pg.degree > 0).sum()),
-        core=core, tail=tail, delta=delta, max_rounds=max_rounds, fault=fault,
+        core=core, bfs_rows=rows, delta=delta, max_rounds=max_rounds, fault=fault,
         mesh=mesh)
     if mesh is not None:
         compiled._lanes = (_vertex_lanes(compiled) if vertexy
@@ -424,25 +424,27 @@ def _root_lanes(c: "CompiledBFS") -> list:
                             else (g.chunks, ("src", "dst", "valid", "src_lo", "src_hi",
                                              "weight")))
             edges = dataclasses.replace(view, **{f: mv(getattr(view, f)) for f in fields})
-            tail = None if c.tail is None else tuple(map(mv, c.tail))
+            rows = None if c.bfs_rows is None else dataclasses.replace(
+                c.bfs_rows, **{f.name: mv(getattr(c.bfs_rows, f.name))
+                               for f in dataclasses.fields(c.bfs_rows)})
             core = (None if c.core is None
                     else dataclasses.replace(c.core, a_core=mv(c.core.a_core)))
-            copies[dev] = (edges, mv(g.degree), core, tail)
+            copies[dev] = (edges, mv(g.degree), core, rows)
         return copies[dev]
 
     p = c.plan
     lanes = []
     for dev in c.mesh.devices:
-        edges, degree, core, tail = on(dev)
+        edges, degree, core, rows = on(dev)
         if p.kernel == "sssp":
             lanes.append(lambda roots, rows=edges, degree=degree: _run_sssp_batch(
                 rows, degree, roots, delta=c.delta, max_rounds=c.max_rounds,
                 fault=c.fault))
         else:
-            lanes.append(lambda roots, chunks=edges, degree=degree, core=core, tail=tail:
+            lanes.append(lambda roots, chunks=edges, degree=degree, core=core, rows=rows:
                          _run_batch(chunks, degree, c.n_active, roots, core,
                                     alpha=p.alpha, beta=p.beta,
-                                    max_levels=p.max_levels, tail=tail,
+                                    max_levels=p.max_levels, rows=rows,
                                     fault=c.fault))
     return lanes
 
@@ -490,7 +492,7 @@ class CompiledBFS:
     num_vertices: int           # original V (before any shard padding)
     n_active: int
     core: Optional[HeavyCore]   # the core the BFS engines consult, or None
-    tail: Optional[tuple]       # bottom_up_tail of the bitmap BFS engine
+    bfs_rows: Optional[BFSRows]  # bfs_rows of the single-device bitmap BFS engine
     delta: int = 0              # SSSP bucket width
     max_rounds: int = 0         # SSSP round bound
     fault: Any = None           # the FaultSpec of every traversal, or None
@@ -516,7 +518,7 @@ class CompiledBFS:
         if p.engine == "bitmap":
             return _run_bitmap_impl(g.chunks, g.degree, self.n_active, root,
                                     self.core, alpha=p.alpha, beta=p.beta,
-                                    max_levels=p.max_levels, tail=self.tail,
+                                    max_levels=p.max_levels, rows=self.bfs_rows,
                                     fault=self.fault)
         return _run_legacy(g.ev, g.degree, self.n_active, root, self.core,
                            engine=p.engine, alpha=p.alpha, beta=p.beta,
@@ -568,7 +570,7 @@ class CompiledBFS:
                                    max_rounds=self.max_rounds, fault=self.fault)
         return _run_batch(g.chunks, g.degree, self.n_active, roots, self.core,
                           alpha=p.alpha, beta=p.beta, max_levels=p.max_levels,
-                          tail=self.tail, fault=self.fault)
+                          rows=self.bfs_rows, fault=self.fault)
 
     def _strip(self, x: torch.Tensor) -> torch.Tensor:
         """Drop the shard padding of a vertex-sharded result's rows."""

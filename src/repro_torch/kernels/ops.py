@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
+from repro_torch.kernels import bfs_relax, bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
 from repro_torch.kernels import sssp_relax as relax_kernel
 
 #: device types that take the plain versions
@@ -25,6 +25,7 @@ KERNELS = {
     "spmv_mxu": spmv_mxu.KERNEL,
     "cin_layer": cin.KERNEL,
     "sssp_relax": relax_kernel.KERNEL,
+    "bfs_relax": bfs_relax.KERNEL,
 }
 
 
@@ -94,3 +95,32 @@ def sssp_relax(state: torch.Tensor, changed: torch.Tensor, front_deg: torch.Tens
     if state.device.type in _PLAIN:
         return ref.sssp_relax_ref(state, changed, front_deg, row_start, dst, weight)
     return relax_kernel.sssp_relax(state, changed, front_deg, row_start, dst, weight)
+
+
+def bfs_relax_top_down(frontier_bm: torch.Tensor, visited_bm: torch.Tensor,
+                       degree: torch.Tensor, row_start: torch.Tensor, dst: torch.Tensor,
+                       parent_ext: torch.Tensor) -> None:
+    """A top-down BFS level's relax over the frontier's rows, in place.
+
+    ``frontier_bm`` and ``visited_bm`` are int32 bitmaps, ``degree`` int32
+    [V], vertex u's row ``[row_start[u], row_start[u] + degree[u])`` of
+    ``dst``, and ``parent_ext`` int32 [V + 1] (sentinel V) takes each
+    unvisited destination's least frontier neighbour."""
+    if parent_ext.device.type in _PLAIN:
+        return ref.bfs_relax_top_down_ref(frontier_bm, visited_bm, degree, row_start, dst,
+                                          parent_ext)
+    return bfs_relax.top_down(frontier_bm, visited_bm, degree, row_start, dst, parent_ext)
+
+
+def bfs_relax_bottom_up(frontier_bm: torch.Tensor, parent_ext: torch.Tensor,
+                        degree: torch.Tensor, row_start: torch.Tensor, dst: torch.Tensor,
+                        core_deg: torch.Tensor, entries_read=None) -> None:
+    """A bottom-up BFS level's relax, in place: each vertex still at the
+    sentinel takes the first frontier vertex of its ascending row (past the
+    ``core_deg[v]`` core entries of a core row v); ``entries_read`` (an
+    int64 scalar, or None) gains the row entries read."""
+    if parent_ext.device.type in _PLAIN:
+        return ref.bfs_relax_bottom_up_ref(frontier_bm, parent_ext, degree, row_start, dst,
+                                           core_deg, entries_read)
+    return bfs_relax.bottom_up(frontier_bm, parent_ext, degree, row_start, dst, core_deg,
+                               entries_read)

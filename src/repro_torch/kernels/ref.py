@@ -205,3 +205,102 @@ def sssp_relax_ref(state, changed, front_deg, row_start, dst, weight) -> None:
     new = (state ^ _SIGN).scatter_reduce(0, d, cand, "amin", include_self=True) ^ _SIGN
     changed |= ((new >> 32) & _U32) < ((state >> 32) & _U32)
     state.copy_(new)
+
+
+#: Rows longer than this are walked by a whole warp in the bottom-up relax
+#: (csrc/bfs_relax.cu's kWarp): the entries it reads come in such steps.
+BFS_WARP = 32
+
+
+def check_bfs_relax_inputs(frontier_bm, degree, row_start, dst, parent_ext, *,
+                           visited_bm=None, core_deg=None, entries_read=None) -> None:
+    """The BFS relax's operands: int32 ``degree`` [V] and ``parent_ext``
+    [V + 1], int64 ``row_start`` [V], int32 ``dst``, int32 bitmaps of at
+    least ceil(V / 32) words, int32 ``core_deg`` of at most V rows, an int64
+    scalar ``entries_read``; contiguous, on one device.  The engine calls
+    this once a level, so the passing case reads cheap tensor attributes
+    only."""
+    v = degree.shape[0] if degree.dim() == 1 else -1
+    dev = parent_ext.device
+    words = (v + 31) // 32
+    for name, t, dtype, ok in (
+            ("degree", degree, torch.int32, v >= 1),
+            ("parent_ext", parent_ext, torch.int32,
+             parent_ext.dim() == 1 and parent_ext.shape[0] == v + 1),
+            ("row_start", row_start, torch.int64,
+             row_start.dim() == 1 and row_start.shape[0] == v),
+            ("dst", dst, torch.int32, dst.dim() == 1),
+            ("frontier_bm", frontier_bm, torch.int32,
+             frontier_bm.dim() == 1 and frontier_bm.shape[0] >= words),
+            ("visited_bm", visited_bm, torch.int32,
+             visited_bm is None or (visited_bm.dim() == 1 and visited_bm.shape[0] >= words)),
+            ("core_deg", core_deg, torch.int32,
+             core_deg is None or (core_deg.dim() == 1 and core_deg.shape[0] <= v)),
+            ("entries_read", entries_read, torch.int64,
+             entries_read is None or entries_read.dim() == 0)):
+        if t is None:
+            continue
+        if t.dtype is not dtype or not ok or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"bfs_relax: {name} must be contiguous {dtype} on {dev} "
+                             f"(degree [V] with V >= 1, parent_ext [V + 1], row_start [V], "
+                             f"bitmaps of >= ceil(V / 32) words, core_deg of <= V rows, "
+                             f"entries_read a scalar), got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def _bits(bm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bit ``idx`` (int64, in range) of the int32 bit-view bitmap ``bm``."""
+    return ((to_u64(bm[idx >> 5]) >> (idx & 31)) & 1).to(torch.bool)
+
+
+def _row_entries(vertices: torch.Tensor, start: torch.Tensor, length: torch.Tensor):
+    """(owner's index, position in the row, entry) of every entry of the rows
+    ``[start, start + length)`` of ``vertices``, row after row."""
+    idx = torch.repeat_interleave(torch.arange(vertices.shape[0], device=vertices.device),
+                                  length)
+    first = torch.cumsum(length, 0) - length
+    pos = torch.arange(idx.shape[0], device=idx.device) - first[idx]
+    return idx, pos, start[idx] + pos
+
+
+def bfs_relax_top_down_ref(frontier_bm, visited_bm, degree, row_start, dst,
+                           parent_ext) -> None:
+    """A top-down level's relax over the frontier's rows, in place: each
+    entry u -> v of a frontier vertex u's row whose v is not visited offers
+    u, and ``parent_ext[v]`` keeps the least offer."""
+    check_bfs_relax_inputs(frontier_bm, degree, row_start, dst, parent_ext,
+                           visited_bm=visited_bm)
+    ids = torch.arange(degree.shape[0], device=degree.device)
+    u = ids[_bits(frontier_bm, ids) & (degree > 0)]
+    idx, _, e = _row_entries(u, row_start[u], degree[u].to(torch.int64))
+    v = dst[e].to(torch.int64)
+    keep = ~_bits(visited_bm, v)
+    parent_ext.scatter_reduce_(0, v[keep], u[idx[keep]].to(torch.int32), "amin")
+
+
+def bfs_relax_bottom_up_ref(frontier_bm, parent_ext, degree, row_start, dst, core_deg,
+                            entries_read=None) -> None:
+    """A bottom-up level's relax, in place: each vertex v with
+    ``parent_ext[v] == V`` takes the first entry of its row (from
+    ``core_deg[v]`` entries in on a core row, v < len(core_deg)) whose
+    frontier bit is set; the rows ascend, so that is its least frontier
+    neighbour.  ``entries_read`` gains the entries the kernel's walks read:
+    up to the hit, or the whole row when none hits, in steps of
+    ``BFS_WARP`` on a row longer than that."""
+    check_bfs_relax_inputs(frontier_bm, degree, row_start, dst, parent_ext,
+                           core_deg=core_deg, entries_read=entries_read)
+    n = degree.shape[0]
+    start = row_start.clone()
+    start[:core_deg.shape[0]] += core_deg
+    length = row_start + degree - start
+    w = torch.nonzero((parent_ext[:n] == n) & (length > 0)).squeeze(1)
+    length = length[w]
+    idx, pos, e = _row_entries(w, start[w], length)
+    hit = _bits(frontier_bm, dst[e].to(torch.int64))
+    first = torch.full_like(length, 2**62).scatter_reduce_(0, idx[hit], pos[hit], "amin")
+    found = first < length
+    parent_ext[w[found]] = dst[start[w[found]] + first[found]]
+    if entries_read is not None:
+        step = torch.where(length > BFS_WARP, BFS_WARP, 1)
+        reads = torch.where(found, torch.minimum((first // step + 1) * step, length), length)
+        entries_read += reads.sum()

@@ -80,6 +80,35 @@ def test_bitmap_engine_bitwise_equal_to_jax(scale, edge_factor, batch):
     assert (got.stats.direction == hybrid_bfs.BOTTOM_UP).any()
 
 
+@pytest.mark.parametrize("rung", ["pre-g500", "pre-g500-batch", "no-core"])
+def test_bitmap_rungs_bitwise_equal_to_jax(rung):
+    # the rungs' relax through the plain bfs_relax: parent, level and every
+    # stats field of every key equal the JAX engine's scatter-min, with the
+    # heavy core and without one (every row walked whole)
+    kw = dict(scale=11, n_roots=4)
+    jcfg = (jpipe.Graph500Config(engine="bitmap", heavy_threshold=None, **kw)
+            if rung == "no-core" else jpipe.Graph500Config.ladder(rung, **kw))
+    jbuilt = jpipe.build(jcfg)
+    edges = jkron.generate_edges(jcfg.seed, jcfg.scale, jcfg.edge_factor)
+    roots = np.asarray(jkron.sample_roots(jcfg.seed, edges, jcfg.n_roots))
+    cfg = (pipeline.Graph500Config(engine="bitmap", heavy_threshold=None, device="cpu", **kw)
+           if rung == "no-core" else pipeline.Graph500Config.ladder(rung, device="cpu", **kw))
+    built = pipeline.build(cfg, edges=convert.edge_list_from_numpy(
+        np.asarray(edges.src), np.asarray(edges.dst), edges.num_vertices, "cpu"))
+    assert (built.core is None) == (jbuilt.core is None) == (rung == "no-core")
+    keys = pipeline.search_keys(cfg, built, roots)
+    np.testing.assert_array_equal(keys, np.asarray(jbuilt.reorder.new_from_old[roots]))
+    tc = compile_plan(cfg.to_plan(), built, device="cpu")
+    jc = jax_compile(jcfg.to_plan(), jbuilt)
+    batch = cfg.to_plan().batch_roots
+    assert batch == (rung == "pre-g500-batch")
+    outs = ([(tc.bfs(keys), jc.bfs(keys))] if batch
+            else [(tc.bfs(int(k)), jc.bfs(int(k))) for k in keys])
+    for got, want in outs:
+        assert_results_equal(got, want)
+        assert (got.stats.direction == hybrid_bfs.BOTTOM_UP).any()
+
+
 @pytest.mark.parametrize("scale", [10, 12])
 def test_engine_alternates_two_output_pairs(monkeypatch, scale):
     # every level's epilogue writes into caller buffers: two (frontier,

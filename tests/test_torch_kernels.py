@@ -14,7 +14,11 @@ from repro.kernels import ops as jax_ops, ref as jref
 from repro.kernels.bitmap_ops import frontier_update as jax_frontier_update
 from repro.kernels.frontier_spmv import core_spmv as jax_core_spmv
 from repro.kernels.spmv_mxu import spmv_mxu as jax_spmv_mxu
-from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu, sssp_relax
+from repro_torch.core import bfs_steps, hybrid_bfs, pipeline
+from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
+from repro_torch.core.heavy import testbit as bit_at
+from repro_torch.kernels import (bfs_relax, bitmap_ops, cin, frontier_spmv, ops, ref,
+                                 spmv_mxu, sssp_relax)
 
 torch.set_num_threads(2)
 
@@ -186,6 +190,9 @@ def test_cpu_dispatch_never_launches():
     one = torch.ones(1, dtype=torch.int32)
     ops.sssp_relax(torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.bool), one,
                    torch.zeros(1, dtype=torch.int64), one - 1, one)
+    args = _bfs_relax_operands()
+    ops.bfs_relax_top_down(*args[:-1])
+    ops.bfs_relax_bottom_up(args[0], args[5], *args[2:5], args[6])
     assert ops.launch_counts() == before
 
 
@@ -304,7 +311,7 @@ def test_cin_layer_plain_matches_jax(b, f0, fl, h, d):
     np.testing.assert_allclose(plain.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer", "sssp_relax"])
+@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer", "sssp_relax", "bfs_relax"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -314,11 +321,19 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
         elif wrapper == "cin_layer":
             cin.cin_layer(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
                           torch.zeros((6, 3, 5)))
-        else:
+        elif wrapper == "sssp_relax":
             sssp_relax.sssp_relax(*_relax_operands())
+        else:
+            bfs_relax.top_down(*_bfs_relax_operands()[:-1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if wrapper == "bfs_relax":
+            args = _bfs_relax_operands()
+            bfs_relax.bottom_up(args[0], args[5], *args[2:5], args[6])
+        else:
+            raise ValueError("CUDA tensor")
     assert ops.launch_counts() == before
     assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer",
-                           "sssp_relax"}
+                           "sssp_relax", "bfs_relax"}
 
 
 def _relax_operands(**change):
@@ -345,6 +360,177 @@ def _relax_operands(**change):
 def test_sssp_relax_refuses_bad_operands(change, match):
     with pytest.raises(ValueError, match=match):
         ops.sssp_relax(*_relax_operands(**change))
+
+
+# ---------------------------------------------------------------------------
+# bfs_relax: the plain versions against the scatter-min over edge lanes
+# ---------------------------------------------------------------------------
+
+def _bfs_relax_operands(**change):
+    """Valid ``bfs_relax`` operands on the CPU, in the top-down order with
+    ``core_deg`` last (3 vertices, rows 0: {1}, 1: {0, 2}, 2: {1}):
+    (frontier_bm, visited_bm, degree, row_start, dst, parent_ext,
+    core_deg), the named ones replaced."""
+    args = dict(frontier_bm=torch.tensor([0b001], dtype=torch.int32),
+                visited_bm=torch.tensor([0b001], dtype=torch.int32),
+                degree=torch.tensor([1, 2, 1], dtype=torch.int32),
+                row_start=torch.tensor([0, 1, 3]),
+                dst=torch.tensor([1, 0, 2, 1], dtype=torch.int32),
+                parent_ext=torch.tensor([0, 3, 3, 3], dtype=torch.int32),
+                core_deg=torch.zeros(0, dtype=torch.int32))
+    args.update(change)
+    return tuple(args.values())
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(parent_ext=torch.zeros(3, dtype=torch.int32)), "parent_ext must be contiguous"),
+    (dict(degree=torch.ones(3, dtype=torch.int64)), "degree must be contiguous torch.int32"),
+    (dict(row_start=torch.tensor([0, 1, 3], dtype=torch.int32)),
+     "row_start must be contiguous torch.int64"),
+    (dict(frontier_bm=torch.zeros(0, dtype=torch.int32)), "frontier_bm must be contiguous"),
+    (dict(visited_bm=torch.zeros(1, dtype=torch.int64)), "visited_bm must be contiguous"),
+    (dict(dst=torch.arange(8, dtype=torch.int32)[::2]), "dst must be contiguous"),
+    (dict(core_deg=torch.zeros(4, dtype=torch.int32)), "core_deg must be contiguous"),
+])
+def test_bfs_relax_refuses_bad_operands(change, match):
+    args = _bfs_relax_operands(**change)
+    with pytest.raises(ValueError, match=match):
+        if "core_deg" in change:
+            ops.bfs_relax_bottom_up(args[0], args[5], *args[2:5], args[6])
+        else:
+            ops.bfs_relax_top_down(*args[:-1])
+
+
+def test_bfs_relax_on_the_smallest_graph():
+    # the path 0 - 1 - 2 from key 0: top-down finds 1; bottom-up from
+    # frontier {1} finds 2, and reads one entry of 2's row
+    f, vis, deg, rs, dst, p, cd = _bfs_relax_operands()
+    ops.bfs_relax_top_down(f, vis, deg, rs, dst, p)
+    assert p.tolist() == [0, 0, 3, 3]
+    read = torch.zeros((), dtype=torch.int64)
+    ops.bfs_relax_bottom_up(torch.tensor([0b010], dtype=torch.int32), p, deg, rs, dst, cd,
+                            read)
+    assert p.tolist() == [0, 0, 1, 3] and int(read) == 1
+
+
+_RELAX_GRAPHS: dict = {}
+
+
+def relax_graph(case):
+    """(EdgeView, degree, HeavyCore or None, BFSRows) on the CPU.
+    ``kron12``: degree-sorted with a core that spans every vertex (K = V =
+    4,096); ``nocore12``: no sort, no core; ``dup11``: every third row's
+    entries each twice (rows still ascending) and 37 padding lanes;
+    ``v32768``: scale 15 at edge factor 1, so V is a multiple of 32,768 and
+    a padding lane's word V // 32 lies past the bitmap, thousands of
+    vertices are isolated, and the core (K = 4,096) is smaller than V."""
+    if case not in _RELAX_GRAPHS:
+        scale, ef, kw = {"kron12": (12, 16, dict(heavy_threshold=16)),
+                         "nocore12": (12, 16, dict(degree_sort=False, heavy_threshold=None)),
+                         "dup11": (11, 8, dict(heavy_threshold=None)),
+                         "v32768": (15, 1, dict(heavy_threshold=8))}[case]
+        b = pipeline.build(pipeline.Graph500Config(scale=scale, edge_factor=ef, seed=5,
+                                                   device="cpu", **kw))
+        ev, degree = b.ev, b.degree
+        if case == "dup11":
+            n, v = int(degree.sum()), ev.num_vertices
+            rep = torch.where(ev.src[:n] % 3 == 0, 2, 1)
+            m = int(rep.sum())
+            pad = torch.full((37,), v, dtype=torch.int32)
+            ev = bfs_steps.EdgeView(torch.cat([ev.src[:n].repeat_interleave(rep), pad]),
+                                    torch.cat([ev.dst[:n].repeat_interleave(rep), pad]),
+                                    torch.arange(m + 37) < m, v)
+            degree = torch.bincount(ev.src[ev.valid].long(), minlength=v).to(torch.int32)
+        _RELAX_GRAPHS[case] = (ev, degree, b.core, hybrid_bfs.bfs_rows(ev, degree, b.core))
+    return _RELAX_GRAPHS[case]
+
+
+def scatter_min_level(ev, core, frontier_bm, visited_bm, parent_ext, bottom_up):
+    """The relax as the engine had it (the JAX engine's ``_relax_edges``):
+    every valid lane (in a bottom-up level all but the core-to-core ones)
+    whose source is in the frontier and destination unvisited scatter-mins
+    its source into the destination's parent.  A top-down level relaxed the
+    live chunks only; the others hold no frontier source."""
+    v = ev.num_vertices
+    keep = ev.valid
+    if bottom_up and core is not None:
+        keep = keep & ~((ev.src < core.k) & (ev.dst < core.k))
+    active = keep & bit_at(frontier_bm, ev.src) & ~bit_at(visited_bm, ev.dst)
+    parent_ext.scatter_reduce_(0, ev.dst.long(), torch.where(active, ev.src, v), "amin")
+
+
+def walk_rows(rows, degree, frontier, parent_ext):
+    """The bottom-up kernel's walk, vertex by vertex: (parents, entries read)."""
+    v = degree.shape[0]
+    rs, deg, dst = rows.row_start.numpy(), degree.numpy(), rows.dst.numpy()
+    core_deg, out, reads = rows.core_deg.numpy(), parent_ext.clone().numpy(), 0
+    for x in np.flatnonzero(out[:v] == v):
+        s = rs[x] + (core_deg[x] if x < len(core_deg) else 0)
+        row = dst[s:rs[x] + deg[x]]
+        hits = np.flatnonzero(frontier[row])
+        if not len(hits):
+            reads += len(row)
+            continue
+        out[x] = row[hits[0]]
+        step = ref.BFS_WARP if len(row) > ref.BFS_WARP else 1
+        reads += min(len(row), (hits[0] // step + 1) * step)
+    return out, reads
+
+
+@pytest.mark.parametrize("case", ["kron12", "nocore12", "dup11", "v32768"])
+@pytest.mark.parametrize("bottom_up", [False, True])
+@pytest.mark.parametrize("density", [0.05, 0.6])
+def test_bfs_relax_plain_matches_the_scatter_min(case, bottom_up, density):
+    ev, degree, core, rows = relax_graph(case)
+    v = ev.num_vertices
+    if case == "v32768":
+        assert v % 32768 == 0 and v // 32 == padded_bitmap_words(v)
+        assert int((degree == 0).sum()) > 1000 and core is not None and core.k < v
+    if case == "dup11":
+        dup = (ev.src[1:] == ev.src[:-1]) & (ev.dst[1:] == ev.dst[:-1]) & ev.valid[1:]
+        assert bool(dup.any())
+    rng = np.random.default_rng(int(density * 100) + 7 * bottom_up)
+    visited = rng.random(v) < density
+    frontier = visited & (rng.random(v) < 0.5)
+    parent = torch.from_numpy(np.append(np.where(visited, rng.integers(0, v, v), v), v)
+                              .astype(np.int32))
+    w = padded_bitmap_words(v)
+    f_bm = pack_bitmap(torch.from_numpy(frontier), w)
+    vis_bm = pack_bitmap(torch.from_numpy(visited), w)
+    before = parent.clone()
+    if bottom_up and core is not None:
+        hybrid_bfs._core_bottom_up_resident(core, f_bm, vis_bm, parent, v)
+    want, got = parent.clone(), parent.clone()
+    scatter_min_level(ev, core if bottom_up else None, f_bm, vis_bm, want, bottom_up)
+    if bottom_up:
+        read = torch.zeros((), dtype=torch.int64)
+        ops.bfs_relax_bottom_up(f_bm, got, degree, rows.row_start, rows.dst, rows.core_deg,
+                                read)
+        walked, n_read = walk_rows(rows, degree, frontier, parent)
+        np.testing.assert_array_equal(got.numpy(), walked)
+        assert int(read) == n_read
+        assert n_read > 0 or core.k >= v       # with K >= V every entry is the core's
+    else:
+        ops.bfs_relax_top_down(f_bm, vis_bm, degree, rows.row_start, rows.dst, got)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, before)      # the level found someone
+
+
+def test_bfs_rows_refuse_views_out_of_order():
+    ev, degree, core, rows = relax_graph("nocore12")
+    assert torch.equal(rows.row_start, torch.cumsum(degree, 0) - degree)
+    assert rows.core_deg.numel() == 0
+    _, k_degree, core, k_rows = relax_graph("kron12")
+    assert core.k == ev.num_vertices and torch.equal(k_rows.core_deg, k_degree)  # K = V
+    u = int(torch.argmax(degree))
+    s = int(torch.cumsum(degree, 0)[u] - degree[u])
+    flipped = ev.dst.clone()
+    flipped[s:s + 2] = flipped[s:s + 2].flip(0)
+    for bad in (bfs_steps.EdgeView(ev.src, flipped, ev.valid, ev.num_vertices),
+                bfs_steps.EdgeView(ev.src.roll(1), ev.dst.roll(1), ev.valid.roll(1),
+                                   ev.num_vertices)):
+        with pytest.raises(ValueError, match="each row ascending"):
+            hybrid_bfs.bfs_rows(bad, degree, None)
 
 
 # ---------------------------------------------------------------------------

@@ -185,10 +185,16 @@ def test_kernel_launches_counted(cuda):
     ops.sssp_relax(torch.zeros(1, dtype=torch.int64, device=cuda),
                    torch.zeros(1, dtype=torch.bool, device=cuda), one,
                    torch.zeros(1, dtype=torch.int64, device=cuda), one - 1, one)
+    path = dict(bm=one, deg=one, rs=torch.zeros(1, dtype=torch.int64, device=cuda),
+                dst=one - 1, p=torch.ones(2, dtype=torch.int32, device=cuda))
+    ops.bfs_relax_top_down(path["bm"], path["bm"], path["deg"], path["rs"], path["dst"],
+                           path["p"])
+    ops.bfs_relax_bottom_up(path["bm"], path["p"], path["deg"], path["rs"], path["dst"],
+                            one[:0])
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "frontier_update": 1, "core_spmv": 1, "spmv_mxu": 1, "cin_layer": 1,
-        "sssp_relax": 1}
+        "sssp_relax": 1, "bfs_relax": 2}
 
 
 @pytest.mark.cuda
@@ -392,7 +398,139 @@ def test_sssp_relax_one_launch_a_round(cuda):
     assert rounds > 1
     assert {k: after[k] - before[k] for k in after} == {
         "frontier_update": 0, "core_spmv": 0, "spmv_mxu": 0, "cin_layer": 0,
-        "sssp_relax": rounds}
+        "sssp_relax": rounds, "bfs_relax": 0}
+
+
+# ---------------------------------------------------------------------------
+# bfs_relax
+# ---------------------------------------------------------------------------
+
+def bfs_graph(core: bool, device):
+    """A scale-14 Kronecker graph built on ``device`` (rows past 32 entries,
+    the warp's walk): degree-sorted with a core of K = 4,096 < V, or
+    neither."""
+    from repro_torch.core import pipeline
+    kw = dict(heavy_threshold=16) if core else dict(degree_sort=False, heavy_threshold=None)
+    return pipeline.build(pipeline.Graph500Config(scale=14, seed=5, device=device, **kw))
+
+
+def bfs_level_state(v, seed, density, device):
+    """A level's (frontier, visited) bitmaps and parents: the frontier a
+    subset of the visited set, visited vertices with a parent, the others
+    at the sentinel."""
+    from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
+    rng = np.random.default_rng(seed)
+    visited = rng.random(v) < density
+    frontier = visited & (rng.random(v) < 0.5)
+    parent = np.append(np.where(visited, rng.integers(0, v, v), v), v).astype(np.int32)
+    w = padded_bitmap_words(v)
+    return (pack_bitmap(torch.from_numpy(frontier), w).to(device),
+            pack_bitmap(torch.from_numpy(visited), w).to(device),
+            torch.from_numpy(parent).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core", [False, True])
+@pytest.mark.parametrize("bottom_up", [False, True])
+@pytest.mark.parametrize("density", [0.02, 0.6])
+def test_bfs_relax_kernel_matches_plain(cuda, core, bottom_up, density):
+    # parents bit for bit (a minimum, whatever the atomics' order; the walk
+    # stops at the least frontier neighbour) and the entries the bottom-up
+    # read equal to the plain version's count; twice on the card alike
+    from repro_torch.core.hybrid_bfs import _core_bottom_up_resident, bfs_rows
+    b = bfs_graph(core, cuda)
+    v = b.n_vertices
+    rows = bfs_rows(b.ev, b.degree, b.core)
+    assert int(b.degree.max()) > 32 and (b.core is None or b.core.k < v)
+    f_bm, vis_bm, parent = bfs_level_state(v, 3, density, cuda)
+    before = parent.clone()
+    if bottom_up and b.core is not None:
+        _core_bottom_up_resident(b.core, f_bm, vis_bm, parent, v)
+    outs = []
+    for fn in ("plain", "kernel", "kernel"):
+        p, read = parent.clone(), torch.zeros((), dtype=torch.int64, device=cuda)
+        if bottom_up:
+            (ref.bfs_relax_bottom_up_ref if fn == "plain" else ops.bfs_relax_bottom_up)(
+                f_bm, p, b.degree, rows.row_start, rows.dst, rows.core_deg, read)
+        else:
+            (ref.bfs_relax_top_down_ref if fn == "plain" else ops.bfs_relax_top_down)(
+                f_bm, vis_bm, b.degree, rows.row_start, rows.dst, p)
+        outs.append((p, read))
+    torch.cuda.synchronize()
+    for p, read in outs[1:]:
+        assert torch.equal(p, outs[0][0])
+        assert int(read) == int(outs[0][1])
+    assert not torch.equal(outs[0][0], before)       # the level found someone
+    assert (int(outs[0][1]) > 0) == bottom_up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["pre-g500", "no-core"])
+def test_bfs_relax_one_launch_a_level(cuda, rung):
+    from repro_torch.core import pipeline
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.core.plan import compile_plan
+    cfg = (pipeline.Graph500Config.ladder("pre-g500", scale=14, seed=5, device=cuda)
+           if rung == "pre-g500"
+           else pipeline.Graph500Config(scale=14, seed=5, heavy_threshold=None, device=cuda))
+    built = pipeline.build(cfg)
+    c = compile_plan(cfg.to_plan(), built, device=cuda)
+    for key in pipeline.search_keys(cfg, built)[:3]:
+        before = ops.launch_counts()
+        res = c.bfs(int(key))
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        levels = int(res.stats.levels)
+        n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
+        assert 0 < n_bu < levels
+        assert {k: after[k] - before[k] for k in after} == {
+            "frontier_update": levels, "core_spmv": n_bu if rung == "pre-g500" else 0,
+            "spmv_mxu": 0, "cin_layer": 0, "sssp_relax": 0, "bfs_relax": levels}
+
+
+@pytest.mark.cuda
+def test_bfs_counters_read_only_while_a_profiler_records(cuda):
+    # untraced: no counter, and the bottom-up relax is given none to add to;
+    # traced: the card's counts equal the plain version's on the CPU
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core import hybrid_bfs, pipeline
+    from repro_torch.core.kronecker import EdgeList, generate_edges
+    from repro_torch.core.plan import compile_plan
+    e = generate_edges(5, 13, device="cpu")
+    keys = e.src[e.src != e.dst][:2].numpy()
+    seen, counts = [], {}
+    real = hybrid_bfs.kops.bfs_relax_bottom_up
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.Graph500Config(scale=13, heavy_threshold=None, device=dev)
+        built = pipeline.build(cfg, edges=EdgeList(e.src.to(dev), e.dst.to(dev),
+                                                   e.num_vertices))
+        c = compile_plan(cfg.to_plan(), built, device=dev)
+        roots = [int(r) for r in pipeline.search_keys(cfg, built, keys)]
+        hybrid_bfs.kops.bfs_relax_bottom_up = spy
+        try:
+            tracing.reset()
+            seen.clear()
+            for r in roots:
+                c.bfs(r)
+            assert seen and all(x is None for x in seen)
+            assert tracing.counters() == {}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                         if dev == "cuda" else [ProfilerActivity.CPU]):
+                for r in roots:
+                    c.bfs(r)
+            torch.cuda.synchronize()
+        finally:
+            hybrid_bfs.kops.bfs_relax_bottom_up = real
+        counts[dev] = tracing.counters()
+    assert counts["cuda"] == counts["cpu"]
+    assert 0 < counts["cuda"]["bfs.bu_entries_read"] < counts["cuda"]["bfs.bu_entries_unvisited"]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ bitmap BFS level loop and the SSSP round loop, at scale 10 on the CPU.
 
 Marks are recorded only under ``torch.profiler``, in the order the loops
 run; they follow the levels and directions of ``stats``; the SSSP counters
-equal what ``stats`` says of the rounds; and a search's outputs are the
-same with the profiler on and off.
+equal what ``stats`` says of the rounds, and the BFS counters what it says
+of the bottom-up levels; and a search's outputs are the same with the
+profiler on and off.
 """
 import pytest
 import torch
@@ -23,10 +24,13 @@ _COMPILED: dict = {}
 
 def compiled(kernel):
     """(CompiledBFS, search keys) of the scale-10 graph for ``kernel``:
-    the ``pre-g500`` rung (heavy core, bitmap engine), or SSSP."""
+    the ``pre-g500`` rung (``bfs``: heavy core, bitmap engine; its core,
+    K = 4,096, spans every vertex), the bitmap engine without a core
+    (``bfs-nocore``), or SSSP."""
     if kernel not in _COMPILED:
         kw = dict(scale=10, seed=3, n_roots=4, device="cpu")
         cfg = (Graph500Config.ladder("pre-g500", **kw) if kernel == "bfs"
+               else Graph500Config(heavy_threshold=None, **kw) if kernel == "bfs-nocore"
                else Graph500Config(kernel="sssp", heavy_threshold=None, **kw))
         built = build(cfg)
         _COMPILED[kernel] = (compile_plan(cfg.to_plan(), built, device="cpu"),
@@ -41,7 +45,7 @@ def traced(kernel, key=0):
     tracing.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res = c.bfs(roots[key])
-    prefix = f"repro_torch.{kernel}."
+    prefix = f"repro_torch.{kernel.split('-')[0]}."
     marks = sorted((e for e in prof.events() if e.name.startswith(prefix)),
                    key=lambda e: e.time_range.start)
     return res, [e.name[len(prefix):] for e in marks], tracing.counters()
@@ -130,6 +134,25 @@ def test_sssp_counters_follow_the_rounds(key):
     edges = int(res.stats.scanned_edges[:rounds].long().sum())
     assert counts == {"sssp.frontier_edges": edges, "sssp.scanned_edges": edges}
     assert 0 < counts["sssp.frontier_edges"]
+
+
+@pytest.mark.parametrize("graph", ["bfs", "bfs-nocore"])
+@pytest.mark.parametrize("key", [0, 1, 2, 3])
+def test_bfs_counters_follow_the_bottom_up_levels(graph, key):
+    # the bottom-up relax reads less than the unvisited adjacency: its walks
+    # stop at each row's first frontier neighbour and skip the core's
+    # entries, which here are every entry when there is a core (K >= V)
+    res, _, counts = traced(graph, key)
+    n = int(res.stats.levels)
+    bu = res.stats.direction[:n] == BOTTOM_UP
+    unvisited = int(res.stats.scanned_edges[:n][bu].long().sum())
+    assert set(counts) == {"bfs.bu_entries_read", "bfs.bu_entries_unvisited"}
+    assert counts["bfs.bu_entries_unvisited"] == unvisited > 0
+    if graph == "bfs":
+        assert compiled(graph)[0].core.k >= res.parent.shape[0]
+        assert counts["bfs.bu_entries_read"] == 0
+    else:
+        assert 0 < counts["bfs.bu_entries_read"] < unvisited
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
