@@ -1363,7 +1363,7 @@ def time_bfs_relax(device) -> dict:
     built = pipeline.build(cfg)
     compiled = compile_plan(cfg.to_plan(), built, device=device)
     key = int(pipeline.search_keys(cfg, built)[0])
-    rows, degree = compiled.bfs_rows, built.degree
+    rows, degree = compiled.graph.rows, built.degree
     kept: dict = {}
     real_td, real_bu = ops.bfs_relax_top_down, ops.bfs_relax_bottom_up
 

@@ -9,10 +9,13 @@ The relax steps over ``bool [V]`` frontiers are the reference and legacy
 engines' level: each active lane scatter-mins its source into
 ``parent[dst]``, so the winning parent is the least frontier neighbour.
 
-The chunked view splits the (src-sorted, degree-sorted) edge array into
-fixed chunks with each chunk's source-vertex range, so a top-down level
-relaxes only the chunks whose range meets the frontier bitmap (the
-liveness test is word-granular and conservative).
+The chunked view is the JAX package's layout: the (src-sorted,
+degree-sorted) edge array split into fixed chunks with each chunk's
+source-vertex range, so a top-down level relaxes only the chunks whose range
+meets the frontier bitmap (the liveness test is word-granular and
+conservative).  The vertex-sharded engine relaxes by chunks; one device does
+not: its engines walk :class:`EdgeRows`, which keeps of the chunks only their
+source ranges, for the ``scanned_chunks`` stat.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch
 from repro_torch.core.graph_build import (
     DEFAULT_MAX_WEIGHT, CSRGraph, csr_to_edge_arrays, edge_weights,
 )
+from repro_torch.core.heavy import HeavyCore
+from repro_torch.kernels.ref import wrap_i32
 
 DEFAULT_CHUNKS = 64
 
@@ -146,3 +151,73 @@ def chunk_range_mask(src_lo: torch.Tensor, src_hi: torch.Tensor,
 def chunk_frontier_mask(chunks: ChunkedEdgeView, frontier_bm: torch.Tensor) -> torch.Tensor:
     """bool [n_chunks]: chunk source range intersects the frontier bitmap."""
     return chunk_range_mask(chunks.src_lo, chunks.src_hi, frontier_bm)
+
+
+@dataclass
+class EdgeRows:
+    """The rows of a source-sorted edge view, as the single-device engines'
+    relax kernels walk them: vertex u's entries are ``[row_start[u],
+    row_start[u] + degree[u])`` of ``dst`` (and ``weight``), and the first
+    ``core_deg[u]`` of a core row (u below ``len(core_deg)``) lie inside the
+    dense core.  ``src_lo`` / ``src_hi`` are the source ranges of the plan's
+    chunks, those of :func:`chunk_edge_view`, which a top-down BFS level
+    tests against the frontier for its ``scanned_chunks`` stat.  Every field
+    is a tensor (or None), so the rows move to a device field by field."""
+
+    row_start: torch.Tensor          # [V] int64
+    dst: torch.Tensor                # [E_pad] int32: the view's own
+    weight: Optional[torch.Tensor]   # [E_pad] int32 bits of the uint32 weights; None for BFS
+    core_deg: torch.Tensor           # [min(K, V)] int32; empty without a core
+    src_lo: torch.Tensor             # [n_chunks] int32 (V when the chunk is empty)
+    src_hi: torch.Tensor             # [n_chunks] int32 (-1 when the chunk is empty)
+
+    @property
+    def n_chunks(self) -> int:
+        return self.src_lo.shape[0]
+
+
+def edge_rows(ev: EdgeView, degree: torch.Tensor, core: HeavyCore | None = None,
+              n_chunks: int = DEFAULT_CHUNKS, *, weighted: bool = False) -> EdgeRows:
+    """The rows of ``ev`` (set-up, once a plan): the row offsets are the
+    exclusive cumulative sum of ``degree``.  Raises unless the valid entries
+    are the first ``sum(degree)``, padding only after them, and their sources
+    run through the vertices in order, ``degree[u]`` entries each (the layout
+    ``build_csr`` gives).  Without ``weighted`` each row must also ascend: the
+    BFS bottom-up walk stops at a row's first frontier neighbour, which must be
+    its least; the SSSP relax (``weighted``, the weights' 32 bits kept in an
+    int32 plane) reads whole rows.  Chunk c of ``ceil(E_pad / n_chunks)``
+    entries holds the valid entries ``[c * size, min((c + 1) * size, n))``,
+    so under this layout its source range is the sources of its first and
+    last: two gathers a chunk, and no chunk is built."""
+    if weighted and ev.weight is None:
+        raise ValueError("SSSP needs a weighted EdgeView")
+    v = ev.num_vertices
+    if degree.shape != (v,):
+        raise ValueError(f"degree has shape {tuple(degree.shape)}, the view {v} vertices")
+    ends = torch.cumsum(degree, 0, dtype=torch.int64)
+    n = int(ends[-1]) if v else 0
+    ids = torch.arange(v, dtype=torch.int32, device=degree.device)
+    src, dst = ev.src[:n], ev.dst[:n]
+    if (n > ev.valid.shape[0] or not bool(ev.valid[:n].all())
+            or bool(ev.valid[n:].any())
+            or not torch.equal(src, torch.repeat_interleave(ids, degree, output_size=n))
+            or (not weighted
+                and bool(((dst[1:] < dst[:-1]) & (src[1:] == src[:-1])).any()))):
+        raise ValueError("the single-device engines need a source-sorted edge view with "
+                         "degree[u] entries for each vertex u in order, "
+                         + ("" if weighted else "each row ascending, ")
+                         + "and the padding after them (the layout build_csr gives)")
+    kk = 0 if core is None else min(core.k, v)
+    in_core = (src < kk) & (dst < kk)
+    core_deg = torch.bincount(src[in_core].to(torch.int64), minlength=kk)[:kk]
+    size = -(-ev.src.shape[0] // n_chunks)
+    first = torch.arange(n_chunks, dtype=torch.int64, device=degree.device) * size
+    live = first < n
+    src_lo = torch.full((n_chunks,), v, dtype=torch.int32, device=degree.device)
+    src_hi = torch.full((n_chunks,), -1, dtype=torch.int32, device=degree.device)
+    if n:
+        src_lo = torch.where(live, src[first.clamp(max=n - 1)], src_lo)
+        src_hi = torch.where(live, src[(first + size).clamp(max=n) - 1], src_hi)
+    return EdgeRows(row_start=ends - degree, dst=ev.dst.contiguous(),
+                    weight=wrap_i32(ev.weight).contiguous() if weighted else None,
+                    core_deg=core_deg.to(torch.int32), src_lo=src_lo, src_hi=src_hi)

@@ -26,16 +26,17 @@ epilogue kernel's popcount); the direction switch is then decided on the
 host.  A top-down level of the bitmap engines synchronises again on the
 count of the live edge chunks (the chunks ``lax.cond`` relaxes, and the
 ``scanned_chunks`` stat): the vertex-sharded engine gathers those chunks
-and relaxes their lanes, while the single-device engine relaxes with the
+and relaxes their lanes, while the single-device engine keeps of the
+chunks only their source ranges, for the stat, and relaxes with the
 hand-written ``bfs_relax`` kernel, one call a level over the rows of
-:func:`bfs_rows`: the frontier's rows top-down, each unvisited vertex's
-row up to its first frontier neighbour bottom-up.  Each level also writes
-its direction and frontier size (and, in the bitmap engines, its chunk
-count) into the stats from host ints, and each such write is a
-host-to-device copy that synchronises.  The single-device bitmap engine
-marks its phases for ``torch.profiler`` (:mod:`repro_torch.tracing`).  The
-outputs (parent, level and every stats trace) are bitwise equal to the JAX
-engines'.
+:class:`~repro_torch.core.bfs_steps.EdgeRows`: the frontier's rows
+top-down, each unvisited vertex's row up to its first frontier neighbour
+bottom-up.  Each level also writes its direction and frontier size (and,
+in the bitmap engines, its chunk count) into the stats from host ints, and
+each such write is a host-to-device copy that synchronises.  The
+single-device bitmap engine marks its phases for ``torch.profiler``
+(:mod:`repro_torch.tracing`).  The outputs (parent, level and every stats
+trace) are bitwise equal to the JAX engines'.
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bfs_steps import (
-    ChunkedEdgeView, EdgeView, chunk_frontier_mask, chunk_range_mask,
-    frontier_edge_count, masked_relax_step, relax_step, unvisited_edge_count,
+    EdgeRows, EdgeView, chunk_range_mask, frontier_edge_count, masked_relax_step,
+    relax_step, unvisited_edge_count,
 )
 from repro_torch.comms import hierarchical as _hier
 from repro_torch.core import faults
@@ -206,47 +207,6 @@ def _run_legacy(ev: EdgeView, degree: torch.Tensor, n_active: int, root: int,
 # The bitmap-resident engine.
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class BFSRows:
-    """The rows the bitmap engine's relax walks: vertex u's neighbours are
-    entries ``[row_start[u], row_start[u] + degree[u])`` of ``dst``, in
-    ascending order, and the first ``core_deg[u]`` of a core row (u below
-    ``len(core_deg)``) lie inside the dense core."""
-
-    row_start: torch.Tensor   # [V] int64
-    dst: torch.Tensor         # [E_pad] int32
-    core_deg: torch.Tensor    # [min(K, V)] int32; empty without a core
-
-
-def bfs_rows(ev: EdgeView, degree: torch.Tensor, core: HeavyCore | None) -> BFSRows:
-    """The rows of ``ev`` (set-up, once a plan): the row offsets are the
-    exclusive cumulative sum of ``degree``.  Raises unless the valid entries
-    are the first ``sum(degree)``, padding only after them, their sources
-    run through the vertices in order, ``degree[u]`` entries each, and each
-    row ascends (the layout ``build_csr`` gives: the bottom-up walk stops at
-    a row's first frontier neighbour, which must be its least)."""
-    v = ev.num_vertices
-    if degree.shape != (v,):
-        raise ValueError(f"degree has shape {tuple(degree.shape)}, the view {v} vertices")
-    ends = torch.cumsum(degree, 0, dtype=torch.int64)
-    n = int(ends[-1]) if v else 0
-    ids = torch.arange(v, dtype=torch.int32, device=degree.device)
-    src, dst = ev.src[:n], ev.dst[:n]
-    if (n > ev.valid.shape[0] or not bool(ev.valid[:n].all())
-            or bool(ev.valid[n:].any())
-            or not torch.equal(src, torch.repeat_interleave(ids, degree, output_size=n))
-            or bool(((dst[1:] < dst[:-1]) & (src[1:] == src[:-1])).any())):
-        raise ValueError("the bitmap BFS engine needs a source-sorted edge view with "
-                         "degree[u] entries for each vertex u in order, each row "
-                         "ascending, and the padding after them (the layout build_csr "
-                         "gives)")
-    kk = 0 if core is None else min(core.k, v)
-    in_core = (src < kk) & (dst < kk)
-    core_deg = torch.bincount(src[in_core].to(torch.int64), minlength=kk)[:kk]
-    return BFSRows(row_start=ends - degree, dst=ev.dst.contiguous(),
-                   core_deg=core_deg.to(torch.int32))
-
-
 def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
                              parent_ext, v: int) -> None:
     """Dense-core kernel step on the resident frontier bitmap, in place.
@@ -265,17 +225,17 @@ def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
     prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], v)))
 
 
-def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
-                     n_active: int, root: int, core: HeavyCore | None, *,
-                     alpha: float, beta: float, max_levels: int,
-                     rows: BFSRows, fault=None) -> BFSResult:
+def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
+                     root: int, core: HeavyCore | None, *, alpha: float,
+                     beta: float, max_levels: int, fault=None) -> BFSResult:
     """One bitmap-resident traversal from ``root`` (host loop: a level
     synchronises on the next frontier's size, on each of its three stats
     written from host ints, and in a top-down level on the count of the live
-    chunks).  ``rows`` is :func:`bfs_rows` of the graph, which a level's
-    relax (one ``bfs_relax`` call) walks: a top-down level the frontier's
-    rows, a bottom-up level each still-unvisited vertex's row up to its
-    first frontier neighbour; ``fault`` a
+    chunks).  ``rows`` is :func:`~repro_torch.core.bfs_steps.edge_rows` of
+    the graph, which a level's relax (one ``bfs_relax`` call) walks: a
+    top-down level the frontier's rows, a bottom-up level each
+    still-unvisited vertex's row up to its first frontier neighbour; its
+    chunk ranges give the live-chunk count; ``fault`` a
     :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
     corrupts the level's epilogue (None: the clean traversal).
 
@@ -295,7 +255,7 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     traced = recording()
     if traced:
         mark("repro_torch.bfs.start")
-    v = chunks.num_vertices
+    v = degree.shape[0]
     dev = degree.device
     i32 = torch.int32
     w = padded_bitmap_words(v)
@@ -351,9 +311,9 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
                 mark("repro_torch.bfs.relax")
             kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
                                      rows.dst, rows.core_deg, bu_read)
-            nsc = chunks.n_chunks  # full scan
+            nsc = rows.n_chunks  # full scan
         else:
-            live_mask = chunk_frontier_mask(chunks, frontier_bm)
+            live_mask = chunk_range_mask(rows.src_lo, rows.src_hi, frontier_bm)
             if traced:
                 mark("repro_torch.bfs.compact")
             # a second synchronisation: the live chunks' count, read back
@@ -407,7 +367,7 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
         stats=BFSStats(
             stats_dir, stats_fs, stats_se,
             torch.tensor(lvl, dtype=i32, device=dev), stats_ch,
-            torch.tensor(chunks.n_chunks, dtype=i32, device=dev), stats_ok,
+            torch.tensor(rows.n_chunks, dtype=i32, device=dev), stats_ok,
         ),
     )
     if traced:
@@ -421,11 +381,11 @@ def _run_bitmap_impl(chunks: ChunkedEdgeView, degree: torch.Tensor,
     return result
 
 
-def _run_batch(chunks, degree, n_active, roots, core, **kw) -> BFSResult:
+def _run_batch(rows, degree, n_active, roots, core, **kw) -> BFSResult:
     """The roots one after another through the per-root engine, stacked into
     one batched result ([R, ...] leaves); a ``fault=`` keyword reaches every
     traversal, each with its own root for the fault's root predicate."""
-    results = [_run_bitmap_impl(chunks, degree, n_active, int(r), core, **kw)
+    results = [_run_bitmap_impl(rows, degree, n_active, int(r), core, **kw)
                for r in roots]
     return stack_results(results)
 

@@ -6,8 +6,8 @@ Counterpart of ``repro.core.plan``:
      dataclass with the same fields, ``to_dict``/``from_dict`` and the same
      rejection of unknown fields.
   2. **plan** — :func:`compile_plan` validates the spec, resolves the
-     device and the mesh, prepares the graph (the chunked edge view, or the
-     dst-owned shard partition of a vertex-sharded layout) and returns a
+     device and the mesh, prepares the graph (the rows of the edge view, or
+     the dst-owned shard partition of a vertex-sharded layout) and returns a
      :class:`CompiledBFS`.
   3. **runner** — :meth:`CompiledBFS.run` is the Graph500 timed harness:
      warm-up outside the timed region, spec validation, harmonic-mean TEPS,
@@ -55,21 +55,18 @@ import torch
 
 from repro_torch.comms.mesh import Mesh, VertexComm, dist_world, make_mesh
 from repro_torch.comms.topology import plan_device_mesh
-from repro_torch.core.bfs_steps import (
-    DEFAULT_CHUNKS, ChunkedEdgeView, EdgeView, chunk_edge_view,
-)
+from repro_torch.core.bfs_steps import DEFAULT_CHUNKS, EdgeRows, EdgeView, edge_rows
 from repro_torch.core.distributed_bfs import (
     PARTITIONS, ShardedGraph, partition_permutation, shard_graph,
 )
 from repro_torch.core.heavy import HeavyCore
 from repro_torch.core.hybrid_bfs import (
-    MAX_LEVELS, SENTINEL_OK, BFSResult, BFSRows, _run_batch, _run_bitmap_impl,
-    _run_bitmap_sharded, _run_legacy, bfs_rows, shard_inputs, stack_results,
+    MAX_LEVELS, SENTINEL_OK, BFSResult, _run_batch, _run_bitmap_impl,
+    _run_bitmap_sharded, _run_legacy, shard_inputs, stack_results,
 )
 from repro_torch.core.kernels import kernel_spec, validate_result_batch
 from repro_torch.core.sssp_steps import (
-    WeightedRows, _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width,
-    sssp_max_rounds, weighted_rows,
+    _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width, sssp_max_rounds,
 )
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.validate import failure_report
@@ -270,9 +267,8 @@ class PreparedGraph:
     ev: Optional[EdgeView] = None
     degree: Optional[torch.Tensor] = None
     core: Optional[HeavyCore] = None
-    chunks: Optional[ChunkedEdgeView] = None
     sharded: Optional[ShardedGraph] = None
-    rows: Optional[WeightedRows] = None   # the SSSP relax's source rows
+    rows: Optional[EdgeRows] = None   # the single-device bitmap engines' rows
 
 
 class ServeBatch(NamedTuple):
@@ -303,14 +299,14 @@ class Graph500Result:
 # ---------------------------------------------------------------------------
 
 def _prepare(built, plan: TraversalPlan, dev, n_dev_vertex: int) -> PreparedGraph:
-    """The graph-side inputs of ``plan``: ``built``'s, with the chunked edge
-    view (single-device and root layouts of BFS), the weighted rows
-    (those of SSSP) or the dst-owned shard partition (vertex-sharded
-    layouts) built when missing, and JAX's ValueErrors."""
+    """The graph-side inputs of ``plan``: ``built``'s, with the rows of the
+    edge view (the bitmap engine of either kernel on the single-device and
+    root layouts: the weighted rows for SSSP, the core's for BFS) or the
+    dst-owned shard partition (vertex-sharded layouts) built when missing,
+    and JAX's ValueErrors."""
     pg = PreparedGraph(ev=getattr(built, "ev", None),
                        degree=getattr(built, "degree", None),
                        core=getattr(built, "core", None),
-                       chunks=getattr(built, "chunks", None),
                        sharded=getattr(built, "sharded", None),
                        rows=getattr(built, "rows", None))
     needs_w = kernel_spec(plan.kernel).needs_weights
@@ -352,12 +348,9 @@ def _prepare(built, plan: TraversalPlan, dev, n_dev_vertex: int) -> PreparedGrap
         raise ValueError("plan needs built.ev (an EdgeView)")
     if pg.degree is None:
         raise ValueError("plan needs built.degree")
-    if needs_w:
-        if pg.rows is None:
-            pg.rows = weighted_rows(pg.ev, pg.degree)
-    elif plan.engine == "bitmap" and (
-            pg.chunks is None or pg.chunks.n_chunks != plan.n_chunks):
-        pg.chunks = chunk_edge_view(pg.ev, plan.n_chunks)
+    if plan.engine == "bitmap" and (pg.rows is None or pg.rows.n_chunks != plan.n_chunks):
+        pg.rows = edge_rows(pg.ev, pg.degree, pg.core if plan.kernel == "bfs" else None,
+                            plan.n_chunks, weighted=needs_w)
     return pg
 
 
@@ -390,18 +383,15 @@ def compile_plan(plan: TraversalPlan, built, *, device=None, mesh: Optional[Mesh
     # the BFS kernel consults it.
     core = pg.core if plan.kernel == "bfs" else None
     delta = max_rounds = 0
-    rows = None
     if plan.kernel == "sssp":
         w = pg.ev.weight if pg.ev is not None else pg.sharded.weight
         delta = bucket_width(int(w.max()))
         max_rounds = sssp_max_rounds(plan.max_levels)
-    elif plan.engine == "bitmap" and not vertexy:
-        rows = bfs_rows(pg.ev, pg.degree, core)
     compiled = CompiledBFS(
         plan=plan, graph=pg, device=dev,
         num_vertices=pg.sharded.v_orig if vertexy else pg.ev.num_vertices,
         n_active=pg.sharded.n_active if vertexy else int((pg.degree > 0).sum()),
-        core=core, bfs_rows=rows, delta=delta, max_rounds=max_rounds, fault=fault,
+        core=core, delta=delta, max_rounds=max_rounds, fault=fault,
         mesh=mesh)
     if mesh is not None:
         compiled._lanes = (_vertex_lanes(compiled) if vertexy
@@ -420,32 +410,26 @@ def _root_lanes(c: "CompiledBFS") -> list:
         if dev not in copies:
             g = c.graph
             mv = (lambda t: None if t is None else t.to(dev))
-            view, fields = ((g.rows, ("row_start", "dst", "weight")) if g.rows is not None
-                            else (g.chunks, ("src", "dst", "valid", "src_lo", "src_hi",
-                                             "weight")))
-            edges = dataclasses.replace(view, **{f: mv(getattr(view, f)) for f in fields})
-            rows = None if c.bfs_rows is None else dataclasses.replace(
-                c.bfs_rows, **{f.name: mv(getattr(c.bfs_rows, f.name))
-                               for f in dataclasses.fields(c.bfs_rows)})
+            rows = dataclasses.replace(g.rows, **{f.name: mv(getattr(g.rows, f.name))
+                                                  for f in dataclasses.fields(g.rows)})
             core = (None if c.core is None
                     else dataclasses.replace(c.core, a_core=mv(c.core.a_core)))
-            copies[dev] = (edges, mv(g.degree), core, rows)
+            copies[dev] = (rows, mv(g.degree), core)
         return copies[dev]
 
     p = c.plan
     lanes = []
     for dev in c.mesh.devices:
-        edges, degree, core, rows = on(dev)
+        rows, degree, core = on(dev)
         if p.kernel == "sssp":
-            lanes.append(lambda roots, rows=edges, degree=degree: _run_sssp_batch(
+            lanes.append(lambda roots, rows=rows, degree=degree: _run_sssp_batch(
                 rows, degree, roots, delta=c.delta, max_rounds=c.max_rounds,
                 fault=c.fault))
         else:
-            lanes.append(lambda roots, chunks=edges, degree=degree, core=core, rows=rows:
-                         _run_batch(chunks, degree, c.n_active, roots, core,
+            lanes.append(lambda roots, rows=rows, degree=degree, core=core:
+                         _run_batch(rows, degree, c.n_active, roots, core,
                                     alpha=p.alpha, beta=p.beta,
-                                    max_levels=p.max_levels, rows=rows,
-                                    fault=c.fault))
+                                    max_levels=p.max_levels, fault=c.fault))
     return lanes
 
 
@@ -492,7 +476,6 @@ class CompiledBFS:
     num_vertices: int           # original V (before any shard padding)
     n_active: int
     core: Optional[HeavyCore]   # the core the BFS engines consult, or None
-    bfs_rows: Optional[BFSRows]  # bfs_rows of the single-device bitmap BFS engine
     delta: int = 0              # SSSP bucket width
     max_rounds: int = 0         # SSSP round bound
     fault: Any = None           # the FaultSpec of every traversal, or None
@@ -516,10 +499,9 @@ class CompiledBFS:
             return _run_sssp_impl(g.rows, g.degree, root, delta=self.delta,
                                   max_rounds=self.max_rounds, fault=self.fault)
         if p.engine == "bitmap":
-            return _run_bitmap_impl(g.chunks, g.degree, self.n_active, root,
+            return _run_bitmap_impl(g.rows, g.degree, self.n_active, root,
                                     self.core, alpha=p.alpha, beta=p.beta,
-                                    max_levels=p.max_levels, rows=self.bfs_rows,
-                                    fault=self.fault)
+                                    max_levels=p.max_levels, fault=self.fault)
         return _run_legacy(g.ev, g.degree, self.n_active, root, self.core,
                            engine=p.engine, alpha=p.alpha, beta=p.beta,
                            max_levels=p.max_levels)
@@ -568,9 +550,9 @@ class CompiledBFS:
         if p.kernel == "sssp":
             return _run_sssp_batch(g.rows, g.degree, roots, delta=self.delta,
                                    max_rounds=self.max_rounds, fault=self.fault)
-        return _run_batch(g.chunks, g.degree, self.n_active, roots, self.core,
+        return _run_batch(g.rows, g.degree, self.n_active, roots, self.core,
                           alpha=p.alpha, beta=p.beta, max_levels=p.max_levels,
-                          rows=self.bfs_rows, fault=self.fault)
+                          fault=self.fault)
 
     def _strip(self, x: torch.Tensor) -> torch.Tensor:
         """Drop the shard padding of a vertex-sharded result's rows."""
@@ -625,8 +607,7 @@ class CompiledBFS:
                                 max_levels=p.max_levels, n_chunks=p.n_chunks,
                                 kernel=p.kernel)
         self._fallback = compile_plan(
-            fb_plan, PreparedGraph(ev=g.ev, degree=g.degree, core=g.core,
-                                   chunks=g.chunks, rows=g.rows),
+            fb_plan, PreparedGraph(ev=g.ev, degree=g.degree, core=g.core, rows=g.rows),
             device=self.device, fault=self.fault)
         return self._fallback
 

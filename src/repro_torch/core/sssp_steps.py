@@ -30,27 +30,27 @@ re-enters every improved vertex.  The JAX ``lax.while_loop`` becomes a host
 loop with one synchronisation a round, on the size of the changed set; the
 batch runs the roots one after another, which gives the rows of the JAX
 engine's vmapped batch (whose finished roots stop changing).  The relax
-walks the rows of a source-sorted edge view (:class:`WeightedRows`, built
+walks the rows of a source-sorted edge view
+(:class:`~repro_torch.core.bfs_steps.EdgeRows` with the weight plane, built
 once by ``compile_plan``); the vertex-sharded engine keeps the two passes
 over its dst-owned edges.
 """
 from __future__ import annotations
 
 import heapq
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.comms import hierarchical as _hier
-from repro_torch.core.bfs_steps import EdgeView
+from repro_torch.core.bfs_steps import EdgeRows
 from repro_torch.core.faults import corrupt_parent, fires
 from repro_torch.core.heavy import pack_bitmap, testbit
 from repro_torch.core.hybrid_bfs import (
     BFSResult, BFSStats, _exchange_delta, _shared, stack_results,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import popcount_u32, wrap_i32
+from repro_torch.kernels.ref import popcount_u32
 from repro_torch.tracing import count, mark, recording
 
 #: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
@@ -76,43 +76,7 @@ def sssp_max_rounds(max_levels: int) -> int:
     return max(int(max_levels), DEFAULT_MAX_ROUNDS)
 
 
-@dataclass
-class WeightedRows:
-    """A weighted, source-sorted edge view as rows: vertex u's out-edges are
-    entries ``[row_start[u], row_start[u] + degree[u])``."""
-
-    row_start: torch.Tensor   # [V] int64
-    dst: torch.Tensor         # [E_pad] int32
-    weight: torch.Tensor      # [E_pad] int32 bit view of the uint32 weights
-
-
-def weighted_rows(ev: EdgeView, degree: torch.Tensor) -> WeightedRows:
-    """The rows of ``ev`` (set-up, once a plan): the row offsets are the
-    exclusive cumulative sum of ``degree``.  Raises unless the valid entries
-    are the first ``sum(degree)``, padding only after them, and their
-    sources run through the vertices in order, ``degree[u]`` entries each
-    (the CSR layout ``build_csr`` gives).  The weights keep their 32 bits in
-    an int32 plane: exact for every uint32 weight."""
-    if ev.weight is None:
-        raise ValueError("SSSP needs a weighted EdgeView")
-    v = ev.num_vertices
-    if degree.shape != (v,):
-        raise ValueError(f"degree has shape {tuple(degree.shape)}, the view {v} vertices")
-    ends = torch.cumsum(degree, 0, dtype=torch.int64)
-    n = int(ends[-1]) if v else 0
-    ids = torch.arange(v, dtype=torch.int32, device=degree.device)
-    if (n > ev.valid.shape[0] or not bool(ev.valid[:n].all())
-            or bool(ev.valid[n:].any())
-            or not torch.equal(ev.src[:n], torch.repeat_interleave(ids, degree,
-                                                                   output_size=n))):
-        raise ValueError("SSSP needs a source-sorted edge view with degree[u] entries "
-                         "for each vertex u in order and the padding after them (the "
-                         "layout build_csr gives)")
-    return WeightedRows(row_start=ends - degree, dst=ev.dst.contiguous(),
-                        weight=wrap_i32(ev.weight).contiguous())
-
-
-def _run_sssp_impl(rows: WeightedRows, degree: torch.Tensor, root: int, *,
+def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
                    delta: int, max_rounds: int, fault=None) -> BFSResult:
     """One δ-stepping SSSP from ``root`` over ``rows``.
 
@@ -124,10 +88,8 @@ def _run_sssp_impl(rows: WeightedRows, degree: torch.Tensor, root: int, *,
     ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`): ``start``,
     ``sync`` (blocked on the changed set's size), ``round`` (the round's
     enqueue), ``finish`` (the sentinels and the result) and ``done``; and it counts
-    ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, read
-    back once at the end) and ``sssp.scanned_edges`` (the entries the
-    rounds' relax reads: the frontiers' rows and no others, so the same
-    sum).
+    ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, the
+    entries their relax reads, read back once at the end).
     """
     traced = recording()
     if traced:
@@ -204,14 +166,12 @@ def _run_sssp_impl(rows: WeightedRows, degree: torch.Tensor, root: int, *,
     )
     if traced:
         # one readback a traced search (a copy, no kernel)
-        edges = sum(stats_se[:rnd].tolist())
-        count("sssp.frontier_edges", edges)
-        count("sssp.scanned_edges", edges)
+        count("sssp.frontier_edges", sum(stats_se[:rnd].tolist()))
         mark("repro_torch.sssp.done")
     return result
 
 
-def _run_sssp_batch(rows: WeightedRows, degree: torch.Tensor, roots, *,
+def _run_sssp_batch(rows: EdgeRows, degree: torch.Tensor, roots, *,
                     delta: int, max_rounds: int, fault=None) -> BFSResult:
     """The roots one after another, stacked into ``[R, ...]`` leaves."""
     return stack_results([

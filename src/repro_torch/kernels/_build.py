@@ -10,7 +10,8 @@ The build runs at first use, never at import: the CPU tests import every
 module of the package on machines without ``nvcc``.  All sources compile in
 parallel (one ``nvcc`` process each, started together).  Nothing here falls
 back to a plain PyTorch version: a missing compiler or a failed build
-raises.
+raises.  :class:`StreamScratch` keeps the kernels' scratch buffers, one set
+per device and stream.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -116,6 +119,41 @@ def build_all() -> float:
     for src in _sources():
         library(src.stem)
     return float(build_info["seconds"])
+
+
+class StreamScratch:
+    """A kernel's scratch buffers, one set per (device index, raw stream): a
+    stream runs its calls in order, so one set serves every call on it, and
+    two streams never share one.  ``make(device, size)`` allocates the set
+    for a size key (a tuple of tensors on ``device``); a call with another
+    key on the same stream replaces that stream's set."""
+
+    def __init__(self, make):
+        self._make = make
+        self._sets: dict = {}
+
+    def __call__(self, device: int, stream: int, size=None) -> tuple:
+        """The data pointers of the set for ``size`` on one (device index,
+        stream), allocated on first use and again when ``size`` changes."""
+        entry = self._sets.get((device, stream))
+        if entry is None or entry[0] != size:
+            bufs = self._make(f"cuda:{device}", size)
+            entry = self._sets[(device, stream)] = (
+                size, tuple(t.data_ptr() for t in bufs), bufs)
+        return entry[1]
+
+
+def frontier_list_scratch(device: str, v: int, scan_tile: int) -> tuple:
+    """The scratch of ``csrc/frontier_list.cuh``'s list for ``v`` vertices
+    scanned ``scan_tile`` a block: the per-block sums of listed vertices
+    (int32) and of their entries (int64), the two totals, and the list's
+    vertices (int32) and first entries (int64)."""
+    n_parts = -(-v // scan_tile)
+    return (torch.empty(n_parts, dtype=torch.int32, device=device),
+            torch.empty(n_parts, dtype=torch.int64, device=device),
+            torch.empty(2, dtype=torch.int64, device=device),
+            torch.empty(v, dtype=torch.int32, device=device),
+            torch.empty(v, dtype=torch.int64, device=device))
 
 
 class CudaKernel:

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, StreamScratch, frontier_list_scratch
 from repro_torch.kernels.ref import check_bfs_relax_inputs
 
 KERNEL = CudaKernel("bfs_relax", "bfs_relax_launch", [
@@ -36,27 +36,9 @@ KERNEL = CudaKernel("bfs_relax", "bfs_relax_launch", [
 #: each (csrc/bfs_relax.cu's kThreads).
 SCAN_TILE = 256 * 32
 
-#: (device index, raw stream) -> (V, scratch pointers, scratch tensors): the
-#: per-block sums, the two totals and the frontier list.  A stream runs its
-#: calls in order, so one scratch serves every call on it.
-_scratch: dict = {}
-
-
-def scratch_for(device: int, stream: int, v: int) -> tuple:
-    """The data pointers of the top-down scratch for ``v`` vertices on one
-    (device index, stream), allocated on first use and again when ``v``
-    changes."""
-    entry = _scratch.get((device, stream))
-    if entry is None or entry[0] != v:
-        n_parts = -(-v // SCAN_TILE)
-        on = dict(device=f"cuda:{device}")
-        bufs = (torch.empty(n_parts, dtype=torch.int32, **on),    # per-block vertices
-                torch.empty(n_parts, dtype=torch.int64, **on),    # per-block entries
-                torch.empty(2, dtype=torch.int64, **on),          # the totals
-                torch.empty(v, dtype=torch.int32, **on),          # the list: vertex,
-                torch.empty(v, dtype=torch.int64, **on))          # first entry
-        entry = _scratch[(device, stream)] = (v, tuple(t.data_ptr() for t in bufs), bufs)
-    return entry[1]
+#: The top-down scratch of one (device index, stream) for V vertices: the
+#: frontier list's.
+scratch_for = StreamScratch(lambda device, v: frontier_list_scratch(device, v, SCAN_TILE))
 
 
 def _on_card(parent_ext) -> tuple[int, int]:

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, StreamScratch
 from repro_torch.kernels.ref import check_frontier_out
 
 #: Bitmap length alignment (words), the JAX kernel's (8, 128) tile:
@@ -38,11 +38,6 @@ KERNEL = CudaKernel("frontier_update", "frontier_update_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
 ])
 
-#: (device index, raw stream) -> (scratch, its data pointer); two streams
-#: never share a ticket.
-_scratch: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
-
-
 def _check_bitmap(name: str, t: torch.Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"frontier_update: {name} must be a CUDA tensor, "
@@ -52,15 +47,10 @@ def _check_bitmap(name: str, t: torch.Tensor) -> None:
                          f"(uint32 bit-view), got {t.dtype} {tuple(t.shape)}")
 
 
-def scratch_for(device: int, stream: int) -> tuple[torch.Tensor, int]:
-    """The kernel's scratch for one (device index, stream), zeroed at
-    allocation, and its data pointer."""
-    key = (device, stream)
-    entry = _scratch.get(key)
-    if entry is None:
-        buf = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=f"cuda:{device}")
-        entry = _scratch[key] = (buf, buf.data_ptr())
-    return entry
+#: The scratch of one (device index, stream), zeroed at allocation: two
+#: streams never share a ticket.
+scratch_for = StreamScratch(
+    lambda device, _: (torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=device),))
 
 
 def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
@@ -88,5 +78,5 @@ def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
     if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16:
         raise ValueError("frontier_update: bitmaps must be 16-byte aligned")
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    KERNEL(*ptrs, scratch_for(dev, stream)[1], w, stream)
+    KERNEL(*ptrs, *scratch_for(dev, stream), w, stream)
     return out

@@ -48,11 +48,21 @@
 //   bitmap and its vertices' degrees once; bottom-up reads parent, row_start
 //   and degree once a vertex (16 B), then its rows up to the first hit.
 //
+// The scan's shared passes and the tile's searches: frontier_list.cuh.
+//
 // C interface (loaded with ctypes): returns cudaGetLastError() (0 = success).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "frontier_list.cuh"
+
 namespace {
+
+using frontier_list::block_offsets;
+using frontier_list::block_scan;
+using frontier_list::Count;
+using frontier_list::staged_entry;
+using frontier_list::tile_range;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;                  // entries a thread takes in the top-down relax
@@ -61,64 +71,6 @@ constexpr int kBlocksPerSm = 8;
 constexpr int kMaxBlocks = 132 * kBlocksPerSm;
 constexpr int kOffsetThreads = 1024;       // the one block that scans the block sums
 constexpr int kWarp = 32;                  // longer rows are walked by a whole warp
-
-// Frontier vertices with entries, and their entries.
-struct Count {
-  int n;
-  long long e;
-};
-
-// Exclusive scan of one Count a thread over the block (kBlock threads, a
-// multiple of 32 up to 1024); *total gets the block's sum in every thread.
-template <int kBlock>
-__device__ __forceinline__ Count block_scan(Count x, Count* total) {
-  constexpr int kWarps = kBlock / 32;
-  __shared__ int s_n[kWarps];
-  __shared__ long long s_e[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  Count inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, inc.n, d);
-    const long long e = __shfl_up_sync(0xffffffffu, inc.e, d);
-    if (lane >= d) {
-      inc.n += n;
-      inc.e += e;
-    }
-  }
-  if (lane == 31) {
-    s_n[warp] = inc.n;
-    s_e[warp] = inc.e;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = lane < kWarps ? s_n[lane] : 0;
-    long long e = lane < kWarps ? s_e[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n2 = __shfl_up_sync(0xffffffffu, n, d);
-      const long long e2 = __shfl_up_sync(0xffffffffu, e, d);
-      if (lane >= d) {
-        n += n2;
-        e += e2;
-      }
-    }
-    if (lane < kWarps) {
-      s_n[lane] = n;
-      s_e[lane] = e;
-    }
-  }
-  __syncthreads();
-  Count out = {inc.n - x.n, inc.e - x.e};
-  if (warp > 0) {
-    out.n += s_n[warp - 1];
-    out.e += s_e[warp - 1];
-  }
-  *total = Count{s_n[kWarps - 1], s_e[kWarps - 1]};
-  __syncthreads();  // the next call may overwrite s_n / s_e
-  return out;
-}
 
 __device__ __forceinline__ bool test_bit(const unsigned* __restrict__ bm, int v) {
   return (__ldg(bm + (v >> 5)) >> (v & 31)) & 1u;
@@ -161,28 +113,12 @@ bfs_relax_count_kernel(const unsigned* __restrict__ frontier, const int* __restr
   }
 }
 
-// Pass 2, one block: the block sums become exclusive offsets in place;
-// totals = {frontier vertices with entries, their entries}.
+// Pass 2, one block: the block sums become exclusive offsets
+// (frontier_list.cuh).
 __global__ void __launch_bounds__(kOffsetThreads)
 bfs_relax_offsets_kernel(int* __restrict__ part_n, long long* __restrict__ part_e,
                          int64_t n_parts, long long* __restrict__ totals) {
-  Count carry = {0, 0};
-  for (int64_t base = 0; base < n_parts; base += kOffsetThreads) {
-    const int64_t i = base + threadIdx.x;
-    const Count x = i < n_parts ? Count{part_n[i], part_e[i]} : Count{0, 0};
-    Count total;
-    const Count ex = block_scan<kOffsetThreads>(x, &total);
-    if (i < n_parts) {
-      part_n[i] = carry.n + ex.n;
-      part_e[i] = carry.e + ex.e;
-    }
-    carry.n += total.n;
-    carry.e += total.e;
-  }
-  if (threadIdx.x == 0) {
-    totals[0] = carry.n;
-    totals[1] = carry.e;
-  }
+  block_offsets<kOffsetThreads>(part_n, part_e, n_parts, totals);
 }
 
 // Pass 3: each block scans its words again from its offset and lists its
@@ -211,16 +147,6 @@ bfs_relax_compact_kernel(const unsigned* __restrict__ frontier, const int* __res
   }
 }
 
-// The number of entries of a[0, n) that are <= x (a sorted ascending).
-__device__ __forceinline__ int count_le(const int64_t* a, int n, int64_t x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 // Pass 4: the top-down relax over the listed vertices' entries.
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 bfs_relax_top_down_kernel(const long long* __restrict__ totals,
@@ -241,10 +167,7 @@ bfs_relax_top_down_kernel(const long long* __restrict__ totals,
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int64_t t0 = t * kTile;
     const int64_t t_last = (t0 + kTile < total ? t0 + kTile : total) - 1;
-    if (threadIdx.x < 2) {
-      s_range[threadIdx.x] =
-          count_le(fstart, n_list, threadIdx.x == 0 ? t0 : t_last) - 1;
-    }
+    tile_range(fstart, n_list, t0, t_last, s_range);
     __syncthreads();
     const int base = s_range[0];
     const int n = s_range[1] - base + 1;
@@ -260,11 +183,7 @@ bfs_relax_top_down_kernel(const long long* __restrict__ totals,
     for (int k = 0; k < kItems; ++k) {
       const int r = k * kThreads + threadIdx.x;
       if (t0 + r > t_last) break;
-      int lo = 0, hi = n - 1;                 // the last j with s_rel[j] <= r
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (s_rel[mid] <= r) lo = mid; else hi = mid - 1;
-      }
+      const int lo = staged_entry(s_rel, n, r);
       const int v = __ldg(dst + t0 + r + s_row[lo]);
       const int u = s_src[lo];
       if (!test_bit(visited, v) && u < __ldcg(parent + v)) atomicMin(parent + v, u);

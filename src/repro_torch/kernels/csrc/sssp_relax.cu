@@ -43,11 +43,21 @@
 //   vertices, their entries) are read on the device, so the round needs no
 //   host synchronisation.
 //
+// The scan's shared passes and the tile's searches: frontier_list.cuh.
+//
 // C interface (loaded with ctypes): returns cudaGetLastError() (0 = success).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "frontier_list.cuh"
+
 namespace {
+
+using frontier_list::block_offsets;
+using frontier_list::block_scan;
+using frontier_list::Count;
+using frontier_list::staged_entry;
+using frontier_list::tile_range;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;                  // entries (relax) or vertices (scan) a thread takes
@@ -55,64 +65,6 @@ constexpr int kTile = kThreads * kItems;   // entries or vertices a block takes 
 constexpr int kBlocksPerSm = 8;            // 32 registers a thread
 constexpr int kMaxBlocks = 132 * kBlocksPerSm;
 constexpr int kOffsetThreads = 1024;       // the one block that scans the block sums
-
-// Frontier vertices with entries, and their entries.
-struct Count {
-  int n;
-  long long e;
-};
-
-// Exclusive scan of one Count a thread over the block (kBlock threads, a
-// multiple of 32 up to 1024); *total gets the block's sum in every thread.
-template <int kBlock>
-__device__ __forceinline__ Count block_scan(Count x, Count* total) {
-  constexpr int kWarps = kBlock / 32;
-  __shared__ int s_n[kWarps];
-  __shared__ long long s_e[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  Count inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, inc.n, d);
-    const long long e = __shfl_up_sync(0xffffffffu, inc.e, d);
-    if (lane >= d) {
-      inc.n += n;
-      inc.e += e;
-    }
-  }
-  if (lane == 31) {
-    s_n[warp] = inc.n;
-    s_e[warp] = inc.e;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = lane < kWarps ? s_n[lane] : 0;
-    long long e = lane < kWarps ? s_e[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n2 = __shfl_up_sync(0xffffffffu, n, d);
-      const long long e2 = __shfl_up_sync(0xffffffffu, e, d);
-      if (lane >= d) {
-        n += n2;
-        e += e2;
-      }
-    }
-    if (lane < kWarps) {
-      s_n[lane] = n;
-      s_e[lane] = e;
-    }
-  }
-  __syncthreads();
-  Count out = {inc.n - x.n, inc.e - x.e};
-  if (warp > 0) {
-    out.n += s_n[warp - 1];
-    out.e += s_e[warp - 1];
-  }
-  *total = Count{s_n[kWarps - 1], s_e[kWarps - 1]};
-  __syncthreads();  // the next call may overwrite s_n / s_e
-  return out;
-}
 
 // The thread's kItems consecutive vertices: their degrees (0 off the
 // frontier and past the end) and their Count.
@@ -144,28 +96,12 @@ sssp_relax_count_kernel(const int* __restrict__ front_deg, int64_t n_vertices,
   }
 }
 
-// Pass 2, one block: the block sums become exclusive offsets in place;
-// totals = {frontier vertices with entries, their entries}.
+// Pass 2, one block: the block sums become exclusive offsets
+// (frontier_list.cuh).
 __global__ void __launch_bounds__(kOffsetThreads)
 sssp_relax_offsets_kernel(int* __restrict__ part_n, long long* __restrict__ part_e,
                           int64_t n_parts, long long* __restrict__ totals) {
-  Count carry = {0, 0};
-  for (int64_t base = 0; base < n_parts; base += kOffsetThreads) {
-    const int64_t i = base + threadIdx.x;
-    const Count x = i < n_parts ? Count{part_n[i], part_e[i]} : Count{0, 0};
-    Count total;
-    const Count ex = block_scan<kOffsetThreads>(x, &total);
-    if (i < n_parts) {
-      part_n[i] = carry.n + ex.n;
-      part_e[i] = carry.e + ex.e;
-    }
-    carry.n += total.n;
-    carry.e += total.e;
-  }
-  if (threadIdx.x == 0) {
-    totals[0] = carry.n;
-    totals[1] = carry.e;
-  }
+  block_offsets<kOffsetThreads>(part_n, part_e, n_parts, totals);
 }
 
 // Pass 3: each block scans its vertices again from its offset and lists its
@@ -195,16 +131,6 @@ sssp_relax_compact_kernel(const int* __restrict__ front_deg,
   }
 }
 
-// The number of entries of a[0, n) that are <= x (a sorted ascending).
-__device__ __forceinline__ int count_le(const int64_t* a, int n, int64_t x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 sssp_relax_kernel(const long long* __restrict__ totals,
                   const int* __restrict__ flist,
@@ -227,10 +153,7 @@ sssp_relax_kernel(const long long* __restrict__ totals,
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int64_t t0 = t * kTile;
     const int64_t t_last = (t0 + kTile < total ? t0 + kTile : total) - 1;
-    if (threadIdx.x < 2) {
-      s_range[threadIdx.x] =
-          count_le(fstart, n_list, threadIdx.x == 0 ? t0 : t_last) - 1;
-    }
+    tile_range(fstart, n_list, t0, t_last, s_range);
     __syncthreads();
     const int base = s_range[0];
     const int n = s_range[1] - base + 1;
@@ -247,11 +170,7 @@ sssp_relax_kernel(const long long* __restrict__ totals,
     for (int k = 0; k < kItems; ++k) {
       const int r = k * kThreads + threadIdx.x;
       if (t0 + r > t_last) break;
-      int lo = 0, hi = n - 1;                 // the last j with s_rel[j] <= r
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (s_rel[mid] <= r) lo = mid; else hi = mid - 1;
-      }
+      const int lo = staged_entry(s_rel, n, r);
       const int64_t row = t0 + r + s_row[lo];
       const unsigned v = static_cast<unsigned>(__ldg(dst + row));
       const unsigned nd = s_dist[lo] + __ldg(weight + row);   // mod 2^32

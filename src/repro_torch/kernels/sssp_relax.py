@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, StreamScratch, frontier_list_scratch
 from repro_torch.kernels.ref import check_relax_inputs
 
 KERNEL = CudaKernel("sssp_relax", "sssp_relax_launch", [
@@ -34,27 +34,10 @@ KERNEL = CudaKernel("sssp_relax", "sssp_relax_launch", [
 #: Vertices a block of the frontier's scan takes (csrc/sssp_relax.cu's kTile).
 SCAN_TILE = 1024
 
-#: (device index, raw stream) -> (V, scratch pointers, scratch tensors): the
-#: per-block sums, the two totals and the frontier list.  A stream runs its
-#: calls in order, so one scratch serves every call on it.
-_scratch: dict = {}
-
-
-def scratch_for(device: int, stream: int, v: int) -> tuple:
-    """The data pointers of the scratch for ``v`` vertices on one (device
-    index, stream), allocated on first use and again when ``v`` changes."""
-    entry = _scratch.get((device, stream))
-    if entry is None or entry[0] != v:
-        n_parts = -(-v // SCAN_TILE)
-        on = dict(device=f"cuda:{device}")
-        bufs = (torch.empty(n_parts, dtype=torch.int32, **on),    # per-block vertices
-                torch.empty(n_parts, dtype=torch.int64, **on),    # per-block entries
-                torch.empty(2, dtype=torch.int64, **on),          # the totals
-                torch.empty(v, dtype=torch.int32, **on),          # the list: vertex,
-                torch.empty(v, dtype=torch.int64, **on),          # first entry,
-                torch.empty(v, dtype=torch.int32, **on))          # round-start distance
-        entry = _scratch[(device, stream)] = (v, tuple(t.data_ptr() for t in bufs), bufs)
-    return entry[1]
+#: The scratch of one (device index, stream) for V vertices: the frontier
+#: list's, with each listed vertex's round-start distance beside it.
+scratch_for = StreamScratch(lambda device, v: frontier_list_scratch(device, v, SCAN_TILE) + (
+    torch.empty(v, dtype=torch.int32, device=device),))
 
 
 def sssp_relax(state, changed, front_deg, row_start, dst, weight) -> None:

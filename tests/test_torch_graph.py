@@ -18,7 +18,8 @@ from repro.core import reorder as jreorder
 from repro.core.hybrid_bfs import _pack_delta_words
 from repro.core.kronecker import generate_edges as jax_generate_edges
 from repro_torch import convert
-from repro_torch.core import bfs_steps, graph_build, heavy, kronecker, reorder
+from repro_torch.core import bfs_steps, graph_build, heavy, kronecker, pipeline, reorder
+from repro_torch.data import graphs
 from repro_torch.core.heavy import testbit as bit_at  # alias: pytest must not collect
 
 torch.set_num_threads(2)
@@ -78,6 +79,50 @@ def test_graph_construction_bitwise(scale):
                   rng.integers(0, 2**32, w, dtype=np.uint32), 0).astype(np.uint32)
     same(bfs_steps.chunk_frontier_mask(tch, convert.words_to_torch(bm, "cpu")),
          jsteps.chunk_frontier_mask(jch, jnp.asarray(bm)))
+
+
+_ROW_GRAPHS: dict = {}
+
+
+def row_graph(case):
+    """(EdgeView, degree, HeavyCore or None) of the port on the CPU, cached."""
+    if case not in _ROW_GRAPHS:
+        if case.startswith("kron"):
+            scale, core = int(case[4:6]), case.endswith("core")
+            b = pipeline.build(pipeline.Graph500Config(
+                scale=scale, seed=5, device="cpu", heavy_threshold=16 if core else None))
+            assert (b.core is not None) == core
+            _ROW_GRAPHS[case] = (b.ev, b.degree, b.core)
+        else:
+            el = (graphs.grid_graph(20, seed=5, device="cpu") if case == "grid"
+                  else graphs.erdos_renyi_graph(400, avg_degree=6, seed=7, device="cpu"))
+            if case == "isolated_tail":    # 57 vertices past the last with an edge
+                el = kronecker.EdgeList(el.src, el.dst, el.num_vertices + 57)
+            g = graph_build.build_csr(el)
+            _ROW_GRAPHS[case] = (bfs_steps.edge_view(g), g.degree, None)
+    return _ROW_GRAPHS[case]
+
+
+@pytest.mark.parametrize("case", ["kron09", "kron09core", "kron11", "kron11core", "grid",
+                                  "erdos_renyi", "isolated_tail"])
+@pytest.mark.parametrize("n_chunks", [1, 7, 64, "past_the_entries"])
+def test_edge_rows_chunk_bounds_match_the_chunked_view(case, n_chunks):
+    # the rows keep of the chunks only their source ranges, computed from
+    # the rows without building a chunk: the chunked view's, bit for bit
+    ev, degree, core = row_graph(case)
+    if case == "isolated_tail":
+        assert bool((degree[-57:] == 0).all())
+    e_pad = ev.src.shape[0]
+    n = e_pad + 3 if n_chunks == "past_the_entries" else n_chunks
+    rows = bfs_steps.edge_rows(ev, degree, core, n)
+    want = bfs_steps.chunk_edge_view(ev, n)
+    assert rows.n_chunks == want.n_chunks == n
+    assert rows.src_lo.dtype == rows.src_hi.dtype == torch.int32
+    same(rows.src_lo, np_(want.src_lo))
+    same(rows.src_hi, np_(want.src_hi))
+    if n_chunks == "past_the_entries":
+        assert int((rows.src_hi < 0).sum()) >= 3      # empty chunks: (V, -1)
+    assert rows.dst.data_ptr() == ev.dst.data_ptr()   # the view's own, not a copy
 
 
 @pytest.mark.parametrize("n_bits", [1, 31, 32, 33, 1000, 32768 - 5])

@@ -417,7 +417,7 @@ _RELAX_GRAPHS: dict = {}
 
 
 def relax_graph(case):
-    """(EdgeView, degree, HeavyCore or None, BFSRows) on the CPU.
+    """(EdgeView, degree, HeavyCore or None, EdgeRows) on the CPU.
     ``kron12``: degree-sorted with a core that spans every vertex (K = V =
     4,096); ``nocore12``: no sort, no core; ``dup11``: every third row's
     entries each twice (rows still ascending) and 37 padding lanes;
@@ -441,7 +441,7 @@ def relax_graph(case):
                                     torch.cat([ev.dst[:n].repeat_interleave(rep), pad]),
                                     torch.arange(m + 37) < m, v)
             degree = torch.bincount(ev.src[ev.valid].long(), minlength=v).to(torch.int32)
-        _RELAX_GRAPHS[case] = (ev, degree, b.core, hybrid_bfs.bfs_rows(ev, degree, b.core))
+        _RELAX_GRAPHS[case] = (ev, degree, b.core, bfs_steps.edge_rows(ev, degree, b.core))
     return _RELAX_GRAPHS[case]
 
 
@@ -516,21 +516,37 @@ def test_bfs_relax_plain_matches_the_scatter_min(case, bottom_up, density):
     assert not torch.equal(got, before)      # the level found someone
 
 
-def test_bfs_rows_refuse_views_out_of_order():
+@pytest.mark.parametrize("kernel", ["bfs", "sssp"])
+def test_bfs_rows_refuse_views_out_of_order(kernel):
+    # both kernels' rows refuse sources out of order; only the BFS walk,
+    # which stops at a row's first frontier neighbour, needs each row to
+    # ascend: the SSSP relax reads whole rows and takes them in any order
     ev, degree, core, rows = relax_graph("nocore12")
     assert torch.equal(rows.row_start, torch.cumsum(degree, 0) - degree)
-    assert rows.core_deg.numel() == 0
+    assert rows.core_deg.numel() == 0 and rows.weight is None
     _, k_degree, core, k_rows = relax_graph("kron12")
     assert core.k == ev.num_vertices and torch.equal(k_rows.core_deg, k_degree)  # K = V
+    weighted = kernel == "sssp"
+    if weighted:
+        ev = bfs_steps.with_edge_weights(ev, seed=3)
     u = int(torch.argmax(degree))
     s = int(torch.cumsum(degree, 0)[u] - degree[u])
     flipped = ev.dst.clone()
     flipped[s:s + 2] = flipped[s:s + 2].flip(0)
-    for bad in (bfs_steps.EdgeView(ev.src, flipped, ev.valid, ev.num_vertices),
-                bfs_steps.EdgeView(ev.src.roll(1), ev.dst.roll(1), ev.valid.roll(1),
-                                   ev.num_vertices)):
+    flipped_view = bfs_steps.EdgeView(ev.src, flipped, ev.valid, ev.num_vertices, ev.weight)
+    rolled = bfs_steps.EdgeView(ev.src.roll(1), ev.dst.roll(1), ev.valid.roll(1),
+                                ev.num_vertices,
+                                None if ev.weight is None else ev.weight.roll(1))
+    with pytest.raises(ValueError, match="source-sorted") as refused:
+        bfs_steps.edge_rows(rolled, degree, weighted=weighted)
+    assert ("each row ascending" in str(refused.value)) == (not weighted)
+    if weighted:
+        got = bfs_steps.edge_rows(flipped_view, degree, weighted=True)
+        assert torch.equal(got.dst, flipped)
+        assert torch.equal(got.weight, ref.wrap_i32(ev.weight))
+    else:
         with pytest.raises(ValueError, match="each row ascending"):
-            hybrid_bfs.bfs_rows(bad, degree, None)
+            bfs_steps.edge_rows(flipped_view, degree)
 
 
 # ---------------------------------------------------------------------------

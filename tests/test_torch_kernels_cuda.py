@@ -147,8 +147,8 @@ def test_frontier_update_scratch_per_stream(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got[2], main[2])
     dev = torch.cuda.current_device()
-    assert bitmap_ops.scratch_for(dev, side.cuda_stream)[1] != \
-        bitmap_ops.scratch_for(dev, torch.cuda.current_stream().cuda_stream)[1]
+    assert bitmap_ops.scratch_for(dev, side.cuda_stream) != \
+        bitmap_ops.scratch_for(dev, torch.cuda.current_stream().cuda_stream)
 
 
 @pytest.mark.cuda
@@ -333,9 +333,9 @@ def relax_round(ev, degree, seed, density):
 def test_sssp_relax_kernel_matches_plain(cuda, family, density):
     # bit for bit: the unsigned minimum of the packed keys does not depend
     # on the atomics' order; twice on the card gives the same words
-    from repro_torch.core.sssp_steps import weighted_rows
+    from repro_torch.core.bfs_steps import edge_rows
     ev, degree = weighted_graph(family, cuda)
-    rows = weighted_rows(ev, degree)
+    rows = edge_rows(ev, degree, weighted=True)
     if family == "hub":
         assert int(degree.max()) > 65_536
     state, changed, front_deg = relax_round(ev, degree, 11, density)
@@ -355,10 +355,10 @@ def test_sssp_relax_kernel_matches_plain(cuda, family, density):
 def test_sssp_relax_scratch_per_stream(cuda):
     # two streams each keep their own scratch; a new vertex count on a
     # stream replaces its scratch
-    from repro_torch.core.sssp_steps import weighted_rows
+    from repro_torch.core.bfs_steps import edge_rows
     from repro_torch.kernels import sssp_relax
     ev, degree = weighted_graph("erdos_renyi", cuda)
-    rows = weighted_rows(ev, degree)
+    rows = edge_rows(ev, degree, weighted=True)
     state, changed, front_deg = relax_round(ev, degree, 3, 0.3)
     args = (front_deg, rows.row_start, rows.dst, rows.weight)
     want_s, want_c = state.clone(), changed.clone()
@@ -378,9 +378,9 @@ def test_sssp_relax_scratch_per_stream(cuda):
     main = torch.cuda.current_stream().cuda_stream
     assert sssp_relax.scratch_for(dev, side.cuda_stream, v) != \
         sssp_relax.scratch_for(dev, main, v)
-    assert sssp_relax._scratch[(dev, main)][0] == v
+    assert sssp_relax.scratch_for._sets[(dev, main)][0] == v
     sssp_relax.scratch_for(dev, main, v + 1)
-    assert sssp_relax._scratch[(dev, main)][0] == v + 1
+    assert sssp_relax.scratch_for._sets[(dev, main)][0] == v + 1
 
 
 @pytest.mark.cuda
@@ -437,10 +437,11 @@ def test_bfs_relax_kernel_matches_plain(cuda, core, bottom_up, density):
     # parents bit for bit (a minimum, whatever the atomics' order; the walk
     # stops at the least frontier neighbour) and the entries the bottom-up
     # read equal to the plain version's count; twice on the card alike
-    from repro_torch.core.hybrid_bfs import _core_bottom_up_resident, bfs_rows
+    from repro_torch.core.bfs_steps import edge_rows
+    from repro_torch.core.hybrid_bfs import _core_bottom_up_resident
     b = bfs_graph(core, cuda)
     v = b.n_vertices
-    rows = bfs_rows(b.ev, b.degree, b.core)
+    rows = edge_rows(b.ev, b.degree, b.core)
     assert int(b.degree.max()) > 32 and (b.core is None or b.core.k < v)
     f_bm, vis_bm, parent = bfs_level_state(v, 3, density, cuda)
     before = parent.clone()

@@ -132,7 +132,7 @@ def test_sssp_counters_follow_the_rounds(key):
     res, _, counts = traced("sssp", key)
     rounds = int(res.stats.levels)
     edges = int(res.stats.scanned_edges[:rounds].long().sum())
-    assert counts == {"sssp.frontier_edges": edges, "sssp.scanned_edges": edges}
+    assert counts == {"sssp.frontier_edges": edges}
     assert 0 < counts["sssp.frontier_edges"]
 
 
