@@ -219,7 +219,9 @@ non-zero and no result line is printed:
      shapes: scale 22, ``pre-g500``, one search with one launch a level;
      its largest top-down level and its first bottom-up level timed against
      the plain version and the byte bound, parents and the count of entries
-     read equal to the plain version's (``time_bfs_relax``).
+     read equal to the plain version's (``time_bfs_relax``); then the level
+     loop's four bookkeeping kernels on levels of the same search, each
+     against its plain version and its byte bound (``time_bfs_level``).
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -1445,8 +1447,114 @@ def time_bfs_relax(device) -> dict:
             f"CUDA events), plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
             f"({bound[1]}); parents and count equal the plain version's")
         out[side] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+    out["level"] = time_bfs_level(compiled, key, device)
     del kept, compiled, built, res
     torch.cuda.empty_cache()
+    return out
+
+
+def time_bfs_level(compiled, key: int, device) -> dict:
+    """Phase 28, second part: the level loop's bookkeeping kernels
+    (``csrc/bfs_level.cuh``) at the BFS cell's shapes, from one search of
+    ``compiled`` from ``key``: the delta of the level that found most
+    vertices, the stats of the last level, the live-chunk count of the first
+    top-down level and the core merge of the first bottom-up level, each
+    timed (CUDA events, median of 30) against its plain version on the card
+    and its byte bound (each input byte read once, each output byte written
+    once: the delta reads the visited words and the unvisited vertices'
+    parents and writes the found words, the found vertices' levels and reads
+    their degrees; the stats read two bitmaps; the chunk count the frontier
+    words; the merge a candidate, a parent and a write a core row), its
+    outputs equal to the plain version's."""
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.kernels import ops, ref
+    names = ("bfs_level_delta", "bfs_level_stats", "bfs_live_chunks", "bfs_core_merge")
+    real = {n: getattr(ops, n) for n in names}
+    calls: dict = {n: [] for n in names}
+
+    def spy(name):
+        def call(*args):
+            kept = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            real[name](*args)
+            calls[name].append((kept, args[-1][ref.ACC_FOUND].clone()
+                                if name == "bfs_level_delta" else None))
+        return call
+
+    for n in names:
+        setattr(ops, n, spy(n))
+    try:
+        before = ops.launch_counts()
+        res = compiled.bfs(key)
+        sync(device)
+        after = ops.launch_counts()
+    finally:
+        for n in names:
+            setattr(ops, n, real[n])
+    levels = int(res.stats.levels)
+    n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
+    launches = {n: after[n] - before[n] for n in names}
+    want = {"bfs_level_delta": levels, "bfs_level_stats": levels,
+            "bfs_live_chunks": levels - n_bu, "bfs_core_merge": n_bu}
+    if launches != want:
+        raise AssertionError(f"bfs_level: launches {launches} over {levels} levels "
+                             f"({n_bu} bottom-up), expected {want}")
+    picked = {
+        "bfs_level_delta": max(calls["bfs_level_delta"], key=lambda c: int(c[1]))[0],
+        "bfs_level_stats": calls["bfs_level_stats"][-1][0],
+        "bfs_live_chunks": calls["bfs_live_chunks"][0][0],
+        "bfs_core_merge": calls["bfs_core_merge"][0][0],
+    }
+    plain = {"bfs_level_delta": ref.bfs_level_delta_ref, "bfs_level_stats": ref.bfs_level_stats_ref,
+             "bfs_live_chunks": ref.bfs_live_chunks_ref, "bfs_core_merge": ref.bfs_core_merge_ref}
+    out = dict(launches=launches, levels=levels, n_bu=n_bu)
+    for name in names:
+        args = picked[name]
+
+        def fresh(args=args):
+            return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+        def timed(fn, reps):
+            times = []
+            for _ in range(reps):
+                a = fresh()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(*a)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            return statistics.median(times), a
+
+        plain_ms, want_out = timed(plain[name], 5)
+        ms, got_out = timed(getattr(ops, name), 30)
+        for g, w in zip(got_out, want_out):
+            if isinstance(g, torch.Tensor) and not torch.equal(g, w):
+                raise AssertionError(f"{name}: the kernel's outputs differ from the plain "
+                                     f"version's on the kept level")
+        if name == "bfs_level_delta":
+            parent, vis, _, _, _, found, acc = args
+            v = parent.shape[0] - 1
+            unvisited = v - int(ref.popcount_u32(vis).sum())
+            n_found = int(got_out[-1][ref.ACC_FOUND])
+            n_bytes = 8 * found.shape[0] + 4 * unvisited + 8 * n_found
+            what = (f"{n_found} found of {unvisited} unvisited, V = {v}; bound 4 B a visited "
+                    f"and a found word, an unvisited vertex's parent, 8 B a found vertex")
+        elif name == "bfs_level_stats":
+            n_bytes = 8 * args[0].shape[0]
+            what = f"W = {args[0].shape[0]}; bound 8 B a word"
+        elif name == "bfs_live_chunks":
+            n_bytes = 4 * args[0].shape[0]
+            what = f"{args[1].shape[0]} chunks, W = {args[0].shape[0]}; bound 4 B a word"
+        else:
+            kk = min(args[0].shape[0], args[2].shape[0] - 1)
+            n_bytes = 12 * kk
+            what = f"min(K, V) = {kk} rows; bound 12 B a row"
+        bound = bound_ms(n_bytes, 0)
+        log(f"    {name} at the cell's shapes (key {key}, {levels} levels, {n_bu} bottom-up, "
+            f"{launches[name]} launches), {what}: kernel {ms:.6f} ms (median of 30, CUDA "
+            f"events), plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}, "
+            f"{n_bytes} B); outputs equal the plain version's")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound=bound, bytes=n_bytes)
     return out
 
 
@@ -3697,6 +3805,17 @@ def main() -> int:
              bound_ms=bfs_relax_t["td"]["bound"][0], bound_by=bfs_relax_t["td"]["bound"][1],
              bu_ms=bfs_relax_t["bu"]["ms"], bu_plain_ms=bfs_relax_t["bu"]["plain_ms"],
              bu_bound_ms=bfs_relax_t["bu"]["bound"][0], library_ms=None),
+        # the level loop's bookkeeping: one scale-22 search's launches of
+        # each of the four kernels and each one's ms at its kept level
+        *[dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+               replaces="none (the JAX engine's jnp level body, fused by XLA)",
+               launches=bfs_relax_t["level"]["launches"][name], max_abs_err=0,
+               ms=bfs_relax_t["level"][name]["ms"],
+               plain_ms=bfs_relax_t["level"][name]["plain_ms"],
+               bound_ms=bfs_relax_t["level"][name]["bound"][0],
+               bound_by=bfs_relax_t["level"][name]["bound"][1], library_ms=None)
+          for name in ("bfs_level_delta", "bfs_level_stats", "bfs_live_chunks",
+                       "bfs_core_merge")],
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

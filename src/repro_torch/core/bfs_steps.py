@@ -28,7 +28,7 @@ from repro_torch.core.graph_build import (
     DEFAULT_MAX_WEIGHT, CSRGraph, csr_to_edge_arrays, edge_weights,
 )
 from repro_torch.core.heavy import HeavyCore
-from repro_torch.kernels.ref import wrap_i32
+from repro_torch.kernels.ref import chunk_range_mask, wrap_i32
 
 DEFAULT_CHUNKS = 64
 
@@ -129,23 +129,6 @@ def chunk_edge_view(ev: EdgeView, n_chunks: int = DEFAULT_CHUNKS) -> ChunkedEdge
               else pad1(ev.weight, (0, pad)).reshape(n_chunks, chunk_size))
     return ChunkedEdgeView(src, dst, valid, src_lo, src_hi, v, n_chunks,
                            chunk_size, weight)
-
-
-def chunk_range_mask(src_lo: torch.Tensor, src_hi: torch.Tensor,
-                     frontier_bm: torch.Tensor) -> torch.Tensor:
-    """bool per chunk: source range ``[src_lo, src_hi]`` meets the frontier.
-
-    Word-granular (conservative superset) test: a chunk is live when any
-    bitmap word overlapping its range is nonzero.
-    """
-    w = frontier_bm.shape[0]
-    word_nz = (frontier_bm != 0).to(torch.int32)
-    cum = torch.cat([torch.zeros(1, dtype=torch.int32, device=word_nz.device),
-                     torch.cumsum(word_nz, 0).to(torch.int32)])
-    lo_w = (src_lo // 32).clamp(0, w - 1).long()
-    hi_w = (src_hi // 32).clamp(0, w - 1).long()
-    nonempty = src_hi >= src_lo
-    return nonempty & ((cum[hi_w + 1] - cum[lo_w]) > 0)
 
 
 def chunk_frontier_mask(chunks: ChunkedEdgeView, frontier_bm: torch.Tensor) -> torch.Tensor:

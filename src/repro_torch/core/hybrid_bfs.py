@@ -23,20 +23,20 @@ level starts with the ``core_spmv`` kernel over the dense heavy core.
 JAX's ``lax.while_loop`` becomes a host loop that synchronises each level
 on the size of the next frontier (the bitmap engine reads it from its
 epilogue kernel's popcount); the direction switch is then decided on the
-host.  A top-down level of the bitmap engines synchronises again on the
-count of the live edge chunks (the chunks ``lax.cond`` relaxes, and the
-``scanned_chunks`` stat): the vertex-sharded engine gathers those chunks
-and relaxes their lanes, while the single-device engine keeps of the
-chunks only their source ranges, for the stat, and relaxes with the
-hand-written ``bfs_relax`` kernel, one call a level over the rows of
+host.  The single-device bitmap engine reads back nothing else: a level is
+a handful of hand-written launches (``csrc/bfs_level.cuh``'s four around the
+``bfs_relax`` kernel, one call a level over the rows of
 :class:`~repro_torch.core.bfs_steps.EdgeRows`: the frontier's rows
 top-down, each unvisited vertex's row up to its first frontier neighbour
-bottom-up.  Each level also writes its direction and frontier size (and,
-in the bitmap engines, its chunk count) into the stats from host ints, and
-each such write is a host-to-device copy that synchronises.  The
-single-device bitmap engine marks its phases for ``torch.profiler``
-(:mod:`repro_torch.tracing`).  The outputs (parent, level and every stats
-trace) are bitwise equal to the JAX engines'.
+bottom-up), and every stats trace is written on the device, the direction
+and frontier size, known on the host, as a launch's arguments.  The
+vertex-sharded
+engine still synchronises a top-down level on the count of its live edge
+chunks, which it gathers and relaxes lane by lane, and it, the reference
+and the legacy engines write their stats from host ints, each write a
+host-to-device copy.  The single-device bitmap engine marks its phases for
+``torch.profiler`` (:mod:`repro_torch.tracing`).  The outputs (parent,
+level and every stats trace) are bitwise equal to the JAX engines'.
 """
 from __future__ import annotations
 
@@ -53,10 +53,15 @@ from repro_torch.core.bfs_steps import (
 from repro_torch.comms import hierarchical as _hier
 from repro_torch.core import faults
 from repro_torch.core.faults import corrupt_parent, fires
-from repro_torch.core.heavy import HeavyCore, pack_bitmap, padded_bitmap_words, testbit
+from repro_torch.core.heavy import (
+    HeavyCore, pack_bitmap, padded_bitmap_words, testbit, unpack_bitmap,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bitmap_ops import WORDS_PER_TILE
-from repro_torch.kernels.ref import BIG, popcount_u32
+from repro_torch.kernels.ref import (
+    ACC_DEG_VIS, ACC_LEVELS, ACC_M_F, ACC_NNZ, ACC_SLOTS, BIG, STATS_CH, STATS_DIR,
+    STATS_FS, STATS_OK, STATS_ROWS, STATS_SE, popcount_u32,
+)
 from repro_torch import tracing
 from repro_torch.tracing import mark, recording
 
@@ -208,50 +213,53 @@ def _run_legacy(ev: EdgeView, degree: torch.Tensor, n_active: int, root: int,
 # ---------------------------------------------------------------------------
 
 def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
-                             parent_ext, v: int) -> None:
-    """Dense-core kernel step on the resident frontier bitmap, in place.
-
-    Row i's candidate parent lands on vertex i itself, so the JAX
-    scatter-min over distinct rows is an elementwise min on the prefix.
-    Rows at or past ``V`` (a core padded beyond a tiny graph) have no edges
-    and never win.
-    """
-    k = core.k
-    cand = kops.core_spmv(core.a_core, frontier_bm[: k // 32])  # int32 [K]
-    kk = min(k, v)
-    rows = torch.arange(kk, dtype=torch.int32, device=cand.device)
-    won = (cand[:kk] < BIG) & ~testbit(visited_bm, rows)
-    prefix = parent_ext[:kk]
-    prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], v)))
+                             parent_ext) -> None:
+    """Dense-core kernel step on the resident frontier bitmap, in place: the
+    ``core_spmv`` kernel finds each core row's least frontier neighbour, and
+    the ``bfs_core_merge`` kernel lets the unvisited rows below min(K, V)
+    take it.  Row i's candidate parent lands on vertex i itself, so the JAX
+    scatter-min over distinct rows is an elementwise min on the prefix; rows
+    at or past ``V`` (a core padded beyond a tiny graph) never win."""
+    cand = kops.core_spmv(core.a_core, frontier_bm[: core.k // 32])  # int32 [K]
+    kops.bfs_core_merge(cand, visited_bm, parent_ext)
 
 
 def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
                      root: int, core: HeavyCore | None, *, alpha: float,
                      beta: float, max_levels: int, fault=None) -> BFSResult:
-    """One bitmap-resident traversal from ``root`` (host loop: a level
-    synchronises on the next frontier's size, on each of its three stats
-    written from host ints, and in a top-down level on the count of the live
-    chunks).  ``rows`` is :func:`~repro_torch.core.bfs_steps.edge_rows` of
-    the graph, which a level's relax (one ``bfs_relax`` call) walks: a
-    top-down level the frontier's rows, a bottom-up level each
-    still-unvisited vertex's row up to its first frontier neighbour; its
-    chunk ranges give the live-chunk count; ``fault`` a
+    """One bitmap-resident traversal from ``root``: a host loop that reads
+    back one number a level, the next frontier's size, for the direction
+    switch; everything else a level computes stays on the device.
+
+    ``rows`` is :func:`~repro_torch.core.bfs_steps.edge_rows` of the graph,
+    which a level's relax (one ``bfs_relax`` call) walks: a top-down level the
+    frontier's rows, a bottom-up level each still-unvisited vertex's row up to
+    its first frontier neighbour, after the core step (``core_spmv`` and the
+    ``bfs_core_merge`` kernel).  A top-down level first counts its live
+    chunks (the ``bfs_live_chunks`` kernel, from the rows' chunk ranges) into
+    the ``scanned_chunks`` stat.  The epilogue is three launches: the
+    ``bfs_level_delta`` kernel (the found vertices packed, their level and
+    degree sum), ``frontier_update``, and the ``bfs_level_stats`` kernel (the
+    level's column of the stats: its direction and frontier size, known on
+    the host and passed as the launch's arguments, the sentinels,
+    ``scanned_edges``, a bottom-up level's ``scanned_chunks``; then the
+    degree sums for the next level and the count of levels).  No copy but
+    the readback crosses the bus.  ``fault`` is a
     :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
-    corrupts the level's epilogue (None: the clean traversal).
+    corrupts the level's parents after the delta is taken (None: the clean
+    traversal).
 
     While a ``torch.profiler`` session records, the loop marks its phases
     ``repro_torch.bfs.<phase>`` (:mod:`repro_torch.tracing`), each running
     to the next mark: ``start`` (the state's allocations), ``sync`` (blocked
     on the level's readback, then the direction decision), ``level.td`` /
-    ``level.bu`` (the level's host work), ``core`` and ``relax`` (their
-    enqueue), ``compact`` (blocked on the live-chunk count), ``epilogue``
-    (pack, ``frontier_update``, sentinels, level fill), ``stats`` (one
-    before each synchronising write of a host int into the stats: the first
-    blocks on the level's work), ``finish`` (the result) and ``done``; and
-    it counts ``bfs.bu_entries_read`` (the row entries the bottom-up relax
-    read, summed on the device) and ``bfs.bu_entries_unvisited`` (the
-    bottom-up levels' unvisited adjacency, ``scanned_edges``), read back
-    once at the end."""
+    ``level.bu`` (the level's host work; top-down, the chunk count's launch),
+    ``core`` and ``relax`` (their enqueue), ``epilogue`` (the delta,
+    ``frontier_update`` and the stats launches), ``finish`` (the result) and
+    ``done``; and it counts ``bfs.bu_entries_read`` (the row entries the
+    bottom-up relax read, summed on the device) and
+    ``bfs.bu_entries_unvisited`` (the bottom-up levels' unvisited adjacency,
+    ``scanned_edges``), read back once at the end."""
     traced = recording()
     if traced:
         mark("repro_torch.bfs.start")
@@ -260,30 +268,32 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     i32 = torch.int32
     w = padded_bitmap_words(v)
     root = int(root)
-    nnz_total = degree.sum().to(i32)
     bu_read = torch.zeros((), dtype=torch.int64, device=dev) if traced else None
 
+    # fill_ on a view launches a kernel, where assigning a host int would be
+    # a synchronising host-to-device copy
     parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
-    parent_ext[root] = root
+    parent_ext[root].fill_(root)
     level = torch.full((v,), -1, dtype=i32, device=dev)
-    level[root] = 0
+    level[root].fill_(0)
     frontier_bm = torch.zeros(w, dtype=i32, device=dev)
     bit = 1 << (root % 32)
-    frontier_bm[root // 32] = bit - 2**32 if bit >= 2**31 else bit
+    frontier_bm[root // 32].fill_(bit - 2**32 if bit >= 2**31 else bit)
     visited_bm = frontier_bm.clone()
     # The epilogue writes each level's (frontier, visited) into the pair the
-    # previous level read from, so the loop allocates no bitmaps.
+    # previous level read from, and each level's delta into ``found``, so
+    # the loop allocates nothing.
     pairs = [(frontier_bm, visited_bm),
              (torch.empty_like(frontier_bm), torch.empty_like(visited_bm))]
+    found = torch.empty_like(frontier_bm)
     count = torch.empty((), dtype=i32, device=dev)
-    m_f = degree[root].to(i32)
-    deg_vis = m_f.clone()
-
-    stats_dir = torch.full((max_levels,), -1, dtype=i32, device=dev)
-    stats_fs = torch.zeros(max_levels, dtype=i32, device=dev)
-    stats_se = torch.zeros(max_levels, dtype=i32, device=dev)
-    stats_ch = torch.full((max_levels,), -1, dtype=i32, device=dev)
-    stats_ok = torch.full((max_levels,), -1, dtype=i32, device=dev)
+    # m_f and deg_vis start at the root's degree, the levels run at 0
+    acc = torch.zeros(ACC_SLOTS, dtype=i32, device=dev)
+    acc[ACC_M_F:ACC_DEG_VIS + 1] = degree[root]
+    acc[ACC_NNZ] = degree.sum()
+    # a column a level; -1 (0 for frontier_size and scanned_edges) past the last
+    stats = torch.full((STATS_ROWS, max_levels), -1, dtype=i32, device=dev)
+    stats[STATS_FS:STATS_SE + 1].zero_()
 
     in_count, vis_count = 1, 1
     lvl, direction = 0, TOP_DOWN
@@ -291,7 +301,7 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
         if lvl > 0:
             if traced:
                 mark("repro_torch.bfs.sync")
-            in_count = int(count)  # the level's synchronisation on its size
+            in_count = int(count)  # the level's one synchronisation
             vis_count += in_count
         if in_count == 0:
             break
@@ -300,62 +310,39 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
         if traced:
             mark("repro_torch.bfs.level.bu" if direction == BOTTOM_UP
                  else "repro_torch.bfs.level.td")
-        unvisited = parent_ext[:v] == v
         if direction == BOTTOM_UP:
             if core is not None:
                 if traced:
                     mark("repro_torch.bfs.core")
-                _core_bottom_up_resident(core, frontier_bm, visited_bm,
-                                         parent_ext, v)
+                _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext)
             if traced:
                 mark("repro_torch.bfs.relax")
             kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
                                      rows.dst, rows.core_deg, bu_read)
-            nsc = rows.n_chunks  # full scan
         else:
-            live_mask = chunk_range_mask(rows.src_lo, rows.src_hi, frontier_bm)
-            if traced:
-                mark("repro_torch.bfs.compact")
-            # a second synchronisation: the live chunks' count, read back
-            nsc = int(live_mask.sum())
+            kops.bfs_live_chunks(frontier_bm, rows.src_lo, rows.src_hi, stats, lvl)
             if traced:
                 mark("repro_torch.bfs.relax")
             kops.bfs_relax_top_down(frontier_bm, visited_bm, degree, rows.row_start,
                                     rows.dst, parent_ext)
 
-        # Epilogue: pack the newly-found delta, then the fused kernel does
-        # mask / merge / popcount in one pass, into the idle pair.
+        # Epilogue: the delta kernel packs the newly found vertices, which
+        # visited_bm tells apart (it holds exactly those with a parent when
+        # the level starts), then the fused kernel does mask / merge /
+        # popcount into the idle pair, and the stats kernel checks it.
         if traced:
             mark("repro_torch.bfs.epilogue")
-        newly = (parent_ext[:v] != v) & unvisited
+        kops.bfs_level_delta(parent_ext, visited_bm, degree, level, lvl + 1, found, acc)
         if fires(fault, "parent", level=lvl, root=root):
             # the frontier still comes from the uncorrupted delta
             parent_ext[:v] = corrupt_parent(
-                fault, parent_ext[:v], newly,
+                fault, parent_ext[:v], unpack_bitmap(found, v),
                 torch.arange(v, dtype=i32, device=dev), v, level=lvl, root=root)
-        found = pack_bitmap(newly, w)
         next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
         kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
-
-        s1 = count == popcount_u32(found).sum()
-        s2 = popcount_u32(next_bm & visited_bm).sum() == 0  # the old visited
-        s3 = int(lvl + 1 <= max_levels)
-        stats_ok[lvl] = s1.to(i32) + 2 * s2.to(i32) + 4 * s3
-
-        level.masked_fill_(newly, lvl + 1)
-        m_next = torch.where(newly, degree, 0).sum().to(i32)
-        # scanned-edge estimate: TD scans frontier adjacency (m_f), BU the
-        # unvisited adjacency.
-        stats_se[lvl] = m_f if direction == TOP_DOWN else nnz_total - deg_vis
-        # Writing a host int into a device tensor is a host-to-device copy
-        # that synchronises: the first of these waits for the level's work.
-        for buf, x in ((stats_dir, direction), (stats_fs, in_count), (stats_ch, nsc)):
-            if traced:
-                mark("repro_torch.bfs.stats")
-            buf[lvl] = x
-
+        kops.bfs_level_stats(next_bm, visited_bm, count, acc, stats, lvl,
+                             direction == BOTTOM_UP, in_count, rows.n_chunks)
         frontier_bm, visited_bm = next_bm, new_visited_bm
-        m_f, deg_vis = m_next, deg_vis + m_next
         lvl += 1
 
     if traced:
@@ -365,15 +352,16 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     result = BFSResult(
         parent=parent, level=level,
         stats=BFSStats(
-            stats_dir, stats_fs, stats_se,
-            torch.tensor(lvl, dtype=i32, device=dev), stats_ch,
-            torch.tensor(rows.n_chunks, dtype=i32, device=dev), stats_ok,
+            stats[STATS_DIR], stats[STATS_FS], stats[STATS_SE], acc[ACC_LEVELS],
+            stats[STATS_CH], torch.full((), rows.n_chunks, dtype=i32, device=dev),
+            stats[STATS_OK],
         ),
     )
     if traced:
         # one copy back a traced search; an untraced one reads nothing back
         read, unvisited = torch.stack([
-            bu_read, torch.where(stats_dir[:lvl] == BOTTOM_UP, stats_se[:lvl], 0).sum()
+            bu_read,
+            torch.where(stats[STATS_DIR, :lvl] == BOTTOM_UP, stats[STATS_SE, :lvl], 0).sum()
         ]).tolist()
         tracing.count("bfs.bu_entries_read", read)
         tracing.count("bfs.bu_entries_unvisited", unvisited)

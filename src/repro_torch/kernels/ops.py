@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bfs_relax, bitmap_ops, cin, frontier_spmv, ref, spmv_mxu
+from repro_torch.kernels import (
+    bfs_level, bfs_relax, bitmap_ops, cin, frontier_spmv, ref, spmv_mxu,
+)
 from repro_torch.kernels import sssp_relax as relax_kernel
 
 #: device types that take the plain versions
@@ -26,6 +28,10 @@ KERNELS = {
     "cin_layer": cin.KERNEL,
     "sssp_relax": relax_kernel.KERNEL,
     "bfs_relax": bfs_relax.KERNEL,
+    "bfs_level_delta": bfs_level.DELTA,
+    "bfs_level_stats": bfs_level.STATS,
+    "bfs_live_chunks": bfs_level.CHUNKS,
+    "bfs_core_merge": bfs_level.MERGE,
 }
 
 
@@ -124,3 +130,53 @@ def bfs_relax_bottom_up(frontier_bm: torch.Tensor, parent_ext: torch.Tensor,
                                            core_deg, entries_read)
     return bfs_relax.bottom_up(frontier_bm, parent_ext, degree, row_start, dst, core_deg,
                                entries_read)
+
+
+def bfs_level_delta(parent_ext: torch.Tensor, visited_bm: torch.Tensor, degree: torch.Tensor,
+                    level: torch.Tensor, next_level: int, found: torch.Tensor,
+                    acc: torch.Tensor) -> None:
+    """A bitmap BFS level's delta, in place: the vertices with a parent
+    (``parent_ext[v] != V``) that are not in ``visited_bm`` go into ``found``
+    (int32 [W], every word written) and get ``next_level`` in ``level``; their
+    degree sum and count land in ``acc`` (``ref.ACC_M_NEXT``,
+    ``ref.ACC_FOUND``)."""
+    if parent_ext.device.type in _PLAIN:
+        return ref.bfs_level_delta_ref(parent_ext, visited_bm, degree, level, next_level,
+                                       found, acc)
+    return bfs_level.delta(parent_ext, visited_bm, degree, level, next_level, found, acc)
+
+
+def bfs_level_stats(next_bm: torch.Tensor, visited_bm: torch.Tensor, count: torch.Tensor,
+                    acc: torch.Tensor, stats: torch.Tensor, lvl: int, bottom_up: bool,
+                    in_count: int, n_chunks: int) -> None:
+    """A bitmap BFS level's stats into column ``lvl`` of ``stats`` (int32
+    [ref.STATS_ROWS, max_levels], rows ``ref.STATS_*``): its direction and
+    frontier size (``in_count``) from the host, its sentinels from
+    ``frontier_update``'s ``next_bm`` and ``count``, the old ``visited_bm``
+    and ``acc``, which moves on to the next level, its scanned edges, and a
+    bottom-up level's ``n_chunks``."""
+    if next_bm.device.type in _PLAIN:
+        return ref.bfs_level_stats_ref(next_bm, visited_bm, count, acc, stats, lvl,
+                                       bottom_up, in_count, n_chunks)
+    return bfs_level.stats(next_bm, visited_bm, count, acc, stats, lvl, bottom_up, in_count,
+                           n_chunks)
+
+
+def bfs_live_chunks(frontier_bm: torch.Tensor, src_lo: torch.Tensor, src_hi: torch.Tensor,
+                    stats: torch.Tensor, lvl: int) -> None:
+    """A top-down level's ``scanned_chunks``: the chunks whose source range
+    meets ``frontier_bm`` word by word, counted into ``stats[ref.STATS_CH,
+    lvl]``."""
+    if frontier_bm.device.type in _PLAIN:
+        return ref.bfs_live_chunks_ref(frontier_bm, src_lo, src_hi, stats, lvl)
+    return bfs_level.live_chunks(frontier_bm, src_lo, src_hi, stats, lvl)
+
+
+def bfs_core_merge(cand: torch.Tensor, visited_bm: torch.Tensor,
+                   parent_ext: torch.Tensor) -> None:
+    """The bottom-up core step's merge, in place: each unvisited row i <
+    min(K, V) with a candidate (``cand[i] < BIG``, ``core_spmv``'s output)
+    takes min(parent_ext[i], cand[i])."""
+    if parent_ext.device.type in _PLAIN:
+        return ref.bfs_core_merge_ref(cand, visited_bm, parent_ext)
+    return bfs_level.core_merge(cand, visited_bm, parent_ext)

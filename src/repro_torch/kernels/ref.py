@@ -304,3 +304,179 @@ def bfs_relax_bottom_up_ref(frontier_bm, parent_ext, degree, row_start, dst, cor
         step = torch.where(length > BFS_WARP, BFS_WARP, 1)
         reads = torch.where(found, torch.minimum((first // step + 1) * step, length), length)
         entries_read += reads.sum()
+
+
+# ---------------------------------------------------------------------------
+# The bitmap BFS level's bookkeeping (csrc/bfs_level.cuh and its four kernels)
+# ---------------------------------------------------------------------------
+
+#: Slots of the level loop's int32 accumulator ``acc``: the frontier's degree
+#: sum (m_f) and the visited set's (deg_vis), the graph's entries (nnz), the
+#: level delta's degree sum (m_next) and size (popcount of found), and the
+#: levels run so far.
+ACC_M_F, ACC_DEG_VIS, ACC_NNZ, ACC_M_NEXT, ACC_FOUND, ACC_LEVELS = range(6)
+ACC_SLOTS = 6
+#: Rows of the level loop's device stats, int32 [STATS_ROWS, max_levels], a
+#: column a level: ``direction``, ``scanned_chunks``, ``sentinel`` (-1 where
+#: no level ran), ``frontier_size`` and ``scanned_edges`` (0 there).
+STATS_DIR, STATS_CH, STATS_OK, STATS_FS, STATS_SE = range(5)
+STATS_ROWS = 5
+
+
+def _check_operands(kernel: str, dev, items) -> None:
+    """Each ``(name, tensor, dtype, shape ok, shape wanted)`` of ``items`` is a
+    contiguous ``dtype`` tensor on ``dev`` whose shape is ok.  Called once a
+    level, so the passing case reads cheap tensor attributes only."""
+    for name, t, dtype, ok, want in items:
+        if t.dtype is not dtype or not ok or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{kernel}: {name} must be contiguous {dtype} {want} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stats_ok(stats, lvl: int) -> bool:
+    return stats.dim() == 2 and stats.shape[0] == STATS_ROWS and 0 <= lvl < stats.shape[1]
+
+
+def check_level_delta_operands(parent_ext, visited_bm, degree, level, found, acc) -> None:
+    """int32 ``degree`` and ``level`` [V] (V >= 1), ``parent_ext`` [V + 1],
+    ``visited_bm`` and ``found`` [W] with W >= ceil(V / 32), ``acc``
+    [ACC_SLOTS]."""
+    v = degree.shape[0] if degree.dim() == 1 else 0
+    w = found.shape[0] if found.dim() == 1 else -1
+    i32 = torch.int32
+    _check_operands("bfs_level_delta", parent_ext.device, (
+        ("degree", degree, i32, v >= 1, "[V], V >= 1"),
+        ("parent_ext", parent_ext, i32, parent_ext.shape == (v + 1,), "[V + 1]"),
+        ("level", level, i32, level.shape == (v,), "[V]"),
+        ("found", found, i32, 32 * w >= v, "[W], W >= ceil(V / 32)"),
+        ("visited_bm", visited_bm, i32, visited_bm.shape == (w,), "[W] like found"),
+        ("acc", acc, i32, acc.shape == (ACC_SLOTS,), f"[{ACC_SLOTS}]")))
+
+
+def check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl: int) -> None:
+    """int32 bitmaps ``next_bm`` and ``visited_bm`` of one length, an int32
+    scalar ``count``, ``acc`` [ACC_SLOTS], ``stats`` [STATS_ROWS, L] with 0 <= lvl
+    < L."""
+    i32 = torch.int32
+    w = next_bm.shape[0] if next_bm.dim() == 1 else -1
+    _check_operands("bfs_level_stats", next_bm.device, (
+        ("next_bm", next_bm, i32, w >= 1, "[W], W >= 1"),
+        ("visited_bm", visited_bm, i32, visited_bm.shape == (w,), "[W] like next_bm"),
+        ("count", count, i32, count.dim() == 0, "[]"),
+        ("acc", acc, i32, acc.shape == (ACC_SLOTS,), f"[{ACC_SLOTS}]"),
+        ("stats", stats, i32, _stats_ok(stats, lvl),
+         f"[{STATS_ROWS}, L] with L > lvl = {lvl}")))
+
+
+def check_live_chunks_operands(frontier_bm, src_lo, src_hi, stats, lvl: int) -> None:
+    """An int32 bitmap ``frontier_bm``, int32 ``src_lo`` and ``src_hi`` of one
+    length n >= 1, ``stats`` [STATS_ROWS, L] with 0 <= lvl < L."""
+    i32 = torch.int32
+    n = src_lo.shape[0] if src_lo.dim() == 1 else 0
+    _check_operands("bfs_live_chunks", frontier_bm.device, (
+        ("frontier_bm", frontier_bm, i32, frontier_bm.dim() == 1 and frontier_bm.shape[0] >= 1,
+         "[W], W >= 1"),
+        ("src_lo", src_lo, i32, n >= 1, "[n_chunks], n_chunks >= 1"),
+        ("src_hi", src_hi, i32, src_hi.shape == (n,), "[n_chunks] like src_lo"),
+        ("stats", stats, i32, _stats_ok(stats, lvl),
+         f"[{STATS_ROWS}, L] with L > lvl = {lvl}")))
+
+
+def check_core_merge_operands(cand, visited_bm, parent_ext) -> None:
+    """int32 ``cand`` [K], ``parent_ext`` [V + 1], and an int32 bitmap
+    ``visited_bm`` of at least ceil(min(K, V) / 32) words."""
+    i32 = torch.int32
+    k = cand.shape[0] if cand.dim() == 1 else -1
+    v = parent_ext.shape[0] - 1 if parent_ext.dim() == 1 else -1
+    _check_operands("bfs_core_merge", parent_ext.device, (
+        ("cand", cand, i32, k >= 0, "[K]"),
+        ("parent_ext", parent_ext, i32, v >= 0, "[V + 1]"),
+        ("visited_bm", visited_bm, i32,
+         visited_bm.dim() == 1 and 32 * visited_bm.shape[0] >= min(k, v),
+         "[W], W >= ceil(min(K, V) / 32)")))
+
+
+def bfs_level_delta_ref(parent_ext, visited_bm, degree, level, next_level: int, found,
+                        acc) -> None:
+    """A level's delta, in place: the vertices v < V with ``parent_ext[v] !=
+    V`` whose visited bit is clear are found; ``found`` gets them packed
+    (bit i of word j is vertex 32 j + i; every word written), ``level`` gets
+    ``next_level`` at each, and ``acc`` the sum of their degrees (modulo
+    2^32) at ``ACC_M_NEXT`` and their count at ``ACC_FOUND``."""
+    check_level_delta_operands(parent_ext, visited_bm, degree, level, found, acc)
+    v, w = degree.shape[0], found.shape[0]
+    shifts = torch.arange(32, dtype=torch.int64, device=found.device)
+    seen = (to_u64(visited_bm)[:, None] >> shifts) & 1
+    par = torch.full((32 * w,), v, dtype=torch.int32, device=found.device)
+    par[:v] = parent_ext[:v]
+    newly = (par.view(w, 32) != v) & (seen == 0)
+    found.copy_(wrap_i32((newly.to(torch.int64) << shifts).sum(dim=1)))
+    newly = newly.reshape(-1)[:v]
+    level.masked_fill_(newly, next_level)
+    acc[ACC_M_NEXT] = torch.where(newly, degree, 0).sum()
+    acc[ACC_FOUND] = popcount_u32(found).sum()
+
+
+def bfs_level_stats_ref(next_bm, visited_bm, count, acc, stats, lvl: int, bottom_up: bool,
+                        in_count: int, n_chunks: int) -> None:
+    """A level's sentinels and stats, after ``frontier_update`` wrote
+    ``next_bm`` and ``count`` from the delta and the old ``visited_bm``:
+    ``stats[STATS_DIR, lvl]`` = 1 bottom-up, 0 top-down;
+    ``stats[STATS_FS, lvl]`` = ``in_count``, the level's frontier size;
+    ``stats[STATS_OK, lvl]`` = (count == the delta's size) + 2 (next and old
+    visited disjoint) + 4 (lvl + 1 within the L levels);
+    ``stats[STATS_SE, lvl]`` = m_f top-down, nnz - deg_vis bottom-up (int32);
+    ``stats[STATS_CH, lvl]`` = ``n_chunks`` bottom-up; then m_f takes the
+    delta's degree sum, deg_vis grows by it, and the levels run are lvl + 1."""
+    check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl)
+    s1 = (count == acc[ACC_FOUND]).to(torch.int32)
+    s2 = ((next_bm & visited_bm) == 0).all().to(torch.int32)
+    stats[STATS_DIR, lvl] = int(bottom_up)
+    stats[STATS_FS, lvl] = in_count
+    stats[STATS_OK, lvl] = s1 + 2 * s2 + 4 * int(lvl + 1 <= stats.shape[1])
+    if bottom_up:
+        stats[STATS_SE, lvl] = acc[ACC_NNZ] - acc[ACC_DEG_VIS]
+        stats[STATS_CH, lvl] = n_chunks
+    else:
+        stats[STATS_SE, lvl] = acc[ACC_M_F]
+    acc[ACC_DEG_VIS] += acc[ACC_M_NEXT]
+    acc[ACC_M_F] = acc[ACC_M_NEXT]
+    acc[ACC_LEVELS] = lvl + 1
+
+
+def chunk_range_mask(src_lo: torch.Tensor, src_hi: torch.Tensor,
+                     frontier_bm: torch.Tensor) -> torch.Tensor:
+    """bool per chunk: source range ``[src_lo, src_hi]`` meets the frontier.
+
+    Word-granular (conservative superset) test: a chunk is live when any
+    bitmap word overlapping its range is nonzero.
+    """
+    w = frontier_bm.shape[0]
+    word_nz = (frontier_bm != 0).to(torch.int32)
+    cum = torch.cat([torch.zeros(1, dtype=torch.int32, device=word_nz.device),
+                     torch.cumsum(word_nz, 0).to(torch.int32)])
+    lo_w = (src_lo // 32).clamp(0, w - 1).long()
+    hi_w = (src_hi // 32).clamp(0, w - 1).long()
+    nonempty = src_hi >= src_lo
+    return nonempty & ((cum[hi_w + 1] - cum[lo_w]) > 0)
+
+
+def bfs_live_chunks_ref(frontier_bm, src_lo, src_hi, stats, lvl: int) -> None:
+    """A top-down level's ``scanned_chunks``: the chunks live in
+    ``frontier_bm`` (:func:`chunk_range_mask`), counted into
+    ``stats[STATS_CH, lvl]``."""
+    check_live_chunks_operands(frontier_bm, src_lo, src_hi, stats, lvl)
+    stats[STATS_CH, lvl] = chunk_range_mask(src_lo, src_hi, frontier_bm).sum()
+
+
+def bfs_core_merge_ref(cand, visited_bm, parent_ext) -> None:
+    """The core step's merge, in place: row i < min(K, V) (V =
+    ``len(parent_ext) - 1``) takes min(parent_ext[i], cand[i]) when cand[i]
+    < BIG and i is not visited (``cand[i]`` lands on vertex i itself, so the
+    JAX scatter-min over distinct rows is an elementwise min)."""
+    check_core_merge_operands(cand, visited_bm, parent_ext)
+    kk = min(cand.shape[0], parent_ext.shape[0] - 1)
+    rows = torch.arange(kk, dtype=torch.int64, device=cand.device)
+    won = (cand[:kk] < BIG) & ~_bits(visited_bm, rows)
+    prefix = parent_ext[:kk]
+    prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], parent_ext.shape[0] - 1)))

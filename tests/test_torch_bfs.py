@@ -140,6 +140,69 @@ def test_engine_alternates_two_output_pairs(monkeypatch, scale):
     assert all(calls[i][0] not in calls[i][1] for i in range(n_levels))
 
 
+@pytest.mark.parametrize("rung", ["pre-g500", "pre-g500-batch", "no-core", "parent-fault"])
+def test_visited_bitmap_holds_exactly_the_vertices_with_a_parent(monkeypatch, rung):
+    # the level's delta tests the visited bitmap where the engine once took a
+    # snapshot of parent_ext == V: at the start of every level (where its
+    # first parent write happens: the top-down relax, the core merge, or the
+    # bottom-up relax of a rung without a core) and after every level's
+    # frontier_update, visited_bm == pack_bitmap(parent_ext[:V] != V); under
+    # a persistent parent fault too, whose wrong parents are never V
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.heavy import pack_bitmap
+    kw = dict(scale=11, n_roots=3, device="cpu")
+    cfg = (pipeline.Graph500Config(engine="bitmap", heavy_threshold=None, **kw)
+           if rung == "no-core"
+           else pipeline.Graph500Config.ladder("pre-g500-batch" if rung == "pre-g500-batch"
+                                               else "pre-g500", **kw))
+    built = pipeline.build(cfg)
+    keys = [int(k) for k in pipeline.search_keys(cfg, built)]
+    fault = (FaultSpec("parent", "offset", level=1, persistent=True)
+             if rung == "parent-fault" else None)
+    tc = compile_plan(cfg.to_plan(), built, device="cpu", fault=fault)
+    kops = hybrid_bfs.kops
+    state = dict(fresh=True, starts=0, ends=0, parent=None, visited=None)
+
+    def holds(visited_bm, parent_ext):
+        v = parent_ext.shape[0] - 1
+        return torch.equal(visited_bm, pack_bitmap(parent_ext[:v] != v, visited_bm.shape[0]))
+
+    def first_write(name, visited_of, parent_of):
+        real = getattr(kops, name)
+
+        def spy(*args):
+            if state["fresh"]:
+                assert holds(visited_of(args), parent_of(args)), name
+                state["fresh"], state["starts"] = False, state["starts"] + 1
+            return real(*args)
+        monkeypatch.setattr(kops, name, spy)
+
+    first_write("bfs_relax_top_down", lambda a: a[1], lambda a: a[5])
+    first_write("bfs_core_merge", lambda a: a[1], lambda a: a[2])
+    first_write("bfs_relax_bottom_up", lambda a: state["visited"], lambda a: a[1])
+    real_delta, real_update = kops.bfs_level_delta, kops.frontier_update
+
+    def delta(parent_ext, *args):
+        state["parent"] = parent_ext
+        return real_delta(parent_ext, *args)
+
+    def update(found, visited_bm, out):
+        real_update(found, visited_bm, out=out)
+        assert holds(out[1], state["parent"])
+        state.update(fresh=True, visited=out[1], ends=state["ends"] + 1)
+        return out
+
+    monkeypatch.setattr(kops, "bfs_level_delta", delta)
+    monkeypatch.setattr(kops, "frontier_update", update)
+    results = [tc.bfs(keys)] if cfg.to_plan().batch_roots else [tc.bfs(k) for k in keys]
+    levels = sum(int(r.stats.levels.sum()) for r in results)
+    assert state["starts"] == state["ends"] == levels > 3 * len(keys)
+    directions = torch.cat([r.stats.direction.reshape(-1) for r in results])
+    assert bool((directions == hybrid_bfs.BOTTOM_UP).any())
+    sentinels = torch.cat([r.stats.sentinel.reshape(-1) for r in results])
+    assert bool((sentinels[sentinels >= 0] == hybrid_bfs.SENTINEL_OK).all())
+
+
 def _f32_edge(divisor: float):
     """An x where float32 division truncates differently from float64."""
     for x in range(2**24, 2**24 + 200_000):

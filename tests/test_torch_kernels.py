@@ -17,8 +17,8 @@ from repro.kernels.spmv_mxu import spmv_mxu as jax_spmv_mxu
 from repro_torch.core import bfs_steps, hybrid_bfs, pipeline
 from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
 from repro_torch.core.heavy import testbit as bit_at
-from repro_torch.kernels import (bfs_relax, bitmap_ops, cin, frontier_spmv, ops, ref,
-                                 spmv_mxu, sssp_relax)
+from repro_torch.kernels import (bfs_level, bfs_relax, bitmap_ops, cin, frontier_spmv, ops,
+                                 ref, spmv_mxu, sssp_relax)
 
 torch.set_num_threads(2)
 
@@ -193,6 +193,12 @@ def test_cpu_dispatch_never_launches():
     args = _bfs_relax_operands()
     ops.bfs_relax_top_down(*args[:-1])
     ops.bfs_relax_bottom_up(args[0], args[5], *args[2:5], args[6])
+    _, after, vis, deg, level, found, acc = level_state(64, 0)
+    stats = torch.zeros((ref.STATS_ROWS, 4), dtype=torch.int32)
+    ops.bfs_level_delta(after, vis, deg, level, 1, found, acc)
+    ops.bfs_level_stats(vis, vis, acc[0], acc, stats, 0, True, 5, 1)
+    ops.bfs_live_chunks(vis, acc[:1], acc[:1], stats, 0)
+    ops.bfs_core_merge(deg, vis, after)
     assert ops.launch_counts() == before
 
 
@@ -311,29 +317,34 @@ def test_cin_layer_plain_matches_jax(b, f0, fl, h, d):
     np.testing.assert_allclose(plain.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer", "sssp_relax", "bfs_relax"])
+@pytest.mark.parametrize("wrapper", ["spmv_mxu", "cin_layer", "sssp_relax", "bfs_relax",
+                                     "bfs_level"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     before = ops.launch_counts()
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        if wrapper == "spmv_mxu":
-            spmv_mxu.spmv_mxu(torch.zeros((128, 128), dtype=torch.int8),
-                              torch.zeros((128, 128), dtype=torch.int8))
-        elif wrapper == "cin_layer":
-            cin.cin_layer(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
-                          torch.zeros((6, 3, 5)))
-        elif wrapper == "sssp_relax":
-            sssp_relax.sssp_relax(*_relax_operands())
-        else:
-            bfs_relax.top_down(*_bfs_relax_operands()[:-1])
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        if wrapper == "bfs_relax":
-            args = _bfs_relax_operands()
-            bfs_relax.bottom_up(args[0], args[5], *args[2:5], args[6])
-        else:
-            raise ValueError("CUDA tensor")
+    args = _bfs_relax_operands()
+    _, parent, vis, deg, level, found, acc = level_state(64, 0)
+    stats = torch.zeros((ref.STATS_ROWS, 4), dtype=torch.int32)
+    calls = {
+        "spmv_mxu": [lambda: spmv_mxu.spmv_mxu(torch.zeros((128, 128), dtype=torch.int8),
+                                               torch.zeros((128, 128), dtype=torch.int8))],
+        "cin_layer": [lambda: cin.cin_layer(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
+                                            torch.zeros((6, 3, 5)))],
+        "sssp_relax": [lambda: sssp_relax.sssp_relax(*_relax_operands())],
+        "bfs_relax": [lambda: bfs_relax.top_down(*args[:-1]),
+                      lambda: bfs_relax.bottom_up(args[0], args[5], *args[2:5], args[6])],
+        "bfs_level": [
+            lambda: bfs_level.delta(parent, vis, deg, level, 1, found, acc),
+            lambda: bfs_level.stats(vis, vis, acc[0], acc, stats, 0, False, 5, 1),
+            lambda: bfs_level.live_chunks(vis, acc[:1], acc[:1], stats, 0),
+            lambda: bfs_level.core_merge(deg, vis, parent)],
+    }[wrapper]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
     assert ops.launch_counts() == before
     assert set(before) == {"frontier_update", "core_spmv", "spmv_mxu", "cin_layer",
-                           "sssp_relax", "bfs_relax"}
+                           "sssp_relax", "bfs_relax", "bfs_level_delta", "bfs_level_stats",
+                           "bfs_live_chunks", "bfs_core_merge"}
 
 
 def _relax_operands(**change):
@@ -499,7 +510,7 @@ def test_bfs_relax_plain_matches_the_scatter_min(case, bottom_up, density):
     vis_bm = pack_bitmap(torch.from_numpy(visited), w)
     before = parent.clone()
     if bottom_up and core is not None:
-        hybrid_bfs._core_bottom_up_resident(core, f_bm, vis_bm, parent, v)
+        hybrid_bfs._core_bottom_up_resident(core, f_bm, vis_bm, parent)
     want, got = parent.clone(), parent.clone()
     scatter_min_level(ev, core if bottom_up else None, f_bm, vis_bm, want, bottom_up)
     if bottom_up:
@@ -715,3 +726,168 @@ def test_cin_weight_layout(f0, fl, h):
     want = w.reshape(h, f0 * fl)
     assert ((got - want).abs() <= want.abs() * 2.0**-22).all()
     assert not torch.equal(hi[:h][:, ~pad], want[:, idx[~pad]])   # lo carries bits
+
+
+# ---------------------------------------------------------------------------
+# The level's bookkeeping (csrc/bfs_level.cuh): the plain versions against the
+# torch chains the bitmap engine ran before them
+# ---------------------------------------------------------------------------
+
+def level_state(v, seed, *, found_density=0.2, big_degrees=False, empty=False):
+    """A bitmap BFS level on the CPU: (parent_ext before the relax, after it,
+    visited bitmap, degree, level, a ``found`` buffer of junk, an ``acc`` of
+    junk).  Visited holds exactly the vertices with a parent before; the
+    relax gives parents to some of the others (none when ``empty``), vertex
+    31 among them (bit 31 of word 0).  ``big_degrees`` makes the degree sums
+    wrap modulo 2^32."""
+    rng = np.random.default_rng(seed)
+    visited = rng.random(v) < 0.3
+    newly = ~visited & (rng.random(v) < found_density) & (not empty)
+    if not empty and v > 31:
+        visited[31], newly[31] = False, True
+    before = np.append(np.where(visited, rng.integers(0, v, v), v), v).astype(np.int32)
+    after = before.copy()
+    after[:v][newly] = rng.integers(0, v, int(newly.sum()))
+    w = padded_bitmap_words(v)
+    degree = rng.integers(0, 2**31 - 1 if big_degrees else 300, v).astype(np.int32)
+    level = np.where(visited, rng.integers(0, 9, v), -1).astype(np.int32)
+    return (torch.from_numpy(before), torch.from_numpy(after),
+            pack_bitmap(torch.from_numpy(visited), w), torch.from_numpy(degree),
+            torch.from_numpy(level), torch.full((w,), -7, dtype=torch.int32),
+            torch.full((ref.ACC_SLOTS,), 12345, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["v4096", "v1000", "wrap", "empty", "dense"])
+def test_level_delta_plain_matches_the_torch_chain(case):
+    v = {"v4096": 4096, "v1000": 1000, "wrap": 4096 + 17, "empty": 1000, "dense": 777}[case]
+    before, after, vis, degree, level, found, acc = level_state(
+        v, 7, big_degrees=case == "wrap", empty=case == "empty",
+        found_density=0.9 if case == "dense" else 0.2)
+    lvl = 5
+    # the chain: the unvisited snapshot taken before the relax, the delta,
+    # its pack, the level fill, the degree sum and the popcount sentinel
+    newly = (after[:v] != v) & (before[:v] == v)
+    want_found = pack_bitmap(newly, found.shape[0])
+    want_level = level.clone().masked_fill_(newly, lvl + 1)
+    want_m_next = torch.where(newly, degree, 0).sum().to(torch.int32)
+    want_pc = ref.popcount_u32(want_found).sum()
+    assert torch.equal(vis, pack_bitmap(before[:v] != v, found.shape[0]))
+    ops.bfs_level_delta(after, vis, degree, level, lvl + 1, found, acc)
+    assert torch.equal(found, want_found) and torch.equal(level, want_level)
+    assert int(acc[ref.ACC_M_NEXT]) == int(want_m_next)
+    assert int(acc[ref.ACC_FOUND]) == int(want_pc) == int(newly.sum())
+    assert (int(want_pc) == 0) == (case == "empty")
+    if case != "empty":
+        assert int(found[0]) < 0                      # bit 31 of word 0
+    if case == "wrap":
+        assert int(torch.where(newly, degree, 0).sum()) >= 2**32
+
+
+@pytest.mark.parametrize("bottom_up", [False, True])
+@pytest.mark.parametrize("case", ["clean", "overlap", "miscount", "last_level"])
+def test_level_stats_plain_matches_the_torch_chain(bottom_up, case):
+    rng = np.random.default_rng(11 + bottom_up)
+    w, max_levels = 1024, 64
+    lvl = max_levels - 1 if case == "last_level" else 3
+    visited = to_t(rand_u32(rng, (w,), 0.4))
+    found = to_t(rand_u32(rng, (w,), 0.1)) & ~visited     # a delta: none of it visited
+    nxt, _, count = ref.frontier_update_ref(found, visited)
+    if case == "overlap":
+        nxt = nxt | visited
+    if case == "miscount":
+        count = count + 1
+    m_f, deg_vis, nnz, m_next = (int(x) for x in rng.integers(-2**31, 2**31, 4))
+    pc = ref.popcount_u32(found).sum()
+    acc = torch.tensor([m_f, deg_vis, nnz, m_next, int(pc), lvl], dtype=torch.int32)
+    stats = torch.full((ref.STATS_ROWS, max_levels), -1, dtype=torch.int32)
+    stats[ref.STATS_FS:ref.STATS_SE + 1].zero_()
+    want = stats.clone()
+    # the chain: the host ints the engine wrote, the sentinels as it summed
+    # them, the scanned-edge estimate, the host's chunk count, and the degree
+    # sums moved on
+    want[ref.STATS_DIR, lvl] = hybrid_bfs.BOTTOM_UP if bottom_up else hybrid_bfs.TOP_DOWN
+    want[ref.STATS_FS, lvl] = 12345
+    s1 = count == ref.popcount_u32(found).sum()
+    s2 = ref.popcount_u32(nxt & visited).sum() == 0
+    s3 = int(lvl + 1 <= max_levels)
+    want[ref.STATS_OK, lvl] = s1.to(torch.int32) + 2 * s2.to(torch.int32) + 4 * s3
+    acc_t = acc.clone()
+    want[ref.STATS_SE, lvl] = (acc_t[ref.ACC_NNZ] - acc_t[ref.ACC_DEG_VIS] if bottom_up
+                               else acc_t[ref.ACC_M_F])
+    if bottom_up:
+        want[ref.STATS_CH, lvl] = 64
+    want_acc = acc.clone()
+    want_acc[ref.ACC_M_F] = acc_t[ref.ACC_M_NEXT]
+    want_acc[ref.ACC_DEG_VIS] = acc_t[ref.ACC_DEG_VIS] + acc_t[ref.ACC_M_NEXT]
+    want_acc[ref.ACC_LEVELS] = lvl + 1
+    ops.bfs_level_stats(nxt, visited, count, acc, stats, lvl, bottom_up, 12345, 64)
+    assert torch.equal(stats, want) and torch.equal(acc, want_acc)
+    assert int(stats[ref.STATS_OK, lvl]) == {"clean": 7, "overlap": 5, "miscount": 6,
+                                             "last_level": 7}[case]
+
+
+def live_chunks_brute(src_lo, src_hi, frontier_bm) -> int:
+    """The chunks with a nonzero frontier word in their clamped word range,
+    chunk by chunk."""
+    words, w = frontier_bm.numpy(), frontier_bm.shape[0]
+    n = 0
+    for lo, hi in zip(src_lo.tolist(), src_hi.tolist()):
+        if hi >= lo:
+            a, b = min(max(lo // 32, 0), w - 1), min(max(hi // 32, 0), w - 1)
+            n += bool(np.any(words[a:b + 1]))
+    return n
+
+
+@pytest.mark.parametrize("case", ["kron12", "nocore12", "v32768", "ranges"])
+@pytest.mark.parametrize("density", [0.0005, 0.02, 0.5])
+def test_live_chunks_plain_matches_the_torch_chain(case, density):
+    rng = np.random.default_rng(int(density * 1e4))
+    if case == "ranges":
+        # empty chunks, ranges past either end of the bitmap, one word wide
+        w = 1024
+        src_lo = torch.tensor([0, 5, 40, 33000, 2**31 - 1, -100, 31, 32767], dtype=torch.int32)
+        src_hi = torch.tensor([-1, 4000, 40, 40000, 2**31 - 1, 70, 32, 0], dtype=torch.int32)
+    else:
+        _, degree, _, rows = relax_graph(case)
+        w = padded_bitmap_words(degree.shape[0])
+        src_lo, src_hi = rows.src_lo, rows.src_hi
+        assert bool((src_hi >= src_lo).any())
+    frontier = to_t(rand_u32(rng, (w,), density))
+    stats = torch.full((ref.STATS_ROWS, 8), -1, dtype=torch.int32)
+    want = int(ref.chunk_range_mask(src_lo, src_hi, frontier).sum())   # the chain
+    ops.bfs_live_chunks(frontier, src_lo, src_hi, stats, 2)
+    assert int(stats[ref.STATS_CH, 2]) == want == live_chunks_brute(src_lo, src_hi, frontier)
+    assert int((stats != -1).sum()) == 1
+
+
+@pytest.mark.parametrize("k,v", [(4096, 1000), (1024, 4096 + 17), (2048, 2048)])
+def test_core_merge_plain_matches_the_torch_chain(k, v):
+    # a core larger than V (a tiny graph's padded core), smaller, equal
+    rng = np.random.default_rng(k + v)
+    before, _, vis, *_ = level_state(v, k)
+    cand = torch.from_numpy(np.where(rng.random(k) < 0.4, ref.BIG,
+                                     rng.integers(0, v, k)).astype(np.int32))
+    want, got = before.clone(), before.clone()
+    # the chain of the engine's core step after core_spmv
+    kk = min(k, v)
+    rows = torch.arange(kk, dtype=torch.int32)
+    won = (cand[:kk] < ref.BIG) & ~bit_at(vis, rows)
+    prefix = want[:kk]
+    prefix.copy_(torch.minimum(prefix, torch.where(won, cand[:kk], v)))
+    ops.bfs_core_merge(cand, vis, got)
+    assert torch.equal(got, want) and not torch.equal(got, before)
+
+
+def test_level_kernels_refuse_bad_operands():
+    before, after, vis, degree, level, found, acc = level_state(100, 1)
+    stats = torch.zeros((ref.STATS_ROWS, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bfs_level_delta: found"):
+        ops.bfs_level_delta(after, vis, degree, level, 1, found[:3], acc)
+    with pytest.raises(ValueError, match="bfs_level_delta: acc"):
+        ops.bfs_level_delta(after, vis, degree, level, 1, found, acc[:5])
+    with pytest.raises(ValueError, match="bfs_level_stats: stats"):
+        ops.bfs_level_stats(vis, vis, acc[0], acc, stats, 4, False, 5, 1)
+    with pytest.raises(ValueError, match="bfs_live_chunks: src_hi"):
+        ops.bfs_live_chunks(vis, acc[:2], acc[:3], stats, 0)
+    with pytest.raises(ValueError, match="bfs_core_merge: cand"):
+        ops.bfs_core_merge(degree.long(), vis, before)

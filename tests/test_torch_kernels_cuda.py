@@ -191,10 +191,18 @@ def test_kernel_launches_counted(cuda):
                            path["p"])
     ops.bfs_relax_bottom_up(path["bm"], path["p"], path["deg"], path["rs"], path["dst"],
                             one[:0])
+    acc = torch.zeros(ref.ACC_SLOTS, dtype=torch.int32, device=cuda)
+    stats = torch.zeros((ref.STATS_ROWS, 2), dtype=torch.int32, device=cuda)
+    ops.bfs_level_delta(path["p"], path["bm"], path["deg"], one.clone(), 1, one.clone(), acc)
+    ops.bfs_level_stats(path["bm"], path["bm"], acc[0], acc, stats, 0, False, 1, 1)
+    ops.bfs_live_chunks(path["bm"], one, one, stats, 0)
+    ops.bfs_core_merge(one, path["bm"], path["p"])
+    torch.cuda.synchronize()
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "frontier_update": 1, "core_spmv": 1, "spmv_mxu": 1, "cin_layer": 1,
-        "sssp_relax": 1, "bfs_relax": 2}
+        "sssp_relax": 1, "bfs_relax": 2, "bfs_level_delta": 1, "bfs_level_stats": 1,
+        "bfs_live_chunks": 1, "bfs_core_merge": 1}
 
 
 @pytest.mark.cuda
@@ -398,7 +406,8 @@ def test_sssp_relax_one_launch_a_round(cuda):
     assert rounds > 1
     assert {k: after[k] - before[k] for k in after} == {
         "frontier_update": 0, "core_spmv": 0, "spmv_mxu": 0, "cin_layer": 0,
-        "sssp_relax": rounds, "bfs_relax": 0}
+        "sssp_relax": rounds, "bfs_relax": 0, "bfs_level_delta": 0, "bfs_level_stats": 0,
+        "bfs_live_chunks": 0, "bfs_core_merge": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +455,7 @@ def test_bfs_relax_kernel_matches_plain(cuda, core, bottom_up, density):
     f_bm, vis_bm, parent = bfs_level_state(v, 3, density, cuda)
     before = parent.clone()
     if bottom_up and b.core is not None:
-        _core_bottom_up_resident(b.core, f_bm, vis_bm, parent, v)
+        _core_bottom_up_resident(b.core, f_bm, vis_bm, parent)
     outs = []
     for fn in ("plain", "kernel", "kernel"):
         p, read = parent.clone(), torch.zeros((), dtype=torch.int64, device=cuda)
@@ -484,9 +493,12 @@ def test_bfs_relax_one_launch_a_level(cuda, rung):
         levels = int(res.stats.levels)
         n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
         assert 0 < n_bu < levels
+        n_core = n_bu if rung == "pre-g500" else 0
         assert {k: after[k] - before[k] for k in after} == {
-            "frontier_update": levels, "core_spmv": n_bu if rung == "pre-g500" else 0,
-            "spmv_mxu": 0, "cin_layer": 0, "sssp_relax": 0, "bfs_relax": levels}
+            "frontier_update": levels, "core_spmv": n_core, "spmv_mxu": 0, "cin_layer": 0,
+            "sssp_relax": 0, "bfs_relax": levels, "bfs_level_delta": levels,
+            "bfs_level_stats": levels, "bfs_live_chunks": levels - n_bu,
+            "bfs_core_merge": n_core}
 
 
 @pytest.mark.cuda
@@ -532,6 +544,173 @@ def test_bfs_counters_read_only_while_a_profiler_records(cuda):
         counts[dev] = tracing.counters()
     assert counts["cuda"] == counts["cpu"]
     assert 0 < counts["cuda"]["bfs.bu_entries_read"] < counts["cuda"]["bfs.bu_entries_unvisited"]
+
+
+# ---------------------------------------------------------------------------
+# The level's bookkeeping (bfs_level): each kernel bit for bit against its
+# plain version on the CPU, every launch checked and synchronised
+# ---------------------------------------------------------------------------
+
+def level_case(v, seed, *, empty=False):
+    """A bitmap BFS level on the CPU: (parent_ext after the relax, visited
+    bitmap, degree, level): visited holds exactly the vertices with a parent
+    before the relax, which gave parents to some others (none when
+    ``empty``), vertex 31 among them (bit 31 of word 0); the degrees large
+    enough that their sums wrap modulo 2^32."""
+    from repro_torch.core.heavy import pack_bitmap, padded_bitmap_words
+    rng = np.random.default_rng(seed)
+    visited = rng.random(v) < 0.3
+    newly = ~visited & (rng.random(v) < 0.2) & (not empty)
+    if not empty:
+        visited[31], newly[31] = False, True
+    parent = np.append(np.where(visited, rng.integers(0, v, v), v), v).astype(np.int32)
+    parent[:v][newly] = rng.integers(0, v, int(newly.sum()))
+    level = np.where(visited, rng.integers(0, 9, v), -1).astype(np.int32)
+    return (torch.from_numpy(parent),
+            pack_bitmap(torch.from_numpy(visited), padded_bitmap_words(v)),
+            torch.from_numpy(rng.integers(0, 2**31 - 1, v).astype(np.int32)),
+            torch.from_numpy(level))
+
+
+def on(device, *ts):
+    """Copies of ``ts`` on ``device`` (each run writes its own)."""
+    return [t.to(device, copy=True) for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,empty", [(2**16, False), (2**16 + 17, False), (1000, False),
+                                     (2**16, True)])
+def test_level_delta_kernel_matches_plain(cuda, v, empty):
+    parent, vis, degree, level = level_case(v, v, empty=empty)
+    w = vis.shape[0]
+    outs = []
+    for dev in ("cpu", cuda, cuda):           # twice on the card: the ticket resets
+        p, b, d, lv = on(dev, parent, vis, degree, level)
+        found = torch.full((w,), -7, dtype=torch.int32, device=dev)
+        acc = torch.full((ref.ACC_SLOTS,), 99, dtype=torch.int32, device=dev)
+        ops.bfs_level_delta(p, b, d, lv, 6, found, acc)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        outs.append([t.cpu() for t in (found, lv, acc, p)])
+    for got in outs[1:]:
+        for g, want in zip(got, outs[0]):
+            assert torch.equal(g, want)
+    assert (int(outs[0][2][ref.ACC_FOUND]) == 0) == empty
+    assert empty or int(outs[0][0][0]) < 0     # bit 31 of word 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [2048, 77, 131072])
+@pytest.mark.parametrize("bottom_up", [False, True])
+@pytest.mark.parametrize("case", ["clean", "overlap", "miscount"])
+def test_level_stats_kernel_matches_plain(cuda, n_words, bottom_up, case):
+    rng = np.random.default_rng(n_words + bottom_up)
+    visited = to_t(rand_u32(rng, (n_words,), 0.4), "cpu")
+    found = to_t(rand_u32(rng, (n_words,), 0.05), "cpu") & ~visited
+    nxt, _, count = ref.frontier_update_ref(found, visited)
+    if case == "overlap":
+        nxt[n_words // 2] |= visited[n_words // 2] | 1
+        visited[n_words // 2] |= 1
+    if case == "miscount":
+        count = count + 1
+    acc = torch.tensor([int(x) for x in rng.integers(-2**31, 2**31, 4)]
+                       + [int(ref.popcount_u32(found).sum()), 0], dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda, cuda):
+        n, b, c, a = on(dev, nxt, visited, count, acc)
+        stats = torch.full((ref.STATS_ROWS, 64), -1, dtype=torch.int32, device=dev)
+        stats[ref.STATS_FS:ref.STATS_SE + 1].zero_()
+        for lvl in (0, 63):                   # every level reads the acc the last left
+            ops.bfs_level_stats(n, b, c, a, stats, lvl, bottom_up, 2**31 - 1 - lvl, 64)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+        outs.append((stats.cpu(), a.cpu()))
+    for got in outs[1:]:
+        assert torch.equal(got[0], outs[0][0]) and torch.equal(got[1], outs[0][1])
+    assert int(outs[0][0][ref.STATS_OK, 0]) == {"clean": 7, "overlap": 5, "miscount": 6}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks", [1, 64, 300])
+@pytest.mark.parametrize("density", [0.0001, 0.01, 0.5])
+def test_live_chunks_kernel_matches_plain(cuda, n_chunks, density):
+    from repro_torch.core import pipeline
+    from repro_torch.core.bfs_steps import edge_rows
+    from repro_torch.core.heavy import padded_bitmap_words
+    b = pipeline.build(pipeline.Graph500Config.ladder("pre-g500", scale=16, seed=5,
+                                                      device="cpu"))
+    rows = edge_rows(b.ev, b.degree, b.core, n_chunks)
+    w = padded_bitmap_words(b.n_vertices)
+    rng = np.random.default_rng(n_chunks)
+    ranges = [(rows.src_lo, rows.src_hi),
+              # empty chunks, ranges past either end, one word wide
+              (torch.tensor([0, 5, 40, 2**31 - 1, -100, 31, 70000], dtype=torch.int32),
+               torch.tensor([-1, 60000, 40, 2**31 - 1, 70, 32, 10**6], dtype=torch.int32))]
+    for lo, hi in ranges:
+        frontier = to_t(rand_u32(rng, (w,), density), "cpu")
+        outs = []
+        for dev in ("cpu", cuda, cuda):
+            f, l, h = on(dev, frontier, lo, hi)
+            stats = torch.full((ref.STATS_ROWS, 4), -1, dtype=torch.int32, device=dev)
+            ops.bfs_live_chunks(f, l, h, stats, 1)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            outs.append(stats.cpu())
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+        assert int(outs[0][ref.STATS_CH, 1]) == int(ref.chunk_range_mask(lo, hi, frontier).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,v", [(4096, 1000), (4096, 2**16 + 17), (61440, 2**22)])
+def test_core_merge_kernel_matches_plain(cuda, k, v):
+    # a core larger than V, smaller with V % 32 != 0, and the scale-22 cell's
+    parent, vis, _, _ = level_case(v, k)
+    rng = np.random.default_rng(k + v)
+    cand = torch.from_numpy(np.where(rng.random(k) < 0.4, ref.BIG,
+                                     rng.integers(0, v, k)).astype(np.int32))
+    outs = []
+    for dev in ("cpu", cuda):
+        c, b, p = on(dev, cand, vis, parent)
+        ops.bfs_core_merge(c, b, p)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        outs.append(p.cpu())
+    assert torch.equal(outs[1], outs[0]) and not torch.equal(outs[0], parent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["pre-g500", "no-core", "v5000"])
+def test_bitmap_search_on_card_equals_cpu(cuda, graph):
+    # whole searches through every kernel of the level loop: parent, level
+    # and all seven stats fields bit for bit against the plain versions on
+    # the CPU, both directions run
+    from repro_torch.core import pipeline
+    from repro_torch.core.hybrid_bfs import BOTTOM_UP
+    from repro_torch.core.kronecker import EdgeList, generate_edges
+    from repro_torch.core.plan import compile_plan
+    scale = 13 if graph == "v5000" else 16
+    e = generate_edges(5, scale, device="cpu")
+    v = 5000 if graph == "v5000" else e.num_vertices
+    src, dst = e.src % v, e.dst % v
+    keys = src[src != dst][:3].numpy()
+    runs = []
+    for dev in ("cpu", cuda):
+        cfg = (pipeline.Graph500Config(scale=scale, heavy_threshold=None, n_roots=3, device=dev)
+               if graph == "no-core"
+               else pipeline.Graph500Config.ladder("pre-g500", scale=scale, n_roots=3,
+                                                   device=dev))
+        built = pipeline.build(cfg, edges=EdgeList(src.to(dev), dst.to(dev), v))
+        c = compile_plan(cfg.to_plan(), built, device=dev)
+        roots = pipeline.search_keys(cfg, built, keys)
+        runs.append([c.bfs(int(r)) for r in roots])
+        torch.cuda.synchronize()
+    for got, want in zip(runs[1], runs[0]):
+        assert torch.equal(got.parent.cpu(), want.parent)
+        assert torch.equal(got.level.cpu(), want.level)
+        for f in want.stats._fields:
+            assert torch.equal(getattr(got.stats, f).cpu(), getattr(want.stats, f)), f
+        n = int(want.stats.levels)
+        assert set(want.stats.direction[:n].tolist()) == {0, BOTTOM_UP}
 
 
 # ---------------------------------------------------------------------------
