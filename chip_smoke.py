@@ -68,9 +68,9 @@ non-zero and no result line is printed:
      rounds per root, δ, and a profile of one root; parents and distances
      equal to ``sssp_oracle`` on ``grid_graph(256)`` and on a scale-14
      Kronecker graph built on the card, 2 roots each; ``sssp_relax`` at
-     scale 22 (one launch a round; on the round with most frontier entries:
-     its time, the plain version's, its bound, words equal to the plain
-     version's);
+     scale 22, and its real-weight instantiation at scale 24 (one launch a
+     round; on the round with most frontier entries: its time, the plain
+     version's, its bound, words equal to the plain version's);
  13. checked execution on phase 5's graph and keys: a persistent parent
      fault on one root through ``pre-g500-batch`` (``check="full"``,
      ``retries=1``, ``fallback=True``): only that root detected, one
@@ -266,8 +266,10 @@ CIN_CHECK_ROWS = 4096
 
 SCALE_CHECK = 16
 SCALE_MAIN = 20
-# sssp_relax is timed at the SSSP benchmark cell's scale
+# sssp_relax is timed at the SSSP benchmark cell's scale, and its real-weight
+# instantiation at the real-weight cell's (sssp-real-s24)
 SCALE_RELAX = 22
+SCALE_RELAX_REAL = 24
 N_ROOTS = 16
 # the roots of phases 11 and 12 (cut these, never N_ROOTS, to save time)
 LADDER_ROOTS = 16
@@ -1265,22 +1267,27 @@ def sssp_phase(device) -> dict:
     return first
 
 
-def time_sssp_relax(device) -> dict:
-    """Phase 12: ``sssp_relax`` at the SSSP benchmark cell's shapes (scale
-    22, δ-stepping over the degree-sorted Kronecker graph of graph seed 2):
-    the operands of the round with the most frontier entries in one search
-    are kept, and the kernel (the frontier's scans, compaction and relax:
-    one C-entry call) and the plain version are timed on them, the state
-    restored before each call; the kernel's words equal the plain
-    version's.  The bound is bytes: the frontier's rows (int32 dst and
+def time_sssp_relax(device, *, scale: int = SCALE_RELAX,
+                    real_weights: bool = False) -> dict:
+    """Phase 12: ``sssp_relax`` at the SSSP benchmark cells' shapes (scale
+    22, δ-stepping over the degree-sorted Kronecker graph of graph seed 2;
+    with ``real_weights`` the specification's float32 weights and the
+    kernels' ``kReal`` instantiation, at the real-weight cell's scale 24):
+    one search's launches are counted, one a round, and the operands of the
+    round with the most frontier entries are kept, and the kernel (the
+    frontier's scans, compaction and relax: one C-entry call) and the plain
+    version are timed on them, the state restored before each call; the
+    kernel's words equal the plain version's.  The bound is bytes: the frontier's rows (int32 dst and
     weight, 8 B an entry) and the frontier degrees (4 B a vertex), each read
     once, over the memory rate; the state's random reads and the atomics
     stay in the L2 and are not in it."""
     from repro_torch.core import pipeline
     from repro_torch.core.plan import compile_plan
     from repro_torch.kernels import ops, ref
-    cfg = pipeline.Graph500Config(kernel="sssp", heavy_threshold=None,
-                                  scale=SCALE_RELAX, n_roots=1, seed=2, device=device)
+    torch.cuda.empty_cache()
+    cfg = pipeline.Graph500Config(kernel="sssp", heavy_threshold=None, scale=scale,
+                                  real_weights=real_weights, n_roots=1, seed=2,
+                                  device=device)
     built = pipeline.build(cfg)
     compiled = compile_plan(cfg.to_plan(), built, device=device)
     key = int(pipeline.search_keys(cfg, built)[0])
@@ -1330,8 +1337,9 @@ def time_sssp_relax(device) -> dict:
                              "from the plain version's on the kept round")
     v = built.n_vertices
     bound = bound_ms(8 * best["entries"] + 4 * v, 0)
-    log(f"    sssp_relax at scale {SCALE_RELAX} (key {key}, {rounds} rounds, "
-        f"{launches} launches): the round with most frontier entries has "
+    kind = "real weights (kReal)" if real_weights else "integer weights"
+    log(f"    sssp_relax, {kind}, at scale {scale} (δ {compiled.delta}, key {key}, "
+        f"{rounds} rounds, {launches} launches): the round with most frontier entries has "
         f"{best['n_front']} frontier vertices with out-edges, {best['entries']} "
         f"entries of {rows.dst.shape[0]} padded; kernel {ms:.6f} ms (median of 30, "
         f"CUDA events), plain {plain_ms:.6f} ms, bound {bound[0]:.6f} ms "
@@ -3634,6 +3642,7 @@ def main() -> int:
     log(f"[12] Graph500 SSSP at scale {SCALE_MAIN}, {SSSP_ROOTS} roots")
     sssp_rows = sssp_phase(device)
     relax_t = time_sssp_relax(device)
+    relax_real_t = time_sssp_relax(device, scale=SCALE_RELAX_REAL, real_weights=True)
 
     log(f"[28] bfs_relax at scale {SCALE_RELAX} (run after phase 12)")
     bfs_relax_t = time_bfs_relax(device)
@@ -3787,13 +3796,17 @@ def main() -> int:
              fp32_bound_ms=cin_t["fp32_bound_ms"],
              bulk_ms=cin_t["bulk_ms"], bulk_bound_ms=cin_t["bulk_bound_ms"],
              bulk_fp32_bound_ms=cin_t["bulk_fp32_bound_ms"]),
-        # sssp_relax: one scale-22 search's launches; ms on its largest round
+        # sssp_relax: one scale-22 search's launches; ms on its largest round;
+        # real_* the same for the kReal instantiation on one scale-24 search
+        # with real weights (max_abs_err 0 covers both: words equal)
         dict(name="sssp_relax", route="cuda",
              source="src/repro_torch/kernels/csrc/sssp_relax.cu",
              replaces="none (the JAX engine's two jnp scatter-min passes)",
              launches=relax_t["launches"], max_abs_err=0,
              ms=relax_t["ms"], plain_ms=relax_t["plain_ms"],
              bound_ms=relax_t["bound"][0], bound_by=relax_t["bound"][1],
+             real_launches=relax_real_t["launches"], real_ms=relax_real_t["ms"],
+             real_plain_ms=relax_real_t["plain_ms"], real_bound_ms=relax_real_t["bound"][0],
              library_ms=None),
         # bfs_relax: one scale-22 search's launches; ms on its largest
         # top-down level, bu_* on its first bottom-up level

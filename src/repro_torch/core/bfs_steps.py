@@ -43,6 +43,9 @@ class EdgeView:
     num_vertices: int
     # [E_pad] int64 holding the uint32 weights (0 on padding); None for BFS
     weight: Optional[torch.Tensor] = None
+    # the weight plane holds float32 bit patterns (Kernel 3's reals in
+    # [0, 1)) in place of integers
+    real_weights: bool = False
 
 
 def edge_view(g: CSRGraph) -> EdgeView:
@@ -52,13 +55,14 @@ def edge_view(g: CSRGraph) -> EdgeView:
 
 
 def with_edge_weights(ev: EdgeView, *, seed: int = 0,
-                      max_weight: int | None = None) -> EdgeView:
+                      max_weight: int | None = None, real: bool = False) -> EdgeView:
     """The same view with the deterministic symmetric weight plane of
-    :func:`graph_build.edge_weights` attached."""
+    :func:`graph_build.edge_weights` attached (``real``: the float32
+    reals in [0, 1))."""
     w = edge_weights(ev.src, ev.dst, ev.valid, seed=seed,
                      max_weight=(DEFAULT_MAX_WEIGHT if max_weight is None
-                                 else max_weight))
-    return EdgeView(ev.src, ev.dst, ev.valid, ev.num_vertices, w)
+                                 else max_weight), real=real)
+    return EdgeView(ev.src, ev.dst, ev.valid, ev.num_vertices, w, real)
 
 
 def masked_relax_step(ev: EdgeView, parent: torch.Tensor, frontier: torch.Tensor,
@@ -149,7 +153,8 @@ class EdgeRows:
 
     row_start: torch.Tensor          # [V] int64
     dst: torch.Tensor                # [E_pad] int32: the view's own
-    weight: Optional[torch.Tensor]   # [E_pad] int32 bits of the uint32 weights; None for BFS
+    # [E_pad] int32 bits of the uint32 weights, float32 for real weights; None for BFS
+    weight: Optional[torch.Tensor]
     core_deg: torch.Tensor           # [min(K, V)] int32; empty without a core
     src_lo: torch.Tensor             # [n_chunks] int32 (V when the chunk is empty)
     src_hi: torch.Tensor             # [n_chunks] int32 (-1 when the chunk is empty)
@@ -157,6 +162,13 @@ class EdgeRows:
     @property
     def n_chunks(self) -> int:
         return self.src_lo.shape[0]
+
+
+def _row_weights(ev: EdgeView) -> torch.Tensor:
+    """The rows' weight plane: the weights' 32 bits as int32, viewed as
+    float32 for real weights, so the rows carry the weight kind."""
+    w = wrap_i32(ev.weight).contiguous()
+    return w.view(torch.float32) if ev.real_weights else w
 
 
 def edge_rows(ev: EdgeView, degree: torch.Tensor, core: HeavyCore | None = None,
@@ -202,5 +214,5 @@ def edge_rows(ev: EdgeView, degree: torch.Tensor, core: HeavyCore | None = None,
         src_lo = torch.where(live, src[first.clamp(max=n - 1)], src_lo)
         src_hi = torch.where(live, src[(first + size).clamp(max=n) - 1], src_hi)
     return EdgeRows(row_start=ends - degree, dst=ev.dst.contiguous(),
-                    weight=wrap_i32(ev.weight).contiguous() if weighted else None,
+                    weight=_row_weights(ev) if weighted else None,
                     core_deg=core_deg.to(torch.int32), src_lo=src_lo, src_hi=src_hi)

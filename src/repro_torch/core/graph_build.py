@@ -108,10 +108,18 @@ def _mix32(h: torch.Tensor) -> torch.Tensor:
 
 
 def edge_weights(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, *,
-                 seed: int = 0, max_weight: int = DEFAULT_MAX_WEIGHT) -> torch.Tensor:
+                 seed: int = 0, max_weight: int = DEFAULT_MAX_WEIGHT,
+                 real: bool = False) -> torch.Tensor:
     """int64 weight in ``[1, max_weight]`` per directed edge entry, 0 on
     invalid slots; symmetric and deterministic in ``seed``.  The values
-    are the JAX package's uint32 weights."""
+    are the JAX package's uint32 weights.
+
+    With ``real``, the Graph500 specification's Kernel 3 weights instead:
+    uniform reals in [0, 1) at float32's 24 bits, ``(h >> 8) * 2^-24`` of
+    the same hash ``h`` (exact in float32; 0 on about one entry in 2^24),
+    held as the float32 bit patterns (``max_weight`` is not read).  The
+    specification draws them from its random number generator; the hash
+    stands in for it."""
     if max_weight < 1:
         raise ValueError(f"max_weight must be >= 1, got {max_weight}")
     s = src.to(torch.int64) & _U32
@@ -120,5 +128,8 @@ def edge_weights(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, *,
     b = torch.maximum(s, d)
     h = _mix32((_mul32(a, 0x9E3779B9) + (int(seed) & _U32)) & _U32)
     h = _mix32(h ^ _mul32(b, 0x85EBCA6B))
-    w = 1 + h % int(max_weight)
+    if real:
+        w = ((h >> 8).to(torch.float32) * 2.0 ** -24).view(torch.int32).to(torch.int64)
+    else:
+        w = 1 + h % int(max_weight)
     return torch.where(valid, w, 0)

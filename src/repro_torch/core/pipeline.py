@@ -28,7 +28,9 @@ and the two mesh rungs:
                     ``plan_device_mesh`` unless ``mesh_shape`` is given.
 
 ``kernel="sssp"`` runs Graph500's second kernel, δ-stepping SSSP, on the
-same graph with a weight plane seeded from ``seed``.  ``retries`` and
+same graph with a weight plane seeded from ``seed``: integers in
+[1, ``max_weight``], or with ``real_weights`` the specification's float32
+reals in [0, 1).  ``retries`` and
 ``fallback`` arm the checked run's recovery; :func:`serve` stands up the
 serving engine on the same graph and plan.  ``procs > 1`` hands
 :func:`run` to the multi-process launcher
@@ -117,8 +119,11 @@ class Graph500Config:
     # Graph500 kernel: "bfs" or "sssp".  Under "sssp" the build attaches the
     # symmetric weight plane (seeded from ``seed``, uniform in
     # [1, max_weight]) and the plan runs the δ-stepping engine.
+    # ``real_weights`` makes the plane the specification's Kernel 3 weights,
+    # float32 reals uniform in [0, 1) (``max_weight`` unused); SSSP only.
     kernel: str = "bfs"
     max_weight: int = DEFAULT_MAX_WEIGHT
+    real_weights: bool = False
     device: Optional[str] = None           # None: the card ("cuda")
     # Multi-process runtime: procs > 1 hands ``run`` to the launcher
     # (repro_torch.launch.multiprocess), one gloo process per monitor group
@@ -197,6 +202,9 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None,
     ``mesh`` with a ``member`` axis also partitions the graph over its
     vertex shards (``cfg.partition``), which ``compile_plan`` then uses."""
     device = resolve_device(cfg.device)
+    if cfg.real_weights and cfg.kernel != "sssp":
+        raise ValueError(f"real_weights weighs the edges for kernel='sssp', not "
+                         f"{cfg.kernel!r}")
     t0 = time.perf_counter()
     if edges is None:
         edges = kronecker.generate_edges(cfg.seed, cfg.scale, cfg.edge_factor,
@@ -215,7 +223,8 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None,
     if cfg.kernel == "sssp":
         # the weights hash the relabelled endpoint ids, which the oracle and
         # every engine see alike
-        ev = with_edge_weights(ev, seed=cfg.seed, max_weight=cfg.max_weight)
+        ev = with_edge_weights(ev, seed=cfg.seed, max_weight=cfg.max_weight,
+                               real=cfg.real_weights)
     sharded = None
     if mesh is not None and "member" in mesh.axis_names:
         sharded = shard_graph(

@@ -66,7 +66,8 @@ from repro_torch.core.hybrid_bfs import (
 )
 from repro_torch.core.kernels import kernel_spec, validate_result_batch
 from repro_torch.core.sssp_steps import (
-    _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width, sssp_max_rounds,
+    _run_sssp_batch, _run_sssp_impl, _run_sssp_sharded, bucket_width, real_bucket_width,
+    sssp_max_rounds,
 )
 from repro_torch.core.teps import Graph500Run, traversed_edges
 from repro_torch.core.validate import failure_report
@@ -365,7 +366,8 @@ def compile_plan(plan: TraversalPlan, built, *, device=None, mesh: Optional[Mesh
     ``None`` lays a mesh over the visible devices (a process mesh inside a
     ``torch.distributed`` group).  The SSSP kernel needs the weight plane
     (``with_edge_weights``, or a weighted ``built.sharded``); its bucket
-    width comes from the largest weight.  ``fault`` is a
+    width comes from the largest weight, or for real weights (the view's
+    ``real_weights``) from the mean degree (``real_bucket_width``).  ``fault`` is a
     :class:`~repro_torch.core.faults.FaultSpec` threaded into every
     traversal of the plan (the legacy engines have no injection sites and
     reject one); ``None`` runs the clean traversal.
@@ -383,16 +385,23 @@ def compile_plan(plan: TraversalPlan, built, *, device=None, mesh: Optional[Mesh
     # the BFS kernel consults it.
     core = pg.core if plan.kernel == "bfs" else None
     delta = max_rounds = 0
+    real = plan.kernel == "sssp" and pg.ev is not None and pg.ev.real_weights
+    n_active = pg.sharded.n_active if vertexy else int((pg.degree > 0).sum())
+    if real and vertexy:
+        raise ValueError("real weights run on the single-device and root layouts; "
+                         "the vertex-sharded SSSP engine takes integer weights")
     if plan.kernel == "sssp":
-        w = pg.ev.weight if pg.ev is not None else pg.sharded.weight
-        delta = bucket_width(int(w.max()))
+        if real:
+            delta = real_bucket_width(int(pg.degree.sum()) / max(n_active, 1))
+        else:
+            w = pg.ev.weight if pg.ev is not None else pg.sharded.weight
+            delta = bucket_width(int(w.max()))
         max_rounds = sssp_max_rounds(plan.max_levels)
     compiled = CompiledBFS(
         plan=plan, graph=pg, device=dev,
         num_vertices=pg.sharded.v_orig if vertexy else pg.ev.num_vertices,
-        n_active=pg.sharded.n_active if vertexy else int((pg.degree > 0).sum()),
-        core=core, delta=delta, max_rounds=max_rounds, fault=fault,
-        mesh=mesh)
+        n_active=n_active, core=core, delta=delta, max_rounds=max_rounds,
+        fault=fault, mesh=mesh)
     if mesh is not None:
         compiled._lanes = (_vertex_lanes(compiled) if vertexy
                            else _root_lanes(compiled))
@@ -476,7 +485,7 @@ class CompiledBFS:
     num_vertices: int           # original V (before any shard padding)
     n_active: int
     core: Optional[HeavyCore]   # the core the BFS engines consult, or None
-    delta: int = 0              # SSSP bucket width
+    delta: float = 0            # SSSP bucket width (an int for integer weights)
     max_rounds: int = 0         # SSSP round bound
     fault: Any = None           # the FaultSpec of every traversal, or None
     mesh: Optional[Mesh] = None

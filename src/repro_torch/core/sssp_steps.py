@@ -38,6 +38,7 @@ over its dst-owned edges.
 from __future__ import annotations
 
 import heapq
+import math
 
 import numpy as np
 import torch
@@ -50,7 +51,7 @@ from repro_torch.core.hybrid_bfs import (
     BFSResult, BFSStats, _exchange_delta, _shared, stack_results,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import popcount_u32
+from repro_torch.kernels.ref import popcount_u32, real_key_bits
 from repro_torch.tracing import count, mark, recording
 
 #: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
@@ -70,6 +71,26 @@ def bucket_width(max_weight: int) -> int:
     return max(1, int(max_weight) // 2)
 
 
+#: The real-weight δ times the mean degree (:func:`real_bucket_width`).  A
+#: round costs about 1 ms of passes over V at Graph500 scale 24 on an H100
+#: besides its relax, so a wide bucket pays: over δ = 2^-7 .. 1 there
+#: (mean degree 58.7) a search fell from 502 to 103 ms as the rounds fell
+#: from 395 to 34 and the frontier vertices per reached vertex rose from
+#: 1.09 to 7.0; δ = 1/2 (this constant) came within 2% of the fastest with
+#: a fifth fewer of them.
+REAL_DELTA_DEGREES = 32.0
+
+
+def real_bucket_width(mean_degree: float) -> float:
+    """The δ of δ-stepping for real weights uniform in [0, 1): Meyer and
+    Sanders' Θ(1/d) for uniform weights, ``REAL_DELTA_DEGREES`` over the
+    mean degree of the vertices with edges, rounded to the nearest power of
+    two (at most 1, the weights' bound), so a bucket index
+    ``floor(dist / δ)`` is one exact float32 product on every device."""
+    ratio = REAL_DELTA_DEGREES / max(float(mean_degree), 1.0)
+    return 2.0 ** min(0, round(math.log2(ratio)))
+
+
 def sssp_max_rounds(max_levels: int) -> int:
     """Engine round bound for a plan's ``max_levels`` (never below the
     δ-stepping default)."""
@@ -77,19 +98,31 @@ def sssp_max_rounds(max_levels: int) -> int:
 
 
 def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
-                   delta: int, max_rounds: int, fault=None) -> BFSResult:
+                   delta, max_rounds: int, fault=None) -> BFSResult:
     """One δ-stepping SSSP from ``root`` over ``rows``.
 
     ``fault`` (a :class:`~repro_torch.core.faults.FaultSpec`) with the
     ``parent`` site corrupts the improved vertices' parents after the
     relax, by round.
 
+    Real weights (a float32 ``rows.weight``, the specification's reals in
+    [0, 1)): ``delta`` is a power of two (:func:`real_bucket_width`)
+    and the distance half of the state float32 bits; the relax adds in
+    float32, rounded to nearest, and keeps a hop count beside the parent
+    (``kernels.ref.sssp_relax_ref``), so the parents stay a tree where
+    fl(d + w) == d.  Such a search also fails its last round's bound bit
+    (4) of ``stats.sentinel`` when it stopped at ``max_rounds`` with
+    vertices still changed, or when a hop count reached its field's
+    maximum; the integer search keeps the JAX engine's sentinels.
+
     While a ``torch.profiler`` session records, the loop marks its phases
     ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`): ``start``,
     ``sync`` (blocked on the changed set's size), ``round`` (the round's
     enqueue), ``finish`` (the sentinels and the result) and ``done``; and it counts
     ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, the
-    entries their relax reads, read back once at the end).
+    entries their relax reads), ``sssp.frontier_vertices`` (the rounds'
+    frontier sizes summed) and ``sssp.reached_vertices``, read back in one
+    copy at the end.
     """
     traced = recording()
     if traced:
@@ -98,6 +131,9 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
     dev = degree.device
     i32, i64 = torch.int32, torch.int64
     root = int(root)
+    real = rows.weight.dtype is torch.float32
+    pbits = real_key_bits(v)[0] if real else 32
+    pmask = (1 << pbits) - 1              # the parent's bits of the key
 
     # (INF_U32 << 32) | V, unreached with no parent, as int64 bits
     state = torch.full((v,), (INF_U32 << 32 | v) - (1 << 64), dtype=i64, device=dev)
@@ -123,7 +159,11 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
             mark("repro_torch.sssp.round")
         dist = (state >> 32) & INF_U32
         # The frontier: changed vertices in the minimum bucket.
-        bkt = torch.where(changed, dist // delta, INF_U32)
+        if real:   # δ a power of two: the product is exact
+            bkt = torch.where(changed, (dist.to(i32).view(torch.float32) * (1 / delta)).to(i64),
+                              INF_U32)
+        else:
+            bkt = torch.where(changed, dist // delta, INF_U32)
         b = bkt.min()
         front = changed & (bkt == b)
         front_deg = torch.where(front, degree, 0)
@@ -131,10 +171,10 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
         ops.sssp_relax(state, changed, front_deg, rows.row_start, rows.dst, rows.weight)
         if fires(fault, "parent", level=rnd, root=root):
             improved = ((state >> 32) & INF_U32) < dist
-            parent = corrupt_parent(fault, state & INF_U32, improved,
+            parent = corrupt_parent(fault, state & pmask, improved,
                                     torch.arange(v, dtype=i64, device=dev), v,
                                     level=rnd, root=root)
-            state = (state & ~INF_U32) | parent
+            state = (state & ~pmask) | parent
         n_changed_t = changed.sum()
         bs[rnd] = b
         stats_fs[rnd] = front.sum()
@@ -151,7 +191,13 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
         stats_b[:rnd] = b.clamp(max=0x7FFFFFFF)
         prev = torch.cat([b.new_zeros(1), b[:-1]])
         stats_ok[:rnd] = (b >= prev).to(i32) + 2 * (stats_fs[:rnd] > 0).to(i32) + 4
-    parent = (state & INF_U32).to(i32)
+        if real:
+            # a hop count at its maximum, or vertices left changed at the bound
+            cut = (state & INF_U32).max() >= (INF_U32 >> pbits) << pbits
+            if rnd == max_rounds:
+                cut |= n_changed_t > 0
+            stats_ok[rnd - 1] -= 4 * cut.to(i32)
+    parent = (state & pmask).to(i32)
     parent = torch.where(parent == v, -1, parent)
     dist = (state >> 32) & INF_U32
     dist_i = torch.where(dist == INF_U32, -1, dist).to(i32)
@@ -165,14 +211,19 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
         ),
     )
     if traced:
-        # one readback a traced search (a copy, no kernel)
-        count("sssp.frontier_edges", sum(stats_se[:rnd].tolist()))
+        # one readback a traced search: the rounds' entries and frontier
+        # sizes, and the reached vertices
+        back = torch.cat([stats_se[:rnd], stats_fs[:rnd],
+                          (dist_i >= 0).sum(dtype=i32).view(1)]).tolist()
+        count("sssp.frontier_edges", sum(back[:rnd]))
+        count("sssp.frontier_vertices", sum(back[rnd:2 * rnd]))
+        count("sssp.reached_vertices", back[-1])
         mark("repro_torch.sssp.done")
     return result
 
 
 def _run_sssp_batch(rows: EdgeRows, degree: torch.Tensor, roots, *,
-                    delta: int, max_rounds: int, fault=None) -> BFSResult:
+                    delta, max_rounds: int, fault=None) -> BFSResult:
     """The roots one after another, stacked into ``[R, ...]`` leaves."""
     return stack_results([
         _run_sssp_impl(rows, degree, int(r), delta=delta, max_rounds=max_rounds,

@@ -17,6 +17,13 @@ SSSP, over ``(parent, dist)`` with ``dist`` in the result's ``level`` plane:
   S4. dist[d] <= dist[s] + w(s, d) for every edge with both ends reached.
   S5. component consistency, as V5.
 
+Real weights (the view's ``real_weights``: float32 bit patterns in the
+weight plane and the distance plane, -1 unreached) take the same checks
+with each sum one float32 add rounded to nearest, and S2 also follows every
+reached vertex's chain of parents to the root: a zero weight, or one under
+half an ulp of the distance, lets two vertices at one distance pass the
+local test as each other's parent.
+
 Gathers at corrupted indices are clamped into range, as JAX clamps them,
 and a vertex with no edge entries at all counts as witnessed in V3, as the
 JAX ``segment_max`` of an empty segment does; so the per-check booleans
@@ -123,7 +130,7 @@ def validate_sssp(ev: EdgeView, result: BFSResult, root) -> SsspValidation:
     ``ev.weight`` must be attached.  The tree-edge weight comes from the
     same witness scatter as S3 (the CSR is deduped, so at most one edge
     witnesses each ``(v, parent[v])``).  Arithmetic is int32, wrapping as
-    JAX's does.
+    JAX's does; float32 for real weights (see the module docstring).
     """
     v = ev.num_vertices
     parent, dist = result.parent, result.level
@@ -146,17 +153,20 @@ def validate_sssp(ev: EdgeView, result: BFSResult, root) -> SsspValidation:
     tree_edge_ok = torch.where(reached & ~is_root, has_tree_edge, True).all()
 
     d_par = dist[p_safe.clamp(0, v - 1).long()]
-    tree_dist_ok = torch.where(
-        reached & ~is_root,
-        (parent >= 0) & (parent < v) & (parent != ids) & (d_par >= 0)
-        & (dist == d_par + w_tree),
-        True,
-    ).all()
-
+    local = (parent >= 0) & (parent < v) & (parent != ids) & (d_par >= 0)
     dist_ext = torch.cat([dist, torch.full((1,), -1, dtype=dist.dtype, device=dev)])
     ds, dd = dist_ext[src], dist_ext[ev.dst.long()]
-    no_shorter_edge_ok = torch.where(ev.valid & (ds >= 0) & (dd >= 0),
-                                     dd <= ds + wgt, True).all()
+    if ev.real_weights:
+        f32 = torch.float32
+        local &= dist.view(f32) == d_par.view(f32) + w_tree.view(f32)
+        up = torch.where(reached & ~is_root & local, parent.long(), ids)
+        local &= _reaches(up, root)
+        shorter = dd.view(f32) <= ds.view(f32) + wgt.view(f32)
+    else:
+        local &= dist == d_par + w_tree
+        shorter = dd <= ds + wgt
+    tree_dist_ok = torch.where(reached & ~is_root, local, True).all()
+    no_shorter_edge_ok = torch.where(ev.valid & (ds >= 0) & (dd >= 0), shorter, True).all()
 
     vis_ext = torch.cat([reached, torch.zeros(1, dtype=torch.bool, device=dev)])
     component_ok = torch.where(ev.valid,
@@ -167,6 +177,17 @@ def validate_sssp(ev: EdgeView, result: BFSResult, root) -> SsspValidation:
           & component_ok)
     return SsspValidation(ok, root_ok, tree_dist_ok, tree_edge_ok,
                           no_shorter_edge_ok, component_ok)
+
+
+def _reaches(up: torch.Tensor, root: int) -> torch.Tensor:
+    """bool [V]: whether each vertex's chain through ``up`` (its parent, or
+    itself where the chain stops) reaches ``root``, by pointer jumping:
+    after k steps ``up`` is each vertex's 2^k-th ancestor."""
+    up = up.clone()
+    up[root] = root
+    for _ in range(max(1, (up.numel() - 1).bit_length())):
+        up = up[up]
+    return up == root
 
 
 def validate_sssp_batch(ev: EdgeView, parents: torch.Tensor, dists: torch.Tensor,

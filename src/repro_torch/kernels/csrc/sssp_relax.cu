@@ -43,6 +43,20 @@
 //   vertices, their entries) are read on the device, so the round needs no
 //   host synchronisation.
 //
+// Real weights (the Graph500 specification's Kernel 3: float32 in [0, 1)):
+//   a second instantiation of the same kernels, kReal.  The distance half
+//   holds float32 bits, whose unsigned order is the order of non-negative
+//   floats (the unreached all-ones is a NaN pattern above every one), so the
+//   same atomicMin stands; the add is __fadd_rn.  Where fl(d + w) == d (a
+//   zero weight, or one under half an ulp of d) the candidate ties its
+//   source's distance, and the integer rule, a tie lowers the parent, could
+//   make two such vertices each other's parent.  So the low half is
+//   hops << pbits | u: 0 hops where the add raised the distance, else u's
+//   round-start hops plus one (saturated at the field's maximum; the engine
+//   fails a search whose hops reach it).  At one distance fewer hops win,
+//   and along a parent link at one distance the hops fall: no cycle.  The
+//   compaction also lists each frontier vertex's round-start low half.
+//
 // The scan's shared passes and the tile's searches: frontier_list.cuh.
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() (0 = success).
@@ -105,14 +119,15 @@ sssp_relax_offsets_kernel(int* __restrict__ part_n, long long* __restrict__ part
 }
 
 // Pass 3: each block scans its vertices again from its offset and lists its
-// frontier vertices with entries.
+// frontier vertices with entries (kReal: with their keys' low halves).
+template <bool kReal>
 __global__ void __launch_bounds__(kThreads)
 sssp_relax_compact_kernel(const int* __restrict__ front_deg,
                           const unsigned long long* __restrict__ state,
                           int64_t n_vertices, const int* __restrict__ part_n,
                           const long long* __restrict__ part_e,
                           int* __restrict__ flist, int64_t* __restrict__ fstart,
-                          unsigned* __restrict__ fdist) {
+                          unsigned* __restrict__ fdist, unsigned* __restrict__ flow) {
   int deg[kItems];
   const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
   Count total;
@@ -124,13 +139,18 @@ sssp_relax_compact_kernel(const int* __restrict__ front_deg,
     if (deg[k] > 0) {
       flist[at.n] = static_cast<int>(v0 + k);
       fstart[at.n] = at.e;
-      fdist[at.n] = static_cast<unsigned>(state[v0 + k] >> 32);
+      const unsigned long long key = state[v0 + k];
+      fdist[at.n] = static_cast<unsigned>(key >> 32);
+      if constexpr (kReal) flow[at.n] = static_cast<unsigned>(key);
       at.n += 1;
       at.e += deg[k];
     }
   }
 }
 
+// kReal: pbits is the parent's share of the low half (the engine's
+// real_key_bits), flow the listed vertices' round-start low halves.
+template <bool kReal>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 sssp_relax_kernel(const long long* __restrict__ totals,
                   const int* __restrict__ flist,
@@ -140,10 +160,11 @@ sssp_relax_kernel(const long long* __restrict__ totals,
                   const int* __restrict__ dst,
                   const unsigned* __restrict__ weight,
                   unsigned long long* __restrict__ state,
-                  unsigned char* __restrict__ changed) {
+                  unsigned char* __restrict__ changed,
+                  const unsigned* __restrict__ flow, int pbits) {
   __shared__ int s_rel[kTile];        // list entry's first entry - tile start (>= 0)
   __shared__ int64_t s_row[kTile];    // row_start[u] - fstart: entry e sits at row e + s_row
-  __shared__ int s_src[kTile];
+  __shared__ int s_src[kTile];        // u (kReal: the low half u offers over a tie, hops + 1)
   __shared__ unsigned s_dist[kTile];
   __shared__ int s_range[2];
 
@@ -162,7 +183,14 @@ sssp_relax_kernel(const long long* __restrict__ totals,
       const int u = flist[base + j];
       s_rel[j] = fs > t0 ? static_cast<int>(fs - t0) : 0;
       s_row[j] = row_start[u] - fs;
-      s_src[j] = u;
+      if constexpr (kReal) {
+        const unsigned hmax = 0xFFFFFFFFu >> pbits;
+        const unsigned hops = flow[base + j] >> pbits;
+        s_src[j] = static_cast<int>(((hops < hmax ? hops + 1 : hmax) << pbits) |
+                                    static_cast<unsigned>(u));
+      } else {
+        s_src[j] = u;
+      }
       s_dist[j] = fdist[base + j];
     }
     __syncthreads();
@@ -173,9 +201,18 @@ sssp_relax_kernel(const long long* __restrict__ totals,
       const int lo = staged_entry(s_rel, n, r);
       const int64_t row = t0 + r + s_row[lo];
       const unsigned v = static_cast<unsigned>(__ldg(dst + row));
-      const unsigned nd = s_dist[lo] + __ldg(weight + row);   // mod 2^32
-      const unsigned long long cand =
-          (static_cast<unsigned long long>(nd) << 32) | static_cast<unsigned>(s_src[lo]);
+      unsigned nd, low;
+      if constexpr (kReal) {
+        const unsigned du = s_dist[lo];
+        nd = __float_as_uint(__fadd_rn(__uint_as_float(du),
+                                       __uint_as_float(__ldg(weight + row))));
+        low = static_cast<unsigned>(s_src[lo]);
+        if (nd != du) low &= (1u << pbits) - 1;      // raised: 0 hops, u
+      } else {
+        nd = s_dist[lo] + __ldg(weight + row);       // mod 2^32
+        low = static_cast<unsigned>(s_src[lo]);
+      }
+      const unsigned long long cand = (static_cast<unsigned long long>(nd) << 32) | low;
       if (cand < __ldcg(state + v)) {
         const unsigned long long old = atomicMin(state + v, cand);
         if (nd < static_cast<unsigned>(old >> 32)) changed[v] = 1;
@@ -185,37 +222,51 @@ sssp_relax_kernel(const long long* __restrict__ totals,
   }
 }
 
-}  // namespace
-
-// The scratch, from the caller: part_n int32 and part_e int64 of
-// ceil(n_vertices / 1024) entries each, totals int64 [2], and the list
-// flist int32, fstart int64, fdist uint32 of n_vertices entries each.
-extern "C" int sssp_relax_launch(void* state, void* changed, const void* front_deg,
-                                 const void* row_start, const void* dst,
-                                 const void* weight, void* part_n, void* part_e,
-                                 void* totals, void* flist, void* fstart, void* fdist,
-                                 int64_t n_vertices, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool kReal>
+int launch(void* state, void* changed, const int* deg, const void* row_start,
+           const void* dst, const void* weight, void* part_n, void* part_e, void* totals,
+           void* flist, void* fstart, void* fdist, void* flow, int pbits,
+           int64_t n_vertices, cudaStream_t s) {
   const int64_t n_parts = (n_vertices + kTile - 1) / kTile;
-  const auto* deg = static_cast<const int*>(front_deg);
   sssp_relax_count_kernel<<<static_cast<unsigned>(n_parts), kThreads, 0, s>>>(
       deg, n_vertices, static_cast<int*>(part_n), static_cast<long long*>(part_e));
   sssp_relax_offsets_kernel<<<1, kOffsetThreads, 0, s>>>(
       static_cast<int*>(part_n), static_cast<long long*>(part_e), n_parts,
       static_cast<long long*>(totals));
-  sssp_relax_compact_kernel<<<static_cast<unsigned>(n_parts), kThreads, 0, s>>>(
+  sssp_relax_compact_kernel<kReal><<<static_cast<unsigned>(n_parts), kThreads, 0, s>>>(
       deg, static_cast<const unsigned long long*>(state), n_vertices,
       static_cast<const int*>(part_n), static_cast<const long long*>(part_e),
       static_cast<int*>(flist), static_cast<int64_t*>(fstart),
-      static_cast<unsigned*>(fdist));
+      static_cast<unsigned*>(fdist), static_cast<unsigned*>(flow));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sssp_relax_kernel<<<kMaxBlocks, kThreads, 0, s>>>(
+  sssp_relax_kernel<kReal><<<kMaxBlocks, kThreads, 0, s>>>(
       static_cast<const long long*>(totals), static_cast<const int*>(flist),
       static_cast<const int64_t*>(fstart), static_cast<const unsigned*>(fdist),
       static_cast<const int64_t*>(row_start), static_cast<const int*>(dst),
       static_cast<const unsigned*>(weight),
       static_cast<unsigned long long*>(state),
-      static_cast<unsigned char*>(changed));
+      static_cast<unsigned char*>(changed), static_cast<const unsigned*>(flow), pbits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The scratch, from the caller: part_n int32 and part_e int64 of
+// ceil(n_vertices / 1024) entries each, totals int64 [2], and the list
+// flist int32, fstart int64, fdist and flow uint32 of n_vertices entries
+// each.  pbits > 0 takes real weights with pbits parent bits (flow is read
+// only then); 0 takes integer weights.
+extern "C" int sssp_relax_launch(void* state, void* changed, const void* front_deg,
+                                 const void* row_start, const void* dst,
+                                 const void* weight, void* part_n, void* part_e,
+                                 void* totals, void* flist, void* fstart, void* fdist,
+                                 void* flow, int pbits, int64_t n_vertices, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* deg = static_cast<const int*>(front_deg);
+  if (pbits > 0)
+    return launch<true>(state, changed, deg, row_start, dst, weight, part_n, part_e, totals,
+                        flist, fstart, fdist, flow, pbits, n_vertices, s);
+  return launch<false>(state, changed, deg, row_start, dst, weight, part_n, part_e, totals,
+                       flist, fstart, fdist, flow, pbits, n_vertices, s);
 }

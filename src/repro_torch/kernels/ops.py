@@ -97,7 +97,9 @@ def sssp_relax(state: torch.Tensor, changed: torch.Tensor, front_deg: torch.Tens
     ``changed`` bool [V] gains the vertices whose distance fell,
     ``front_deg`` int32 [V] is the frontier's out-degrees (0 elsewhere),
     and vertex u's row is ``[row_start[u], row_start[u] + front_deg[u])`` of
-    ``dst`` / ``weight`` (int32, the weights' uint32 bit view)."""
+    ``dst`` / ``weight`` (int32, the weights' uint32 bit view; float32 real
+    weights take float32 distances and hops in the key's low half,
+    :func:`ref.sssp_relax_ref`)."""
     if state.device.type in _PLAIN:
         return ref.sssp_relax_ref(state, changed, front_deg, row_start, dst, weight)
     return relax_kernel.sssp_relax(state, changed, front_deg, row_start, dst, weight)

@@ -154,9 +154,9 @@ def cin_layer_ref(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor) -> torch.
 def check_relax_inputs(state, changed, front_deg, row_start, dst, weight) -> None:
     """The relax's operands: int64 ``state`` [V], bool ``changed`` [V], int32
     ``front_deg`` [V], int64 ``row_start`` [V], int32 ``dst`` and ``weight``
-    (the uint32 weights' bit view) of one length, contiguous, on one
-    device.  The engine calls this once a round, so the passing case reads
-    cheap tensor attributes only."""
+    (the uint32 weights' bit view, or float32 real weights) of one length,
+    contiguous, on one device.  The engine calls this once a round, so the
+    passing case reads cheap tensor attributes only."""
     v, dev = state.shape[0] if state.dim() == 1 else -1, state.device
     n_e = dst.shape[0] if dst.dim() == 1 else -1
     for name, t, dtype, n in (("state", state, torch.int64, v),
@@ -164,7 +164,8 @@ def check_relax_inputs(state, changed, front_deg, row_start, dst, weight) -> Non
                               ("front_deg", front_deg, torch.int32, v),
                               ("row_start", row_start, torch.int64, v),
                               ("dst", dst, torch.int32, n_e),
-                              ("weight", weight, torch.int32, n_e)):
+                              ("weight", weight, (torch.float32 if weight.dtype is torch.float32
+                                                   else torch.int32), n_e)):
         if (t.dtype is not dtype or t.dim() != 1 or t.shape[0] != n
                 or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"sssp_relax: {name} must be contiguous {dtype} [{n}] on "
@@ -175,6 +176,14 @@ def check_relax_inputs(state, changed, front_deg, row_start, dst, weight) -> Non
 
 
 _SIGN = -2**63   # the top bit of an int64
+
+
+def real_key_bits(v: int) -> tuple[int, int]:
+    """``(parent bits, hop maximum)`` of the real-weight key's low half for
+    ``v`` vertices: the parent (``v`` = none) takes the low
+    ``v.bit_length()`` bits, the hop count the rest (csrc/sssp_relax.cu)."""
+    pbits = int(v).bit_length()
+    return pbits, (1 << (32 - pbits)) - 1
 
 
 def sssp_relax_ref(state, changed, front_deg, row_start, dst, weight) -> None:
@@ -190,6 +199,16 @@ def sssp_relax_ref(state, changed, front_deg, row_start, dst, weight) -> None:
     fell.  torch has no uint64 minimum, so the keys are compared as int64
     with the top bit flipped (``key ^ 2^63``), which orders them as
     unsigned: an unflipped key with ``dist >= 2^31`` would read negative.
+
+    With float32 ``weight`` (real weights) the distances are float32 bits
+    (non-negative floats order as their bits do), the distance half of a
+    candidate is ``fl(dist[u] + w)`` rounded to nearest, and its low half is
+    ``hops << pbits | u`` (:func:`real_key_bits`): 0 hops where the add
+    raised the distance, else u's own hops plus one (at most the maximum),
+    read before the round.  So at one distance the parent fewer such
+    entries (a zero weight, or one under half an ulp of the distance) away
+    from a strictly nearer vertex wins, hops fall along every parent link,
+    and the parents stay a tree.
     """
     check_relax_inputs(state, changed, front_deg, row_start, dst, weight)
     u = torch.nonzero(front_deg > 0).squeeze(1)
@@ -199,9 +218,19 @@ def sssp_relax_ref(state, changed, front_deg, row_start, dst, weight) -> None:
     rows = row_start[src] + torch.arange(src.shape[0], device=src.device) \
         - torch.repeat_interleave(first, deg)
     d = dst[rows].to(torch.int64)
-    nd = ((state[src] >> 32) + to_u64(weight[rows])) & _U32
-    # the flipped candidate (nd - 2^31) * 2^32 + src: exact in int64
-    cand = (nd - 2**31) * 2**32 + src
+    key = state[src]
+    if weight.dtype is torch.float32:
+        du = (key >> 32).to(torch.int32)
+        nf = du.view(torch.float32) + weight[rows]
+        nd = nf.view(torch.int32).to(torch.int64)
+        pbits, hmax = real_key_bits(state.shape[0])
+        hops = (((key & _U32) >> pbits) + 1).clamp(max=hmax)
+        low = torch.where(nd == du, (hops << pbits) | src, src)
+    else:
+        nd = ((key >> 32) + to_u64(weight[rows])) & _U32
+        low = src
+    # the flipped candidate (nd - 2^31) * 2^32 + low: exact in int64
+    cand = (nd - 2**31) * 2**32 + low
     new = (state ^ _SIGN).scatter_reduce(0, d, cand, "amin", include_self=True) ^ _SIGN
     changed |= ((new >> 32) & _U32) < ((state >> 32) & _U32)
     state.copy_(new)

@@ -362,7 +362,7 @@ def test_sssp_relax_kernel_matches_plain(cuda, family, density):
 @pytest.mark.cuda
 def test_sssp_relax_scratch_per_stream(cuda):
     # two streams each keep their own scratch; a new vertex count on a
-    # stream replaces its scratch
+    # stream replaces its scratch; integer weights take no real-weight scratch
     from repro_torch.core.bfs_steps import edge_rows
     from repro_torch.kernels import sssp_relax
     ev, degree = weighted_graph("erdos_renyi", cuda)
@@ -389,6 +389,7 @@ def test_sssp_relax_scratch_per_stream(cuda):
     assert sssp_relax.scratch_for._sets[(dev, main)][0] == v
     sssp_relax.scratch_for(dev, main, v + 1)
     assert sssp_relax.scratch_for._sets[(dev, main)][0] == v + 1
+    assert (dev, side.cuda_stream) not in sssp_relax.real_scratch_for._sets
 
 
 @pytest.mark.cuda
@@ -408,6 +409,100 @@ def test_sssp_relax_one_launch_a_round(cuda):
         "frontier_update": 0, "core_spmv": 0, "spmv_mxu": 0, "cin_layer": 0,
         "sssp_relax": rounds, "bfs_relax": 0, "bfs_level_delta": 0, "bfs_level_stats": 0,
         "bfs_live_chunks": 0, "bfs_core_merge": 0}
+
+
+def real_relax_round(ev, degree, seed, density):
+    """A round's relax operands with float32 distances and weights: some
+    weights 0 or 2^-24 (under half an ulp of distances at 2 and past), the
+    distances from a few values (ties), some unreached, hop counts in the
+    keys' low halves up to their maximum; and the rows' weight plane."""
+    rng = np.random.default_rng(seed)
+    v = ev.num_vertices
+    pbits, hmax = ref.real_key_bits(v)
+    dist = rng.choice(np.array([0.0, 0.5, 2.25, 2.25 + 2**-22, 3.0, 0.125], np.float32), v)
+    dbits = dist.view(np.uint32).astype(np.uint64)
+    unreached = rng.random(v) < 0.3
+    hops = rng.integers(0, 4, v).astype(np.uint64)
+    hops[rng.random(v) < 0.05] = hmax
+    low = (hops << np.uint64(pbits)) | rng.integers(0, v, v).astype(np.uint64)
+    key = np.where(unreached, (np.uint64(0xFFFFFFFF) << np.uint64(32)) | np.uint64(v),
+                   (dbits << np.uint64(32)) | low)
+    front = (rng.random(v) < density) & ~unreached
+    front[0] = not unreached[0]
+    changed = front | (rng.random(v) < 0.1)
+    dev = ev.dst.device
+    n = ev.weight.shape[0]
+    kind = torch.from_numpy(rng.random(n)).to(dev)
+    w = ev.weight.to(torch.int32)
+    w = torch.where(kind < 0.15, 0, torch.where(kind < 0.3, int(np.float32(2**-24).view(np.int32)), w))
+    state = torch.from_numpy(key.view(np.int64)).to(dev)
+    front_t = torch.from_numpy(front).to(dev)
+    return (state, torch.from_numpy(changed).to(dev) & ~front_t,
+            torch.where(front_t, degree, 0), w.to(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["kronecker", "grid", "erdos_renyi", "hub"])
+@pytest.mark.parametrize("density", [0.02, 0.6])
+def test_sssp_relax_float_kernel_matches_plain(cuda, family, density):
+    # the real-weight instantiation, bit for bit, zero and sub-ulp weights
+    # and tied distances among its operands; twice on the card the same
+    from repro_torch.core.bfs_steps import EdgeView, edge_rows, with_edge_weights
+    ev, degree = weighted_graph(family, cuda)
+    ev = with_edge_weights(EdgeView(ev.src, ev.dst, ev.valid, ev.num_vertices), seed=2,
+                           real=True)
+    state, changed, front_deg, w = real_relax_round(ev, degree, 11, density)
+    rows = edge_rows(EdgeView(ev.src, ev.dst, ev.valid, ev.num_vertices, w, True), degree,
+                     weighted=True)
+    assert rows.weight.dtype is torch.float32      # the rows carry the weight kind
+    outs = []
+    for fn in (ref.sssp_relax_ref, ops.sssp_relax, ops.sssp_relax):
+        st, ch = state.clone(), changed.clone()
+        fn(st, ch, front_deg, rows.row_start, rows.dst, rows.weight)
+        outs.append((st, ch))
+    torch.cuda.synchronize()
+    for st, ch in outs[1:]:
+        assert torch.equal(st, outs[0][0])
+        assert torch.equal(ch, outs[0][1])
+    assert not torch.equal(outs[0][0], state)
+    pbits, _ = ref.real_key_bits(ev.num_vertices)
+    moved = outs[0][0] != state
+    assert bool((((outs[0][0] & 0xFFFFFFFF) >> pbits)[moved] > 0).any())   # hops kept
+
+
+@pytest.mark.cuda
+def test_sssp_real_on_card_equals_cpu_and_one_launch_a_round(cuda):
+    # the real-weight search through the kernel equals the plain-version run
+    # bit for bit (parents too: the keys' minimum does not depend on the
+    # atomics' order), one C-entry call a round
+    from repro_torch.core import pipeline
+    from repro_torch.core.kronecker import generate_edges
+    from repro_torch.core.plan import compile_plan
+    e = generate_edges(5, 12, device="cpu")
+    # torch's CPU and CUDA generators give different streams: the keys are
+    # sampled once, in the edge list's labels, for both devices
+    keys = e.src[e.src != e.dst][:4].numpy()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.Graph500Config(scale=12, seed=5, kernel="sssp", heavy_threshold=None,
+                                      real_weights=True, device=dev, n_roots=4)
+        b = pipeline.build(cfg, edges=type(e)(e.src.to(dev), e.dst.to(dev), e.num_vertices))
+        c = compile_plan(cfg.to_plan(), b, device=dev)
+        roots = [int(r) for r in pipeline.search_keys(cfg, b, keys)]
+        c.bfs(roots[0])
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        out[dev] = [c.bfs(r) for r in roots]
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        if dev == "cuda":
+            rounds = sum(int(r.stats.levels) for r in out[dev])
+            assert after["sssp_relax"] - before["sssp_relax"] == rounds > len(roots)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a.parent, b.parent.cpu())
+        assert torch.equal(a.level, b.level.cpu())
+        for f in a.stats._fields:
+            assert torch.equal(getattr(a.stats, f), getattr(b.stats, f).cpu()), f
 
 
 # ---------------------------------------------------------------------------

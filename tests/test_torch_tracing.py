@@ -26,12 +26,14 @@ def compiled(kernel):
     """(CompiledBFS, search keys) of the scale-10 graph for ``kernel``:
     the ``pre-g500`` rung (``bfs``: heavy core, bitmap engine; its core,
     K = 4,096, spans every vertex), the bitmap engine without a core
-    (``bfs-nocore``), or SSSP."""
+    (``bfs-nocore``), or SSSP (``sssp-real``: the specification's real
+    weights)."""
     if kernel not in _COMPILED:
         kw = dict(scale=10, seed=3, n_roots=4, device="cpu")
         cfg = (Graph500Config.ladder("pre-g500", **kw) if kernel == "bfs"
                else Graph500Config(heavy_threshold=None, **kw) if kernel == "bfs-nocore"
-               else Graph500Config(kernel="sssp", heavy_threshold=None, **kw))
+               else Graph500Config(kernel="sssp", heavy_threshold=None,
+                                   real_weights=kernel == "sssp-real", **kw))
         built = build(cfg)
         _COMPILED[kernel] = (compile_plan(cfg.to_plan(), built, device="cpu"),
                              [int(r) for r in search_keys(cfg, built)])
@@ -124,15 +126,59 @@ def test_compact_marks_exactly_the_top_down_levels(key):
     assert set(res.stats.direction[:n].tolist()) == {0, 1}
 
 
+def sssp_counts(res) -> dict:
+    """The SSSP counters a search with this result makes: the entries its
+    relax scans (the frontiers' out-edges: it reads their rows and nothing
+    else), the frontiers' vertices, and the vertices reached."""
+    rounds = int(res.stats.levels)
+    return {"sssp.frontier_edges": int(res.stats.scanned_edges[:rounds].long().sum()),
+            "sssp.frontier_vertices": int(res.stats.frontier_size[:rounds].long().sum()),
+            "sssp.reached_vertices": int((res.level >= 0).sum())}
+
+
 @pytest.mark.parametrize("key", [0, 1, 2, 3])
 def test_sssp_counters_follow_the_rounds(key):
-    # the relax reads the frontiers' rows and nothing else, so the entries
-    # it scans are the frontiers' out-edges
     res, _, counts = traced("sssp", key)
-    rounds = int(res.stats.levels)
-    edges = int(res.stats.scanned_edges[:rounds].long().sum())
-    assert counts == {"sssp.frontier_edges": edges}
+    assert counts == sssp_counts(res)
     assert 0 < counts["sssp.frontier_edges"]
+    # every reached vertex enters a frontier, and the root's is reached
+    assert counts["sssp.frontier_vertices"] >= counts["sssp.reached_vertices"] > 1
+
+
+def test_real_weight_counters_appear_only_under_the_profiler():
+    c, roots = compiled("sssp-real")
+    tracing.reset()
+    c.bfs(roots[1])
+    assert tracing.counters() == {}
+    _, _, counts = traced("sssp-real", 1)
+    assert set(counts) == {"sssp.frontier_edges", "sssp.frontier_vertices",
+                           "sssp.reached_vertices"}
+
+
+@pytest.mark.parametrize("key", [0, 1, 2, 3])
+def test_sssp_real_counters_follow_the_rounds(key):
+    res, marks, counts = traced("sssp-real", key)
+    assert marks == expected_marks("sssp", res)
+    assert counts == sssp_counts(res)
+    assert counts["sssp.frontier_vertices"] >= counts["sssp.reached_vertices"] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sssp", "sssp-real"])
+def test_sssp_counters_on_the_card_follow_the_rounds(kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    kw = dict(scale=12, seed=3, n_roots=4, device="cuda")
+    cfg = Graph500Config(kernel="sssp", heavy_threshold=None,
+                         real_weights=kernel == "sssp-real", **kw)
+    built = build(cfg)
+    c = compile_plan(cfg.to_plan(), built, device="cuda")
+    for root in search_keys(cfg, built):
+        c.bfs(int(root))                       # built and warm
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            res = c.bfs(int(root))
+        assert tracing.counters() == sssp_counts(res)
 
 
 @pytest.mark.parametrize("graph", ["bfs", "bfs-nocore"])
