@@ -221,7 +221,12 @@ non-zero and no result line is printed:
      the plain version and the byte bound, parents and the count of entries
      read equal to the plain version's (``time_bfs_relax``); then the level
      loop's four bookkeeping kernels on levels of the same search, each
-     against its plain version and its byte bound (``time_bfs_level``).
+     against its plain version and its byte bound (``time_bfs_level``);
+     then ``core_spmv`` over the search's K = 200,704 core on a frontier
+     that no row hits and on the frontier of each of the search's
+     bottom-up levels, against the bytes each launch's answer needs, its
+     output and count of words read equal to the plain version's
+     (``time_core_spmv``).
 
 The kernel JSON's ``launches`` sum the counts of every path that drives a
 kernel (phase 5's ``pre-g500`` run, the legacy rung of phase 11, the BFS runs
@@ -488,8 +493,37 @@ def check_core_spmv(device) -> None:
     out = frontier_spmv.core_spmv(words_to_torch(a, device), words_to_torch(f, device))
     if int(out[0]) != 70 or int(out[1]) != ref.BIG:
         raise AssertionError(f"core_spmv min-neighbour case: got {out[:2].tolist()}")
+    # the early exit: each row's first hit at a group's edge (its first and
+    # last word, the next group's first), in the short last group, at the
+    # row's last word, or none; 1,000 words a row, so the last group is short
+    g, w = ref.CORE_GROUP_WORDS, 1000
+    spots = [0, g - 1, g, 2 * g - 1, w - w % g, w - 1, -1]
+    rows = 64 * len(spots)
+    a = rand_words(gen, (rows, w), 0.3, device)
+    f = rand_words(gen, (w,), 0.3, device) | 1
+    col = torch.arange(w, device=device)
+    pos = torch.tensor(spots * 64, device=device)
+    a = torch.where((col[None, :] < pos[:, None]) | (pos[:, None] < 0), a & ~f, a)
+    hit_rows = torch.nonzero(pos >= 0).squeeze(1)
+    a[hit_rows, pos[hit_rows]] |= 1
+    want_words = torch.zeros((), dtype=torch.int64, device=device)
+    want = ref.core_spmv_ref(a, f, want_words)
+    if not torch.equal(want[hit_rows] // 32, pos[hit_rows]) or \
+            int((want[pos < 0] != ref.BIG).sum()):
+        raise AssertionError("core_spmv early-exit case: the rows' first hits are not "
+                             "where they were put")
+    for rpt in (1, 8, 32):
+        words = torch.zeros((), dtype=torch.int64, device=device)
+        assert_equal(f"core_spmv first hits rows_per_tile={rpt}",
+                     frontier_spmv.core_spmv(a, f, rows_per_tile=rpt, words_read=words), want)
+        if int(words) != int(want_words):
+            raise AssertionError(f"core_spmv first hits rows_per_tile={rpt}: "
+                                 f"{int(words)} words read, the plain version counts "
+                                 f"{int(want_words)}")
     log(f"core_spmv: {n + 1} cases at K={k} bit-identical to core_spmv_ref "
-        f"(incl. the min-neighbour case)")
+        f"(incl. the min-neighbour case); {rows} rows with their first hit at a "
+        f"group's edges (W = {w}, groups of {g} words) bit-identical at rows_per_tile "
+        f"1, 8, 32, {int(want_words)} words read as the plain version counts")
 
 
 def assert_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -1456,6 +1490,7 @@ def time_bfs_relax(device) -> dict:
             f"({bound[1]}); parents and count equal the plain version's")
         out[side] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
     out["level"] = time_bfs_level(compiled, key, device)
+    out["core"] = time_core_spmv(compiled, key, device)
     del kept, compiled, built, res
     torch.cuda.empty_cache()
     return out
@@ -1564,6 +1599,69 @@ def time_bfs_level(compiled, key: int, device) -> dict:
             f"{n_bytes} B); outputs equal the plain version's")
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound=bound, bytes=n_bytes)
     return out
+
+
+def core_spmv_bound_ms(out: torch.Tensor, words: int) -> tuple[float, str]:
+    """``core_spmv``'s bound from a launch's output: each row's words up to
+    the first that hits (all ``words`` when none does), the frontier up to
+    the longest such prefix and the output, read or written once; five
+    operations a word (``portbench/bench/roofline.py``'s count)."""
+    from repro_torch.kernels import ref
+    o = out.to(torch.int64)
+    need = torch.where(o < ref.BIG, o // 32 + 1, words).clamp(max=words)
+    row_words = int(need.sum())
+    return bound_ms(4 * (row_words + int(need.max()) + out.numel()), 5 * row_words)
+
+
+def time_core_spmv(compiled, key: int, device) -> list:
+    """Phase 28, third part: ``core_spmv`` over the BFS cell's core (scale
+    22, K = 200,704, 5.0 GB) on a frontier no row hits, where every row is
+    read whole, and on the frontier of each bottom-up level of one search
+    from ``key``; each timed (CUDA events, median of 20 runs of 5 launches)
+    against the bytes its answer needs (:func:`core_spmv_bound_ms`) and the
+    plain version, its output and its count of words read equal to the
+    plain version's."""
+    from repro_torch.kernels import frontier_spmv, ops, ref
+    a_core = compiled.graph.core.a_core
+    k, w = a_core.shape
+    fronts = []
+    real = ops.core_spmv
+
+    def keep(a, f, **kw):
+        fronts.append(f.clone())
+        return real(a, f, **kw)
+
+    ops.core_spmv = keep
+    try:
+        compiled.bfs(key)
+        sync(device)
+    finally:
+        ops.core_spmv = real
+    cases = [("no hit", torch.zeros(w, dtype=torch.int32, device=device))]
+    cases += [(f"bottom-up level {i + 1} of {len(fronts)}", f) for i, f in enumerate(fronts)]
+    rows = []
+    for name, f in cases:
+        words, want_words = (torch.zeros((), dtype=torch.int64, device=device)
+                             for _ in range(2))
+        want = ref.core_spmv_ref(a_core, f, want_words)
+        assert_equal(f"core_spmv scale {SCALE_RELAX} {name}",
+                     frontier_spmv.core_spmv(a_core, f, words_read=words), want)
+        if int(words) != int(want_words):
+            raise AssertionError(f"core_spmv scale {SCALE_RELAX} {name}: {int(words)} words read, "
+                                 f"the plain version counts {int(want_words)}")
+        ms = time_ms(lambda f=f: frontier_spmv.core_spmv(a_core, f), 20, 5)
+        plain_ms = time_ms(lambda f=f: ref.core_spmv_ref(a_core, f), 3, 1)
+        bound = core_spmv_bound_ms(want, w)
+        hits = int((want < ref.BIG).sum())
+        read = int(words) / (k * w)
+        log(f"    core_spmv at scale {SCALE_RELAX} (key {key}, K = {k}, W = {w}), {name}: {hits} rows "
+            f"hit; kernel {ms:.6f} ms (median of 20 x 5 launches, CUDA events), bound "
+            f"{bound[0]:.6f} ms ({bound[1]}: the words up to each row's first hit), plain "
+            f"{plain_ms:.6f} ms; words read {100 * read:.4f}% of the core; output and "
+            f"count equal the plain version's")
+        rows.append(dict(case=name, hit_rows=hits, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1], words_read_share=read))
+    return rows
 
 
 def sync(device) -> None:
@@ -3593,13 +3691,14 @@ def main() -> int:
             f"operations per call, device {fu_device_ms:.6f} ms per launch")
     cs_ms = time_ms(lambda: frontier_spmv.core_spmv(a_core, f_core), 20, 5)
     cs_plain = time_ms(lambda: ref.core_spmv_ref(a_core, f_core), 3, 1)
-    cs_bound = bound_ms(4 * (k * (k // 32) + k // 32 + k), 5 * k * (k // 32))
+    cs_bound = core_spmv_bound_ms(ref.core_spmv_ref(a_core, f_core), k // 32)
     log(f"    frontier_update W={w}: {fu_ms:.6f} ms per wrapper call into out= "
         f"buffers ({fu_alloc_ms:.6f} ms allocating its outputs), device "
         f"{fu_device_ms} ms per launch, plain {fu_plain:.6f} ms, "
         f"bound {fu_bound[0]:.6f} ms ({fu_bound[1]})")
     log(f"    core_spmv K={k} W={k // 32} (bottom-up level {bu}): {cs_ms:.6f} ms, "
-        f"plain {cs_plain:.6f} ms, bound {cs_bound[0]:.6f} ms ({cs_bound[1]})")
+        f"plain {cs_plain:.6f} ms, bound {cs_bound[0]:.6f} ms ({cs_bound[1]}: the "
+        f"words up to each row's first hit)")
     log(f"    max abs err vs plain: frontier_update {fu_err}, core_spmv {cs_err} "
         f"(tolerance 0: integer outputs must be bit-exact)")
     log("    library call: none (no single PyTorch call computes either function)")
@@ -3774,7 +3873,7 @@ def main() -> int:
              launches=sum(by_path["core_spmv"].values()),
              launches_by_path=by_path["core_spmv"], max_abs_err=cs_err,
              ms=cs_ms, plain_ms=cs_plain, bound_ms=cs_bound[0],
-             bound_by=cs_bound[1], library_ms=None),
+             bound_by=cs_bound[1], library_ms=None, scale22=bfs_relax_t["core"]),
         dict(name="spmv_mxu", route="cuda",
              source="src/repro_torch/kernels/csrc/spmv_mxu.cu",
              replaces="src/repro/kernels/spmv_mxu.py:57",

@@ -213,14 +213,16 @@ def _run_legacy(ev: EdgeView, degree: torch.Tensor, n_active: int, root: int,
 # ---------------------------------------------------------------------------
 
 def _core_bottom_up_resident(core: HeavyCore, frontier_bm, visited_bm,
-                             parent_ext) -> None:
+                             parent_ext, words_read=None) -> None:
     """Dense-core kernel step on the resident frontier bitmap, in place: the
     ``core_spmv`` kernel finds each core row's least frontier neighbour, and
     the ``bfs_core_merge`` kernel lets the unvisited rows below min(K, V)
     take it.  Row i's candidate parent lands on vertex i itself, so the JAX
     scatter-min over distinct rows is an elementwise min on the prefix; rows
-    at or past ``V`` (a core padded beyond a tiny graph) never win."""
-    cand = kops.core_spmv(core.a_core, frontier_bm[: core.k // 32])  # int32 [K]
+    at or past ``V`` (a core padded beyond a tiny graph) never win.
+    ``words_read`` (an int64 scalar, or None) gains the core words read."""
+    cand = kops.core_spmv(core.a_core, frontier_bm[: core.k // 32],
+                          words_read=words_read)  # int32 [K]
     kops.bfs_core_merge(cand, visited_bm, parent_ext)
 
 
@@ -259,7 +261,10 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     ``done``; and it counts ``bfs.bu_entries_read`` (the row entries the
     bottom-up relax read, summed on the device) and
     ``bfs.bu_entries_unvisited`` (the bottom-up levels' unvisited adjacency,
-    ``scanned_edges``), read back once at the end."""
+    ``scanned_edges``), read back once at the end, and with a core
+    ``bfs.core_words_read`` (the words ``core_spmv`` read, summed on the
+    device in the same readback) and ``bfs.core_words`` (the core's K x W
+    words for each of its launches)."""
     traced = recording()
     if traced:
         mark("repro_torch.bfs.start")
@@ -268,7 +273,10 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     i32 = torch.int32
     w = padded_bitmap_words(v)
     root = int(root)
-    bu_read = torch.zeros((), dtype=torch.int64, device=dev) if traced else None
+    # the bottom-up relax's entries and the core's words read, on the device
+    reads = torch.zeros(2, dtype=torch.int64, device=dev) if traced else None
+    bu_read, core_read = reads.unbind() if traced else (None, None)
+    core_launches = 0
 
     # fill_ on a view launches a kernel, where assigning a host int would be
     # a synchronising host-to-device copy
@@ -314,7 +322,9 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
             if core is not None:
                 if traced:
                     mark("repro_torch.bfs.core")
-                _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext)
+                _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext,
+                                         core_read)
+                core_launches += 1
             if traced:
                 mark("repro_torch.bfs.relax")
             kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
@@ -359,12 +369,16 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     )
     if traced:
         # one copy back a traced search; an untraced one reads nothing back
-        read, unvisited = torch.stack([
-            bu_read,
-            torch.where(stats[STATS_DIR, :lvl] == BOTTOM_UP, stats[STATS_SE, :lvl], 0).sum()
+        read, core_words_read, unvisited = torch.cat([
+            reads,
+            torch.where(stats[STATS_DIR, :lvl] == BOTTOM_UP, stats[STATS_SE, :lvl], 0)
+            .sum()[None]
         ]).tolist()
         tracing.count("bfs.bu_entries_read", read)
         tracing.count("bfs.bu_entries_unvisited", unvisited)
+        if core is not None:
+            tracing.count("bfs.core_words_read", core_words_read)
+            tracing.count("bfs.core_words", core_launches * core.a_core.numel())
         mark("repro_torch.bfs.done")
     return result
 

@@ -56,12 +56,14 @@ def frontier_update(next_raw: torch.Tensor, visited: torch.Tensor, out=None):
 
 
 def core_spmv(a_core: torch.Tensor, frontier_bm: torch.Tensor, *,
-              rows_per_tile: int = 8) -> torch.Tensor:
-    """Bottom-up step over the dense core: min frontier neighbour per row."""
+              rows_per_tile: int = 8, words_read=None) -> torch.Tensor:
+    """Bottom-up step over the dense core: min frontier neighbour per row;
+    ``words_read`` (an int64 scalar, or None) gains the words of the core
+    read (each row up to the group of its first hit)."""
     if a_core.device.type in _PLAIN:
-        return ref.core_spmv_ref(a_core, frontier_bm)
-    return frontier_spmv.core_spmv(a_core, frontier_bm,
-                                   rows_per_tile=rows_per_tile)
+        return ref.core_spmv_ref(a_core, frontier_bm, words_read)
+    return frontier_spmv.core_spmv(a_core, frontier_bm, rows_per_tile=rows_per_tile,
+                                   words_read=words_read)
 
 
 def multi_source_spmv(a_core8: torch.Tensor, frontier8: torch.Tensor) -> torch.Tensor:

@@ -106,19 +106,43 @@ def frontier_update_ref(next_raw: torch.Tensor, visited: torch.Tensor, out=None)
     return out
 
 
-def core_spmv_ref(a_core: torch.Tensor, frontier_bm: torch.Tensor) -> torch.Tensor:
+#: Warp steps (32 lanes x 16 bytes) that ``core_spmv``'s kernel reads before
+#: it tests them for a hit (``csrc/core_spmv.cu``'s ``kGroupSteps``; the
+#: wrapper passes it, and the kernel refuses any other value).
+CORE_GROUP_STEPS = 2
+#: Words of a core row in one such group.
+CORE_GROUP_WORDS = 32 * 4 * CORE_GROUP_STEPS
+
+
+def core_spmv_ref(a_core: torch.Tensor, frontier_bm: torch.Tensor,
+                  words_read=None) -> torch.Tensor:
     """Per core row i: the least column j with A[i, j] & frontier[j], else BIG.
 
     a_core: int32 [K, W]; frontier_bm: int32 [W]; returns int32 [K].  The
     least column lies in the row's first nonzero word of ``A & frontier``:
-    that word's index times 32 plus its trailing zeros.
+    that word's index times 32 plus its trailing zeros.  ``words_read`` (an
+    int64 scalar, or None) gains the words the kernel reads
+    (:func:`core_words_read`).
     """
     hits = a_core & frontier_bm[None, :]
     nz = hits != 0
     first = nz.to(torch.uint8).argmax(dim=1)    # the first nonzero word (0 if none)
     word = hits.gather(1, first[:, None])[:, 0]
     col = first.to(torch.int32) * 32 + ctz_u32(word)
-    return torch.where(nz.any(dim=1), col, torch.full_like(col, BIG))
+    out = torch.where(nz.any(dim=1), col, torch.full_like(col, BIG))
+    if words_read is not None:
+        words_read += core_words_read(out, a_core.shape[1])
+    return out
+
+
+def core_words_read(out: torch.Tensor, w: int) -> torch.Tensor:
+    """The words ``core_spmv``'s kernel reads over rows of ``w`` words, from
+    its output ``out``: each row up to the end of the group of
+    ``CORE_GROUP_WORDS`` that holds its first hit (column ``out[i]``), all
+    ``w`` when it has none (``BIG``); an int64 scalar."""
+    o = out.to(torch.int64)
+    ends = (o // 32 // CORE_GROUP_WORDS + 1) * CORE_GROUP_WORDS
+    return torch.where(o < BIG, ends.clamp(max=w), w).sum()
 
 
 def spmv_mxu_ref(a_core8: torch.Tensor, frontier8: torch.Tensor, *,

@@ -20,6 +20,8 @@ from repro_torch.core.heavy import testbit as bit_at
 from repro_torch.kernels import (bfs_level, bfs_relax, bitmap_ops, cin, frontier_spmv, ops,
                                  ref, spmv_mxu, sssp_relax)
 
+from core_spmv_cases import NO_HIT, first_hit_core, walked_words
+
 torch.set_num_threads(2)
 
 
@@ -166,6 +168,24 @@ def test_core_spmv_bit31_column():
     want = np.asarray(jax_core_spmv(jnp.asarray(a), jnp.asarray(f), interpret=True))
     assert int(got[0]) == 31 and int(got[1]) == 63
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w", [1000, 1024, 2048])
+def test_core_spmv_plain_counts_the_group_walk(w):
+    # the plain version's count of words read is the kernel's walk: each row
+    # up to the end of the group of its first hit, all of it with none
+    # (1,000 words end in a short group; 1,024 and 2,048 in whole ones)
+    rng = np.random.default_rng(w)
+    a, f, pos = first_hit_core(rng, 512, w)
+    words = torch.zeros((), dtype=torch.int64)
+    got = ops.core_spmv(to_t(a), to_t(f), words_read=words)
+    hit = pos != NO_HIT
+    np.testing.assert_array_equal(got.numpy()[hit] // 32, pos[hit])
+    assert (got.numpy()[~hit] == ref.BIG).all()
+    np.testing.assert_array_equal(got.numpy(), ref.core_spmv_ref(to_t(a), to_t(f)).numpy())
+    assert int(words) == walked_words(a, f) < 512 * w
+    ops.core_spmv(to_t(a), to_t(f), words_read=words)
+    assert int(words) == 2 * walked_words(a, f)
 
 
 def test_popcount_ctz_match_jax():

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu
 
+from core_spmv_cases import first_hit_core, walked_words
+
 torch.set_num_threads(2)
 
 
@@ -151,16 +153,68 @@ def test_frontier_update_scratch_per_stream(cuda):
         bitmap_ops.scratch_for(dev, torch.cuda.current_stream().cuda_stream)
 
 
+def core_case(case, device):
+    """(core, frontier) on ``device`` for :func:`test_core_spmv_kernel_matches_plain`:
+    random cores at K = 4,096; rows whose first hit sits at a group's edges
+    (1,000 words a row: 250 vectors, so the last group is short); and a
+    scale-22-like bottom-up level, a sparse frontier over K = 65,536, where
+    most rows read far or to their end."""
+    rng = np.random.default_rng(7)
+    if case.startswith("random"):
+        k = 4096
+        a = rand_u32(rng, (k, k // 32), float(case.split("-")[1]))
+        f = rand_u32(rng, (k // 32,), 0.1)
+    elif case == "first-hits":
+        a, f, _ = first_hit_core(rng, 4096, 1000)
+    else:
+        k = 65536
+        gen = torch.Generator(device=device).manual_seed(7)
+        a = torch.randint(-2**31, 2**31, (k, k // 32), dtype=torch.int32, device=device,
+                          generator=gen)
+        for _ in range(4):      # 1 bit in 32: about 2,048 columns a row
+            a &= torch.randint(-2**31, 2**31, a.shape, dtype=torch.int32, device=device,
+                               generator=gen)
+        f = to_t(rand_u32(rng, (k // 32,), 0.0002), device)
+        return a, f
+    return to_t(a, device), to_t(f, device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows_per_tile", [1, 8, 32])
-@pytest.mark.parametrize("density", [0.001, 0.05])
-def test_core_spmv_kernel_matches_plain(cuda, rows_per_tile, density):
-    rng = np.random.default_rng(7)
-    k = 4096
-    a = to_t(rand_u32(rng, (k, k // 32), density), cuda)
-    f = to_t(rand_u32(rng, (k // 32,), 0.1), cuda)
-    got = frontier_spmv.core_spmv(a, f, rows_per_tile=rows_per_tile)
-    assert torch.equal(got, ref.core_spmv_ref(a, f))
+@pytest.mark.parametrize("case", ["random-0.001", "random-0.05", "first-hits",
+                                  "sparse-k65536"])
+def test_core_spmv_kernel_matches_plain(cuda, rows_per_tile, case):
+    # bit for bit, and the kernel's count of words read (whole groups up to
+    # each row's first hit) equals the plain version's, over two launches
+    a, f = core_case(case, cuda)
+    words, want_words = (torch.zeros((), dtype=torch.int64, device=cuda) for _ in range(2))
+    want = ref.core_spmv_ref(a, f, want_words)
+    for _ in range(2):
+        got = frontier_spmv.core_spmv(a, f, rows_per_tile=rows_per_tile, words_read=words)
+        assert torch.equal(got, want)
+    assert int(words) == 2 * int(want_words) > 0
+    assert torch.equal(frontier_spmv.core_spmv(a, f, rows_per_tile=rows_per_tile), want)
+    if case == "first-hits":
+        assert int(want_words) == walked_words(a.cpu().numpy().view(np.uint32),
+                                               f.cpu().numpy().view(np.uint32))
+    if case == "sparse-k65536":
+        hit = want < ref.BIG
+        assert 0 < int(hit.sum()) < a.shape[0]  # rows that end early and rows read whole
+
+
+@pytest.mark.cuda
+def test_core_spmv_refuses_another_group_size(cuda):
+    # the kernel's group is compiled in: a launch with another size than the
+    # plain version counts with fails, and so does a counter of another type
+    a, f = core_case("first-hits", cuda)
+    out = torch.empty(a.shape[0], dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="core_spmv_launch"):
+        frontier_spmv.KERNEL(a.data_ptr(), f.data_ptr(), out.data_ptr(), a.shape[0],
+                             a.shape[1], 8, ref.CORE_GROUP_STEPS + 1, None, stream)
+    with pytest.raises(ValueError, match="words_read"):
+        frontier_spmv.core_spmv(a, f, words_read=torch.zeros((), dtype=torch.int32,
+                                                             device=cuda))
 
 
 @pytest.mark.cuda

@@ -4,8 +4,8 @@ bitmap BFS level loop and the SSSP round loop, at scale 10 on the CPU.
 Marks are recorded only under ``torch.profiler``, in the order the loops
 run; they follow the levels and directions of ``stats``; the SSSP counters
 equal what ``stats`` says of the rounds, and the BFS counters what it says
-of the bottom-up levels; and a search's outputs are the same with the
-profiler on and off.
+of the bottom-up levels and the core's launches; and a search's outputs
+are the same with the profiler on and off.
 """
 import pytest
 import torch
@@ -15,6 +15,7 @@ from repro_torch import tracing
 from repro_torch.core.hybrid_bfs import BOTTOM_UP
 from repro_torch.core.pipeline import Graph500Config, build, search_keys
 from repro_torch.core.plan import compile_plan
+from repro_torch.kernels import ops as kops, ref
 
 torch.set_num_threads(2)
 
@@ -191,13 +192,39 @@ def test_bfs_counters_follow_the_bottom_up_levels(graph, key):
     n = int(res.stats.levels)
     bu = res.stats.direction[:n] == BOTTOM_UP
     unvisited = int(res.stats.scanned_edges[:n][bu].long().sum())
-    assert set(counts) == {"bfs.bu_entries_read", "bfs.bu_entries_unvisited"}
+    core = {"bfs.core_words_read", "bfs.core_words"} if graph == "bfs" else set()
+    assert set(counts) == {"bfs.bu_entries_read", "bfs.bu_entries_unvisited"} | core
     assert counts["bfs.bu_entries_unvisited"] == unvisited > 0
     if graph == "bfs":
         assert compiled(graph)[0].core.k >= res.parent.shape[0]
         assert counts["bfs.bu_entries_read"] == 0
     else:
         assert 0 < counts["bfs.bu_entries_read"] < unvisited
+
+
+@pytest.mark.parametrize("key", [0, 1, 2, 3])
+def test_core_counters_follow_the_core_launches(key, monkeypatch):
+    # one core_spmv launch a bottom-up level over the K x W core, each row
+    # read up to the group of its first frontier hit (the rule of
+    # ref.core_words_read, applied to each launch's output)
+    c = compiled("bfs")[0]
+    outs = []
+    real = kops.core_spmv
+
+    def keep(*a, **kw):
+        outs.append(real(*a, **kw))
+        return outs[-1]
+
+    monkeypatch.setattr(kops, "core_spmv", keep)
+    res, _, counts = traced("bfs", key)
+    n = int(res.stats.levels)
+    n_bu = int((res.stats.direction[:n] == BOTTOM_UP).sum())
+    words = c.core.a_core.numel()
+    assert len(outs) == n_bu > 0
+    assert counts["bfs.core_words"] == n_bu * words
+    assert counts["bfs.core_words_read"] == sum(
+        int(ref.core_words_read(o, c.core.a_core.shape[1])) for o in outs)
+    assert 0 < counts["bfs.core_words_read"] <= counts["bfs.core_words"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
