@@ -10,14 +10,24 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.graph_build import CSRGraph, csr_to_edge_arrays
 from repro_torch.kernels.bitmap_ops import WORDS_PER_TILE as BITMAP_TILE_WORDS
 from repro_torch.kernels.ref import to_u64, wrap_i32
 
 # K is padded so a core row is a whole number of 4096-bit (128-word) tiles.
 CORE_ALIGN = 4096
+# The core is built a block of rows at a time, each block's temporaries
+# within about this many bytes beside the int32 result (19.3 GB at scale 23).
+CORE_BLOCK_BYTES = 1 << 30
+# A block's bytes a core word (its int64 word, then wrap_i32's bool and two
+# int64 temporaries) and a CSR entry (at most about 41 B of int64 indices,
+# bits and masks live at once).
+_WORD_BYTES = 25
+_EDGE_BYTES = 48
 
 
 @dataclass
@@ -45,21 +55,60 @@ def pad_k(k_heavy: int, v: int) -> int:
     return min(k, max(CORE_ALIGN, (v // CORE_ALIGN) * CORE_ALIGN))
 
 
-def _build_core(src, dst, valid, k: int) -> torch.Tensor:
-    """Bit-scatter the core edges into ``[K, K/32]`` words.
+def core_blocks(row_offsets, k: int, block_bytes: int) -> list:
+    """Row bounds ``[0, r1, r2, ..., k]`` of the core's build blocks.
 
-    The CSR is deduped, so every (src, dst) bit is set once and an integer
-    ``index_add_`` on int64 words is a bitwise OR of disjoint bits.  The
-    flat word index is int64: ``src * words`` passes 2^31 once K > ~2.6e5.
+    ``row_offsets`` holds the CSR's first ``k + 1`` row offsets (on the
+    host).  A block's rows cost ``_WORD_BYTES`` a core word and
+    ``_EDGE_BYTES`` a CSR entry of theirs while it is built; each block takes
+    as many rows as fit ``block_bytes``, and at least one.
     """
     words = k // 32
-    in_core = valid & (src < k) & (dst < k)
-    word_idx = torch.where(in_core, src.to(torch.int64) * words + dst.to(torch.int64) // 32,
-                           k * words)
-    bit = torch.where(in_core, torch.ones_like(word_idx) << (dst.to(torch.int64) % 32), 0)
-    flat = torch.zeros(k * words + 1, dtype=torch.int64, device=src.device)
-    flat.index_add_(0, word_idx, bit)
-    return wrap_i32(flat[:-1]).reshape(k, words)
+    ro = np.asarray(row_offsets, dtype=np.int64)[: k + 1]
+    cost = np.concatenate([[0], np.cumsum(words * _WORD_BYTES + np.diff(ro) * _EDGE_BYTES)])
+    bounds = [0]
+    while bounds[-1] < k:
+        r0 = bounds[-1]
+        r1 = int(np.searchsorted(cost, cost[r0] + block_bytes, side="right")) - 1
+        bounds.append(min(k, max(r1, r0 + 1)))
+    return bounds
+
+
+def _build_core(src, dst, valid, row_offsets, k: int, block_bytes: int) -> torch.Tensor:
+    """Bit-scatter the core edges into ``[K, K/32]`` words, a block of rows
+    at a time.
+
+    The core's rows ``[r0, r1)`` are CSR rows, so their entries are the
+    slice ``row_offsets[r0]:row_offsets[r1]`` of ``(src, dst, valid)``.  The
+    CSR is deduped, so every (src, dst) bit is set once and an integer
+    ``index_add_`` on a block's int64 words is a bitwise OR of disjoint
+    bits; the block is wrapped to int32 into its rows of the result.  The
+    blocks' bounds (:func:`core_blocks`, within ``block_bytes``) come from
+    one readback of the first ``K + 1`` row offsets; rows past ``V`` (a core
+    padded beyond a tiny graph) are empty.  A block's word offsets count
+    from its first row, in int64; the whole core's ``K * K/32`` words pass
+    2^32 at scale 23.
+    """
+    words = k // 32
+    ro = row_offsets[: k + 1].cpu().numpy()
+    ro = np.pad(ro, (0, k + 1 - len(ro)), mode="edge")
+    bounds = core_blocks(ro, k, block_bytes)
+    tracing.count("build.core_words", k * words)
+    tracing.count("build.core_blocks", len(bounds) - 1)
+    a_core = torch.empty((k, words), dtype=torch.int32, device=src.device)
+    for r0, r1 in zip(bounds, bounds[1:]):
+        lo, hi = int(ro[r0]), int(ro[r1])
+        n = (r1 - r0) * words
+        d = dst[lo:hi].to(torch.int64)
+        in_core = valid[lo:hi] & (d < k)
+        word_idx = torch.where(in_core, (src[lo:hi].to(torch.int64) - r0) * words + d // 32, n)
+        bit = torch.where(in_core, torch.ones_like(d) << (d % 32), 0)
+        del d, in_core
+        flat = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+        flat.index_add_(0, word_idx, bit)
+        del word_idx, bit
+        a_core[r0:r1] = wrap_i32(flat[:-1]).view(r1 - r0, words)
+    return a_core
 
 
 def core_from_bitmap(a_core: torch.Tensor, k_heavy: torch.Tensor, threshold: int,
@@ -83,8 +132,8 @@ def build_heavy_core(g: CSRGraph, threshold: int = 100) -> HeavyCore:
     src, dst, valid = csr_to_edge_arrays(g)
     k_heavy = heavy_count(g.degree, threshold)
     k = pad_k(int(k_heavy), g.num_vertices)
-    return core_from_bitmap(_build_core(src, dst, valid, k), k_heavy, threshold,
-                            src, dst, valid, g.num_vertices)
+    a_core = _build_core(src, dst, valid, g.row_offsets, k, CORE_BLOCK_BYTES)
+    return core_from_bitmap(a_core, k_heavy, threshold, src, dst, valid, g.num_vertices)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,7 @@ from repro_torch.core.kronecker import EdgeList
 from repro_torch.core.plan import BFSPlan, compile_plan
 from repro_torch.core.reorder import Reordering, degree_reorder, relabel_edges
 from repro_torch.core.teps import Graph500Run
+from repro_torch.tracing import mark
 from repro_torch.util import resolve_device
 
 _PORTED_RUNGS = {
@@ -200,7 +201,11 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None,
     """Steps 1-2 on ``cfg.device`` (untimed for TEPS; construction time is
     recorded).  ``edges`` replaces the generated Kronecker edge list.  A
     ``mesh`` with a ``member`` axis also partitions the graph over its
-    vertex shards (``cfg.partition``), which ``compile_plan`` then uses."""
+    vertex shards (``cfg.partition``), which ``compile_plan`` then uses.
+    While a profiler records, the phases are marked (``repro_torch.build.csr``,
+    ``sort``, ``core``, ``done``; :mod:`repro_torch.tracing`) and the core's
+    build counts its words and row blocks (``build.core_words``,
+    ``build.core_blocks``)."""
     device = resolve_device(cfg.device)
     if cfg.real_weights and cfg.kernel != "sssp":
         raise ValueError(f"real_weights weighs the edges for kernel='sssp', not "
@@ -211,13 +216,16 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None,
                                          device=device)
     elif edges.src.device.type != device.type:
         raise ValueError(f"edges lie on {edges.src.device}, cfg.device is {device}")
+    mark("repro_torch.build.csr")
     g = build_csr(edges)
     reord = None
     if cfg.degree_sort:
+        mark("repro_torch.build.sort")
         reord = degree_reorder(g.degree)
         g = build_csr(relabel_edges(edges, reord))
     core = None
     if cfg.heavy_threshold is not None:
+        mark("repro_torch.build.core")
         core = build_heavy_core(g, threshold=cfg.heavy_threshold)
     ev = edge_view(g)
     if cfg.kernel == "sssp":
@@ -232,6 +240,7 @@ def build(cfg: Graph500Config, edges: EdgeList | None = None,
             mesh.size("group") * mesh.size("member"), partition=cfg.partition,
             weight=ev.weight if cfg.kernel == "sssp" else None, device=device)
     nnz = int(g.nnz)  # synchronises: construction ends here
+    mark("repro_torch.build.done")
     return BuiltGraph(ev=ev, degree=g.degree, core=core, reorder=reord,
                       construction_s=time.perf_counter() - t0,
                       n_vertices=g.num_vertices, nnz=nnz, edges=edges,

@@ -7,7 +7,8 @@ device-side annotation spans it: a trace's device activity is the same with
 the marks as without them.  A phase of a search loop runs from its mark to
 the next mark; the engines name their marks ``repro_torch.<loop>.<phase>``
 (``core/hybrid_bfs.py``'s bitmap engine, ``core/sssp_steps.py``'s
-single-device engine).
+single-device engine); ``core/pipeline.py``'s ``build`` marks its phases
+``repro_torch.build.<phase>`` the same way.
 
 The range is the profiler's fast ``RecordFunction``
 (``torch._C._profiler._RecordFunctionFast``, the one torch's generated code

@@ -828,6 +828,40 @@ def test_core_merge_kernel_matches_plain(cuda, k, v):
 
 
 @pytest.mark.cuda
+def test_core_step_past_2_31_words(cuda):
+    # a core of K = 266,240 rows (2.2e9 words, 8.9 GB), so word offsets pass
+    # 2^31; only its last 64 rows carry bits.  core_spmv answers BIG on every
+    # other row, reading it whole, and on the last rows what the plain
+    # version answers on them alone; the merge of those answers equals the
+    # plain merge
+    k, n = 266_240, 64
+    w = k // 32
+    assert k * w > 2**31
+    rng = np.random.default_rng(17)
+    a = torch.zeros((k, w), dtype=torch.int32, device=cuda)
+    a[-n:] = to_t(rand_u32(rng, (n, w), 0.0005), cuda)
+    f = to_t(rand_u32(rng, (w,), 0.005), cuda)
+    words = torch.zeros((), dtype=torch.int64, device=cuda)
+    got = frontier_spmv.core_spmv(a, f, words_read=words)
+    tail = ref.core_spmv_ref(a[-n:], f)
+    assert 0 < int((tail < ref.BIG).sum()) < n       # rows that hit and rows that do not
+    assert torch.equal(got[-n:], tail) and bool((got[:-n] == ref.BIG).all())
+    assert int(words) == (k - n) * w + int(ref.core_words_read(tail, w))
+    del a
+    v = k + 1000
+    vis = to_t(rand_u32(rng, (-(-v // 32),), 0.3), cuda)
+    parent = torch.from_numpy(np.where(rng.random(v + 1) < 0.5, v,
+                                       rng.integers(0, v, v + 1)).astype(np.int32)).to(cuda)
+    parent[-1] = v
+    before = parent.cpu()
+    want = before.clone()
+    ref.bfs_core_merge_ref(got.cpu(), vis.cpu(), want)
+    ops.bfs_core_merge(got, vis, parent)
+    torch.cuda.synchronize()
+    assert torch.equal(parent.cpu(), want) and not torch.equal(want, before)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("graph", ["pre-g500", "no-core", "v5000"])
 def test_bitmap_search_on_card_equals_cpu(cuda, graph):
     # whole searches through every kernel of the level loop: parent, level

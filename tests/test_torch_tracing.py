@@ -1,5 +1,6 @@
 """The port's phase marks and counters (``repro_torch.tracing``) in the
-bitmap BFS level loop and the SSSP round loop, at scale 10 on the CPU.
+bitmap BFS level loop, the SSSP round loop and the graph's build, at scale
+10 on the CPU.
 
 Marks are recorded only under ``torch.profiler``, in the order the loops
 run; they follow the levels and directions of ``stats``; the SSSP counters
@@ -7,11 +8,13 @@ equal what ``stats`` says of the rounds, and the BFS counters what it says
 of the bottom-up levels and the core's launches; and a search's outputs
 are the same with the profiler on and off.
 """
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
+from repro_torch.core import heavy
 from repro_torch.core.hybrid_bfs import BOTTOM_UP
 from repro_torch.core.pipeline import Graph500Config, build, search_keys
 from repro_torch.core.plan import compile_plan
@@ -239,3 +242,26 @@ def test_outputs_equal_with_the_profiler_on_and_off(kernel):
         for f in off.stats._fields:
             a, b = getattr(on.stats, f), getattr(off.stats, f)
             assert (a is None and b is None) or torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("block_bytes", ["module", 1 << 16])
+def test_build_marks_its_phases_and_counts_the_core(block_bytes, monkeypatch):
+    # pipeline.build under the profiler: the four build marks in order, and
+    # the core's words (K * K/32) and row blocks; without one, no count
+    if block_bytes != "module":
+        monkeypatch.setattr(heavy, "CORE_BLOCK_BYTES", block_bytes)
+    cfg = Graph500Config.ladder("pre-g500", scale=10, seed=3, n_roots=4, device="cpu")
+    tracing.reset()
+    build(cfg)
+    assert not any(k.startswith("build.") for k in tracing.counters())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        built = build(cfg)
+    marks = sorted((e for e in prof.events() if e.name.startswith("repro_torch.build.")),
+                   key=lambda e: e.time_range.start)
+    assert [e.name.rsplit(".", 1)[1] for e in marks] == ["csr", "sort", "core", "done"]
+    k = built.core.k
+    row_offsets = np.pad(np.cumsum(np.r_[0, built.degree.numpy()])[: k + 1],
+                         (0, max(0, k - built.n_vertices)), mode="edge")
+    blocks = len(heavy.core_blocks(row_offsets, k, heavy.CORE_BLOCK_BYTES)) - 1
+    assert blocks == 1 if block_bytes == "module" else blocks > 100
+    assert tracing.counters() == {"build.core_words": k * k // 32, "build.core_blocks": blocks}
