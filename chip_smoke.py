@@ -224,7 +224,8 @@ non-zero and no result line is printed:
      against its plain version and its byte bound (``time_bfs_level``);
      then ``core_spmv`` over the search's K = 200,704 core on a frontier
      that no row hits and on the frontier of each of the search's
-     bottom-up levels, against the bytes each launch's answer needs, its
+     bottom-up levels that launches it (those that begin with a core row
+     unvisited), against the bytes each launch's answer needs, its
      output and count of words read equal to the plain version's
      (``time_core_spmv``).
 
@@ -1508,7 +1509,8 @@ def time_bfs_level(compiled, key: int, device) -> dict:
     parents and writes the found words, the found vertices' levels and reads
     their degrees; the stats read two bitmaps; the chunk count the frontier
     words; the merge a candidate, a parent and a write a core row), its
-    outputs equal to the plain version's."""
+    outputs equal to the plain version's.  The merge runs only on the
+    bottom-up levels that begin with a core row unvisited."""
     from repro_torch.core.hybrid_bfs import BOTTOM_UP
     from repro_torch.kernels import ops, ref
     names = ("bfs_level_delta", "bfs_level_stats", "bfs_live_chunks", "bfs_core_merge")
@@ -1536,8 +1538,13 @@ def time_bfs_level(compiled, key: int, device) -> dict:
     levels = int(res.stats.levels)
     n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
     launches = {n: after[n] - before[n] for n in names}
+    # the merge runs on the bottom-up levels that begin with a core row
+    # unvisited (its level -1 or above the level's)
+    core_rows = res.level[:min(compiled.graph.core.k, res.level.shape[0])]
+    n_core = sum(int(res.stats.direction[i]) == BOTTOM_UP
+                 and bool(((core_rows == -1) | (core_rows > i)).any()) for i in range(levels))
     want = {"bfs_level_delta": levels, "bfs_level_stats": levels,
-            "bfs_live_chunks": levels - n_bu, "bfs_core_merge": n_bu}
+            "bfs_live_chunks": levels - n_bu, "bfs_core_merge": n_core}
     if launches != want:
         raise AssertionError(f"bfs_level: launches {launches} over {levels} levels "
                              f"({n_bu} bottom-up), expected {want}")
@@ -1617,7 +1624,7 @@ def time_core_spmv(compiled, key: int, device) -> list:
     """Phase 28, third part: ``core_spmv`` over the BFS cell's core (scale
     22, K = 200,704, 5.0 GB) on a frontier no row hits, where every row is
     read whole, and on the frontier of each bottom-up level of one search
-    from ``key``; each timed (CUDA events, median of 20 runs of 5 launches)
+    from ``key`` that launches it; each timed (CUDA events, median of 20 runs of 5 launches)
     against the bytes its answer needs (:func:`core_spmv_bound_ms`) and the
     plain version, its output and its count of words read equal to the
     plain version's."""

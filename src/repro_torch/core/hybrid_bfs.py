@@ -23,7 +23,10 @@ level starts with the ``core_spmv`` kernel over the dense heavy core.
 JAX's ``lax.while_loop`` becomes a host loop that synchronises each level
 on the size of the next frontier (the bitmap engine reads it from its
 epilogue kernel's popcount); the direction switch is then decided on the
-host.  The single-device bitmap engine reads back nothing else: a level is
+host.  The single-device bitmap engine reads back one more number in the
+same copy, the core rows still unvisited, and skips a bottom-up level's
+core step when there are none, since its merge would write nothing; it
+reads back nothing else: a level is
 a handful of hand-written launches (``csrc/bfs_level.cuh``'s four around the
 ``bfs_relax`` kernel, one call a level over the rows of
 :class:`~repro_torch.core.bfs_steps.EdgeRows`: the frontier's rows
@@ -230,14 +233,18 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
                      root: int, core: HeavyCore | None, *, alpha: float,
                      beta: float, max_levels: int, fault=None) -> BFSResult:
     """One bitmap-resident traversal from ``root``: a host loop that reads
-    back one number a level, the next frontier's size, for the direction
-    switch; everything else a level computes stays on the device.
+    back two numbers a level in one copy, the next frontier's size, for the
+    direction switch, and the core rows (i < min(K, V)) left unvisited;
+    everything else a level computes stays on the device.
 
     ``rows`` is :func:`~repro_torch.core.bfs_steps.edge_rows` of the graph,
     which a level's relax (one ``bfs_relax`` call) walks: a top-down level the
     frontier's rows, a bottom-up level each still-unvisited vertex's row up to
     its first frontier neighbour, after the core step (``core_spmv`` and the
-    ``bfs_core_merge`` kernel).  A top-down level first counts its live
+    ``bfs_core_merge`` kernel), which it skips when no core row is left
+    unvisited: the merge gives a parent only to unvisited core rows, and the
+    relax leaves a core row's core entries to the core step, so that step
+    would find nothing the search keeps.  A top-down level first counts its live
     chunks (the ``bfs_live_chunks`` kernel, from the rows' chunk ranges) into
     the ``scanned_chunks`` stat.  The epilogue is three launches: the
     ``bfs_level_delta`` kernel (the found vertices packed, their level and
@@ -245,7 +252,8 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     level's column of the stats: its direction and frontier size, known on
     the host and passed as the launch's arguments, the sentinels,
     ``scanned_edges``, a bottom-up level's ``scanned_chunks``; then the
-    degree sums for the next level and the count of levels).  No copy but
+    degree sums for the next level, the count of levels and, beside
+    ``frontier_update``'s count, the core rows left unvisited).  No copy but
     the readback crosses the bus.  ``fault`` is a
     :class:`~repro_torch.core.faults.FaultSpec` whose ``parent`` site
     corrupts the level's parents after the delta is taken (None: the clean
@@ -256,15 +264,18 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     to the next mark: ``start`` (the state's allocations), ``sync`` (blocked
     on the level's readback, then the direction decision), ``level.td`` /
     ``level.bu`` (the level's host work; top-down, the chunk count's launch),
-    ``core`` and ``relax`` (their enqueue), ``epilogue`` (the delta,
+    ``core`` (only where the core step runs) and ``relax`` (their enqueue),
+    ``epilogue`` (the delta,
     ``frontier_update`` and the stats launches), ``finish`` (the result) and
     ``done``; and it counts ``bfs.bu_entries_read`` (the row entries the
     bottom-up relax read, summed on the device) and
     ``bfs.bu_entries_unvisited`` (the bottom-up levels' unvisited adjacency,
     ``scanned_edges``), read back once at the end, and with a core
     ``bfs.core_words_read`` (the words ``core_spmv`` read, summed on the
-    device in the same readback) and ``bfs.core_words`` (the core's K x W
-    words for each of its launches)."""
+    device in the same readback), ``bfs.core_words`` (the core's K x W
+    words for each of its launches), ``bfs.core_steps`` (the bottom-up
+    levels) and ``bfs.core_steps_skipped`` (those that skipped the core
+    step; both host counts)."""
     traced = recording()
     if traced:
         mark("repro_torch.bfs.start")
@@ -276,7 +287,8 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     # the bottom-up relax's entries and the core's words read, on the device
     reads = torch.zeros(2, dtype=torch.int64, device=dev) if traced else None
     bu_read, core_read = reads.unbind() if traced else (None, None)
-    core_launches = 0
+    core_rows = min(core.k, v) if core is not None else 0
+    core_launches = core_skipped = 0
 
     # fill_ on a view launches a kernel, where assigning a host int would be
     # a synchronising host-to-device copy
@@ -294,7 +306,10 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     pairs = [(frontier_bm, visited_bm),
              (torch.empty_like(frontier_bm), torch.empty_like(visited_bm))]
     found = torch.empty_like(frontier_bm)
-    count = torch.empty((), dtype=i32, device=dev)
+    # the level's one readback: the next frontier's size (frontier_update's
+    # popcount) and the core rows left unvisited (the stats launch's)
+    readback = torch.empty(2, dtype=i32, device=dev)
+    count, core_left_dev = readback.unbind()
     # m_f and deg_vis start at the root's degree, the levels run at 0
     acc = torch.zeros(ACC_SLOTS, dtype=i32, device=dev)
     acc[ACC_M_F:ACC_DEG_VIS + 1] = degree[root]
@@ -304,12 +319,13 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     stats[STATS_FS:STATS_SE + 1].zero_()
 
     in_count, vis_count = 1, 1
+    core_left = core_rows - (root < core_rows)
     lvl, direction = 0, TOP_DOWN
     while lvl < max_levels:
         if lvl > 0:
             if traced:
                 mark("repro_torch.bfs.sync")
-            in_count = int(count)  # the level's one synchronisation
+            in_count, core_left = readback.tolist()  # the level's one synchronisation
             vis_count += in_count
         if in_count == 0:
             break
@@ -319,12 +335,14 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
             mark("repro_torch.bfs.level.bu" if direction == BOTTOM_UP
                  else "repro_torch.bfs.level.td")
         if direction == BOTTOM_UP:
-            if core is not None:
+            if core_left:
                 if traced:
                     mark("repro_torch.bfs.core")
                 _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext,
                                          core_read)
                 core_launches += 1
+            elif core is not None:
+                core_skipped += 1
             if traced:
                 mark("repro_torch.bfs.relax")
             kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
@@ -351,7 +369,8 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
         next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
         kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
         kops.bfs_level_stats(next_bm, visited_bm, count, acc, stats, lvl,
-                             direction == BOTTOM_UP, in_count, rows.n_chunks)
+                             direction == BOTTOM_UP, in_count, rows.n_chunks, core_rows,
+                             core_left_dev)
         frontier_bm, visited_bm = next_bm, new_visited_bm
         lvl += 1
 
@@ -379,6 +398,8 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
         if core is not None:
             tracing.count("bfs.core_words_read", core_words_read)
             tracing.count("bfs.core_words", core_launches * core.a_core.numel())
+            tracing.count("bfs.core_steps", core_launches + core_skipped)
+            tracing.count("bfs.core_steps_skipped", core_skipped)
         mark("repro_torch.bfs.done")
     return result
 

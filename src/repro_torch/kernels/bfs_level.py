@@ -2,15 +2,18 @@
 ``bfs_level_stats.cu``, ``bfs_live_chunks.cu`` and ``bfs_core_merge.cu``.
 
 Four launches around a level's relax keep everything a level computes on the
-device but the next frontier's size, which ``frontier_update`` counts and the
-host reads back for the direction switch:
+device but two numbers the host reads back together: the next frontier's
+size, which ``frontier_update`` counts, for the direction switch, and the
+core rows left unvisited, which ``stats`` counts, for skipping the core step:
 
     delta   found = the vertices with a parent that are not visited, packed;
             level[found] = lvl + 1; acc gets their degree sum and popcount
     stats   after frontier_update: the level's column of the stats (its
             direction and frontier size, the three sentinels, the scanned
             edges, a bottom-up level's scanned chunks), and acc's frontier
-            and visited degree sums for the next level and the levels run
+            and visited degree sums for the next level and the levels run;
+            and the core rows left unvisited, which the host reads back
+            with the frontier's size
     chunks  a top-down level's scanned chunks into its column
     merge   a bottom-up level's core candidates into the parents
 
@@ -35,7 +38,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 DELTA = CudaKernel("bfs_level_delta", "level_delta_launch",
                    [_P, _P, _P, _P, _I, _P, _P, _P, _L, _L, _P])
 STATS = CudaKernel("bfs_level_stats", "level_stats_launch",
-                   [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P, _L, _P])
+                   [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _P, _P, _L, _P])
 CHUNKS = CudaKernel("bfs_live_chunks", "live_chunks_launch", [_P, _L, _P, _P, _I, _P, _P, _P])
 MERGE = CudaKernel("bfs_core_merge", "core_merge_launch", [_P, _P, _P, _L, _I, _P])
 
@@ -73,13 +76,16 @@ def delta(parent_ext, visited_bm, degree, level, next_level: int, found, acc) ->
 
 
 def stats(next_bm, visited_bm, count, acc, stats_dev, lvl: int, bottom_up: bool,
-          in_count: int, n_chunks: int) -> None:
+          in_count: int, n_chunks: int, core_rows: int = 0, unvisited=None) -> None:
     """Launch the level's sentinels and stats into column ``lvl`` of
-    ``stats_dev`` and roll ``acc`` on to the next level."""
-    check_level_stats_operands(next_bm, visited_bm, count, acc, stats_dev, lvl)
+    ``stats_dev`` and roll ``acc`` on to the next level; with ``unvisited``,
+    the count of the first ``core_rows`` rows left unvisited goes there."""
+    check_level_stats_operands(next_bm, visited_bm, count, acc, stats_dev, lvl, core_rows,
+                               unvisited)
     dev, stream = _stream(next_bm, "bfs_level_stats")
     STATS(next_bm.data_ptr(), visited_bm.data_ptr(), count.data_ptr(), acc.data_ptr(),
           stats_dev.data_ptr(), stats_dev.shape[1], lvl, int(bottom_up), in_count, n_chunks,
+          core_rows, None if unvisited is None else unvisited.data_ptr(),
           *level_scratch(dev, stream), next_bm.shape[0], stream)
 
 

@@ -2,7 +2,9 @@
 // bfs_level_delta.cu, bfs_level_stats.cu, bfs_live_chunks.cu and
 // bfs_core_merge.cu, the launches around a level's relax that keep on the
 // device everything a level computes but the next frontier's size, which
-// frontier_update counts and the host reads back for the direction switch.
+// frontier_update counts and the host reads back for the direction switch,
+// and the core rows left unvisited, which bfs_level_stats counts into the
+// same readback.
 //
 // The level loop's int32 accumulator acc and its device stats
 // [5, max_levels] have the slots and rows below (kernels/ref.py's ACC_* and

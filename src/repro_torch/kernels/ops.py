@@ -152,18 +152,20 @@ def bfs_level_delta(parent_ext: torch.Tensor, visited_bm: torch.Tensor, degree: 
 
 def bfs_level_stats(next_bm: torch.Tensor, visited_bm: torch.Tensor, count: torch.Tensor,
                     acc: torch.Tensor, stats: torch.Tensor, lvl: int, bottom_up: bool,
-                    in_count: int, n_chunks: int) -> None:
+                    in_count: int, n_chunks: int, core_rows: int = 0,
+                    unvisited=None) -> None:
     """A bitmap BFS level's stats into column ``lvl`` of ``stats`` (int32
     [ref.STATS_ROWS, max_levels], rows ``ref.STATS_*``): its direction and
     frontier size (``in_count``) from the host, its sentinels from
     ``frontier_update``'s ``next_bm`` and ``count``, the old ``visited_bm``
     and ``acc``, which moves on to the next level, its scanned edges, and a
-    bottom-up level's ``n_chunks``."""
+    bottom-up level's ``n_chunks``.  With ``unvisited`` (an int32 scalar),
+    the rows i < ``core_rows`` in neither bitmap are counted into it."""
     if next_bm.device.type in _PLAIN:
         return ref.bfs_level_stats_ref(next_bm, visited_bm, count, acc, stats, lvl,
-                                       bottom_up, in_count, n_chunks)
+                                       bottom_up, in_count, n_chunks, core_rows, unvisited)
     return bfs_level.stats(next_bm, visited_bm, count, acc, stats, lvl, bottom_up, in_count,
-                           n_chunks)
+                           n_chunks, core_rows, unvisited)
 
 
 def bfs_live_chunks(frontier_bm: torch.Tensor, src_lo: torch.Tensor, src_hi: torch.Tensor,

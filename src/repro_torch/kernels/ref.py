@@ -406,19 +406,26 @@ def check_level_delta_operands(parent_ext, visited_bm, degree, level, found, acc
         ("acc", acc, i32, acc.shape == (ACC_SLOTS,), f"[{ACC_SLOTS}]")))
 
 
-def check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl: int) -> None:
+def check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl: int,
+                               core_rows: int = 0, unvisited=None) -> None:
     """int32 bitmaps ``next_bm`` and ``visited_bm`` of one length, an int32
     scalar ``count``, ``acc`` [ACC_SLOTS], ``stats`` [STATS_ROWS, L] with 0 <= lvl
-    < L."""
+    < L; ``core_rows`` in [0, 32 W] and ``unvisited`` None or an int32 scalar."""
     i32 = torch.int32
     w = next_bm.shape[0] if next_bm.dim() == 1 else -1
-    _check_operands("bfs_level_stats", next_bm.device, (
+    items = [
         ("next_bm", next_bm, i32, w >= 1, "[W], W >= 1"),
         ("visited_bm", visited_bm, i32, visited_bm.shape == (w,), "[W] like next_bm"),
         ("count", count, i32, count.dim() == 0, "[]"),
         ("acc", acc, i32, acc.shape == (ACC_SLOTS,), f"[{ACC_SLOTS}]"),
         ("stats", stats, i32, _stats_ok(stats, lvl),
-         f"[{STATS_ROWS}, L] with L > lvl = {lvl}")))
+         f"[{STATS_ROWS}, L] with L > lvl = {lvl}")]
+    if unvisited is not None:
+        items.append(("unvisited", unvisited, i32, unvisited.dim() == 0, "[]"))
+    _check_operands("bfs_level_stats", next_bm.device, items)
+    if not 0 <= core_rows <= 32 * w:
+        raise ValueError(f"bfs_level_stats: core_rows must lie in [0, 32 W = {32 * w}], "
+                         f"got {core_rows}")
 
 
 def check_live_chunks_operands(frontier_bm, src_lo, src_hi, stats, lvl: int) -> None:
@@ -471,7 +478,8 @@ def bfs_level_delta_ref(parent_ext, visited_bm, degree, level, next_level: int, 
 
 
 def bfs_level_stats_ref(next_bm, visited_bm, count, acc, stats, lvl: int, bottom_up: bool,
-                        in_count: int, n_chunks: int) -> None:
+                        in_count: int, n_chunks: int, core_rows: int = 0,
+                        unvisited=None) -> None:
     """A level's sentinels and stats, after ``frontier_update`` wrote
     ``next_bm`` and ``count`` from the delta and the old ``visited_bm``:
     ``stats[STATS_DIR, lvl]`` = 1 bottom-up, 0 top-down;
@@ -480,8 +488,15 @@ def bfs_level_stats_ref(next_bm, visited_bm, count, acc, stats, lvl: int, bottom
     visited disjoint) + 4 (lvl + 1 within the L levels);
     ``stats[STATS_SE, lvl]`` = m_f top-down, nnz - deg_vis bottom-up (int32);
     ``stats[STATS_CH, lvl]`` = ``n_chunks`` bottom-up; then m_f takes the
-    delta's degree sum, deg_vis grows by it, and the levels run are lvl + 1."""
-    check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl)
+    delta's degree sum, deg_vis grows by it, and the levels run are lvl + 1.
+    With ``unvisited`` (an int32 scalar), the rows i < ``core_rows`` in
+    neither ``next_bm`` nor ``visited_bm``, the core rows still unvisited
+    after the level, are counted into it."""
+    check_level_stats_operands(next_bm, visited_bm, count, acc, stats, lvl, core_rows,
+                               unvisited)
+    if unvisited is not None:
+        rows = torch.arange(core_rows, dtype=torch.int64, device=next_bm.device)
+        unvisited.fill_((~_bits(next_bm | visited_bm, rows)).sum())
     s1 = (count == acc[ACC_FOUND]).to(torch.int32)
     s2 = ((next_bm & visited_bm) == 0).all().to(torch.int32)
     stats[STATS_DIR, lvl] = int(bottom_up)

@@ -8,9 +8,13 @@ after the first group with a hit, so the positions that matter are the
 group's edges: word 0, the last word of a group and the first of the next,
 the first word of the row's last, short group (when the row's length is no
 multiple of a group) and the last word of the row; and rows with no hit.
+
+:func:`core_step_runs` says, from a search's result alone, which of its
+bottom-up levels launch the core step at all.
 """
 import numpy as np
 
+from repro_torch.core.hybrid_bfs import BOTTOM_UP
 from repro_torch.kernels import ref
 
 NO_HIT = -1
@@ -67,3 +71,22 @@ def walked_words(a: np.ndarray, f: np.ndarray) -> int:
                 break
         total += read
     return total
+
+
+def core_step_runs(res, core_rows: int) -> list:
+    """Whether each level of one search's result launches the core step
+    (``core_spmv`` and the merge): a bottom-up level L does when a row
+    i < ``core_rows`` (min(K, V)) is unvisited as L begins, its level -1 or
+    above L; the other bottom-up levels skip the step."""
+    levels = res.level[:core_rows].cpu()
+    return [int(res.stats.direction[lvl]) == BOTTOM_UP
+            and bool(((levels == -1) | (levels > lvl)).any())
+            for lvl in range(int(res.stats.levels))]
+
+
+def core_steps(res, core_rows: int) -> tuple[int, int]:
+    """(bottom-up levels, those that launch the core step) of one search's
+    result (:func:`core_step_runs`)."""
+    n = int(res.stats.levels)
+    n_bu = int((res.stats.direction[:n] == BOTTOM_UP).sum())
+    return n_bu, sum(core_step_runs(res, core_rows))

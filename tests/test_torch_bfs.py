@@ -7,6 +7,8 @@ levels and every ``BFSStats`` trace must be identical, per root and
 batched, at scales 10 and 12 and at V = 2^15 (where the padding sentinel's
 bitmap word is one past the end).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -29,6 +31,8 @@ from repro_torch.core.plan import BFSPlan, compile_plan
 from repro_torch.core.teps import batch_harmonic_mean_teps
 from repro_torch.core.validate import failure_report, validate, validate_batch
 from repro_torch.serve.engine import resolve_serve_plan
+
+from core_spmv_cases import core_steps
 
 torch.set_num_threads(2)
 
@@ -107,6 +111,49 @@ def test_bitmap_rungs_bitwise_equal_to_jax(rung):
     for got, want in outs:
         assert_results_equal(got, want)
         assert (got.stats.direction == hybrid_bfs.BOTTOM_UP).any()
+
+
+@pytest.mark.parametrize("scale", [13, 14])
+def test_core_step_skipped_once_every_core_row_is_visited(monkeypatch, scale):
+    # K = 4,096 < V here, so the core's rows (the heaviest vertices) are all
+    # visited within a few levels: a bottom-up level that begins with none
+    # of them unvisited issues neither core_spmv nor the merge, and parents,
+    # levels and every stats field still equal the JAX engine's (which runs
+    # every core step) and parents and levels the port's reference engine's
+    kw = dict(scale=scale, n_roots=6)
+    jcfg = jpipe.Graph500Config.ladder("pre-g500", **kw)
+    jbuilt = jpipe.build(jcfg)
+    edges = jkron.generate_edges(jcfg.seed, jcfg.scale, jcfg.edge_factor)
+    roots = np.asarray(jkron.sample_roots(jcfg.seed, edges, jcfg.n_roots))
+    cfg = pipeline.Graph500Config.ladder("pre-g500", device="cpu", **kw)
+    built = pipeline.build(cfg, edges=convert.edge_list_from_numpy(
+        np.asarray(edges.src), np.asarray(edges.dst), edges.num_vertices, "cpu"))
+    core_rows = min(built.core.k, built.n_vertices)
+    assert core_rows < built.n_vertices
+    keys = pipeline.search_keys(cfg, built, roots)
+    tc = compile_plan(cfg.to_plan(), built, device="cpu")
+    tref = compile_plan(dataclasses.replace(cfg.to_plan(), engine="reference"), built,
+                        device="cpu")
+    jc = jax_compile(jcfg.to_plan(), jbuilt)
+    launches = []
+    real = hybrid_bfs.kops.core_spmv
+
+    def spy(*a, **k):
+        launches.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(hybrid_bfs.kops, "core_spmv", spy)
+    n_bu = skipped = 0
+    for k in keys:
+        launches.clear()
+        got = tc.bfs(int(k))
+        assert_results_equal(got, jc.bfs(int(k)))
+        want = tref.bfs(int(k))
+        assert torch.equal(got.parent, want.parent) and torch.equal(got.level, want.level)
+        bu, launched = core_steps(got, core_rows)
+        assert len(launches) == launched
+        n_bu, skipped = n_bu + bu, skipped + bu - launched
+    assert 0 < skipped < n_bu
 
 
 @pytest.mark.parametrize("scale", [10, 12])

@@ -846,6 +846,35 @@ def test_level_stats_plain_matches_the_torch_chain(bottom_up, case):
                                              "last_level": 7}[case]
 
 
+@pytest.mark.parametrize("k,v", [(4096, 10_000), (4096, 4096), (8192, 5000),
+                                 (1000 + 17, 3000), (0, 3000)])
+def test_level_stats_counts_the_unvisited_core_rows(k, v):
+    # a core below, at and past V (the engine passes min(K, V): rows at or
+    # past V count as visited), a bound that is no multiple of 32, no core;
+    # the stats and acc the same as without the count
+    rng = np.random.default_rng(k + v)
+    visited = rng.random(v) < 0.6
+    nxt = ~visited & (rng.random(v) < 0.5)
+    kk = min(k, v)
+    want = int((~visited[:kk] & ~nxt[:kk]).sum())
+    w = padded_bitmap_words(v)
+    vis_bm, next_bm = (pack_bitmap(torch.from_numpy(m), w) for m in (visited, nxt))
+    count = ref.popcount_u32(next_bm).sum().to(torch.int32)
+    acc = torch.tensor([5, 6, 7, 8, int(count), 0], dtype=torch.int32)
+    outs = []
+    for unvisited in (None, torch.full((), -9, dtype=torch.int32)):
+        a = acc.clone()
+        stats = torch.full((ref.STATS_ROWS, 8), -1, dtype=torch.int32)
+        ops.bfs_level_stats(next_bm, vis_bm, count, a, stats, 2, True, 3, 64, kk, unvisited)
+        outs.append((stats, a))
+    assert int(unvisited) == want
+    assert 0 < want < kk or kk == want == 0
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    with pytest.raises(ValueError, match="bfs_level_stats: core_rows"):
+        ops.bfs_level_stats(next_bm, vis_bm, count, acc, stats, 2, True, 3, 64, 32 * w + 1,
+                            unvisited)
+
+
 def live_chunks_brute(src_lo, src_hi, frontier_bm) -> int:
     """The chunks with a nonzero frontier word in their clamped word range,
     chunk by chunk."""

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import bitmap_ops, cin, frontier_spmv, ops, ref, spmv_mxu
 
-from core_spmv_cases import first_hit_core, walked_words
+from core_spmv_cases import core_steps, first_hit_core, walked_words
 
 torch.set_num_threads(2)
 
@@ -642,7 +642,10 @@ def test_bfs_relax_one_launch_a_level(cuda, rung):
         levels = int(res.stats.levels)
         n_bu = int((res.stats.direction[:levels] == BOTTOM_UP).sum())
         assert 0 < n_bu < levels
-        n_core = n_bu if rung == "pre-g500" else 0
+        # the core step runs on the bottom-up levels that begin with a core
+        # row unvisited (K = 4,096 < V here)
+        n_core = (core_steps(res, min(built.core.k, built.n_vertices))[1]
+                  if rung == "pre-g500" else 0)
         assert {k: after[k] - before[k] for k in after} == {
             "frontier_update": levels, "core_spmv": n_core, "spmv_mxu": 0, "cin_layer": 0,
             "sssp_relax": 0, "bfs_relax": levels, "bfs_level_delta": levels,
@@ -777,6 +780,60 @@ def test_level_stats_kernel_matches_plain(cuda, n_words, bottom_up, case):
     for got in outs[1:]:
         assert torch.equal(got[0], outs[0][0]) and torch.equal(got[1], outs[0][1])
     assert int(outs[0][0][ref.STATS_OK, 0]) == {"clean": 7, "overlap": 5, "miscount": 6}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "scale14"])
+def test_level_stats_core_count_matches_plain(cuda, case):
+    # the core rows left unvisited, which the level reads back beside the
+    # frontier's size: on random bitmaps for bounds below, at and past V
+    # (the engine passes min(K, V)) and no multiple of 32, and on every
+    # level of scale-14 searches, where it decides which core steps run
+    from repro_torch.core import hybrid_bfs, pipeline
+    from repro_torch.core.plan import compile_plan
+    calls = []
+    if case == "random":
+        rng = np.random.default_rng(14)
+        for n_words, core_rows in [(2048, 4096), (2048, 65536), (2048, 1000 + 17),
+                                   (131072, 200_704), (77, 77 * 32), (77, 0)]:
+            visited = to_t(rand_u32(rng, (n_words,), 0.6), "cpu")
+            found = to_t(rand_u32(rng, (n_words,), 0.3), "cpu") & ~visited
+            nxt, _, count = ref.frontier_update_ref(found, visited)
+            calls.append((nxt, visited, count, core_rows))
+    else:
+        cfg = pipeline.Graph500Config.ladder("pre-g500", scale=14, seed=5, device=cuda)
+        built = pipeline.build(cfg)
+        c = compile_plan(cfg.to_plan(), built, device=cuda)
+        real = hybrid_bfs.kops.bfs_level_stats
+
+        def keep(nxt, visited, count, *rest):
+            calls.append((nxt.cpu(), visited.cpu(), count.cpu(), rest[-2]))
+            return real(nxt, visited, count, *rest)
+
+        hybrid_bfs.kops.bfs_level_stats = keep
+        try:
+            keys = pipeline.search_keys(cfg, built)[:3]
+            for key in keys:
+                c.bfs(int(key))
+            torch.cuda.synchronize()
+        finally:
+            hybrid_bfs.kops.bfs_level_stats = real
+        assert all(rows == min(built.core.k, built.n_vertices) for *_, rows in calls)
+    counts = []
+    for nxt, visited, count, core_rows in calls:
+        got = []
+        for dev in ("cpu", cuda, cuda):
+            n, b, cnt = on(dev, nxt, visited, count)
+            acc = torch.tensor([0, 0, 0, 0, int(count), 0], dtype=torch.int32, device=dev)
+            stats = torch.full((ref.STATS_ROWS, 4), -1, dtype=torch.int32, device=dev)
+            unvisited = torch.full((), -9, dtype=torch.int32, device=dev)
+            ops.bfs_level_stats(n, b, cnt, acc, stats, 1, True, 5, 64, core_rows, unvisited)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            got.append(int(unvisited))
+        assert got[1] == got[2] == got[0] >= 0
+        counts.append(got[0])
+    assert len(counts) >= 6 and 0 in counts and any(counts)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port's phase marks and counters (``repro_torch.tracing``) in the
 bitmap BFS level loop, the SSSP round loop and the graph's build, at scale
-10 on the CPU.
+10 on the CPU (and at 13, where the core's rows are a part of the graph's
+and the loop skips the core step once they are all visited).
 
 Marks are recorded only under ``torch.profiler``, in the order the loops
 run; they follow the levels and directions of ``stats``; the SSSP counters
@@ -20,6 +21,8 @@ from repro_torch.core.pipeline import Graph500Config, build, search_keys
 from repro_torch.core.plan import compile_plan
 from repro_torch.kernels import ops as kops, ref
 
+from core_spmv_cases import core_step_runs, core_steps
+
 torch.set_num_threads(2)
 
 KERNELS = ("bfs", "sssp")
@@ -29,12 +32,13 @@ _COMPILED: dict = {}
 def compiled(kernel):
     """(CompiledBFS, search keys) of the scale-10 graph for ``kernel``:
     the ``pre-g500`` rung (``bfs``: heavy core, bitmap engine; its core,
-    K = 4,096, spans every vertex), the bitmap engine without a core
+    K = 4,096, spans every vertex; ``bfs-s13``: the rung at scale 13, whose
+    core of 4,096 rows is half the vertices), the bitmap engine without a core
     (``bfs-nocore``), or SSSP (``sssp-real``: the specification's real
     weights)."""
     if kernel not in _COMPILED:
-        kw = dict(scale=10, seed=3, n_roots=4, device="cpu")
-        cfg = (Graph500Config.ladder("pre-g500", **kw) if kernel == "bfs"
+        kw = dict(scale=13 if kernel == "bfs-s13" else 10, seed=3, n_roots=4, device="cpu")
+        cfg = (Graph500Config.ladder("pre-g500", **kw) if kernel in ("bfs", "bfs-s13")
                else Graph500Config(heavy_threshold=None, **kw) if kernel == "bfs-nocore"
                else Graph500Config(kernel="sssp", heavy_threshold=None,
                                    real_weights=kernel == "sssp-real", **kw))
@@ -60,6 +64,9 @@ def traced(kernel, key=0):
 def expected_marks(kernel, res):
     """The marks a search with these stats makes, in order."""
     n = int(res.stats.levels)
+    core = compiled(kernel)[0].core
+    runs = (core_step_runs(res, min(core.k, res.level.shape[0])) if core is not None
+            else [False] * n)
     out = ["start"]
     for i in range(n):
         if i:
@@ -67,7 +74,7 @@ def expected_marks(kernel, res):
         if kernel == "sssp":
             out.append("round")
         elif int(res.stats.direction[i]) == BOTTOM_UP:
-            out += ["level.bu", "core", "relax", "epilogue"]
+            out += ["level.bu"] + ["core"] * runs[i] + ["relax", "epilogue"]
         else:
             out += ["level.td", "relax", "epilogue"]
     return out + ["sync", "finish", "done"]
@@ -93,11 +100,13 @@ def test_no_profiler_records_no_mark_and_no_count(kernel, monkeypatch):
     assert calls == [] and tracing.counters() == {}
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", KERNELS + ("bfs-s13",))
 def test_marks_run_in_order_from_start_to_done(kernel):
     res, marks, _ = traced(kernel)
     assert marks[0] == "start" and marks[-1] == "done"
     assert marks == expected_marks(kernel, res)
+    if kernel == "bfs-s13":          # a bottom-up level without the core step
+        assert marks.count("core") < marks.count("level.bu")
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -185,17 +194,19 @@ def test_sssp_counters_on_the_card_follow_the_rounds(kernel):
         assert tracing.counters() == sssp_counts(res)
 
 
-@pytest.mark.parametrize("graph", ["bfs", "bfs-nocore"])
+@pytest.mark.parametrize("graph", ["bfs", "bfs-nocore", "bfs-s13"])
 @pytest.mark.parametrize("key", [0, 1, 2, 3])
 def test_bfs_counters_follow_the_bottom_up_levels(graph, key):
     # the bottom-up relax reads less than the unvisited adjacency: its walks
     # stop at each row's first frontier neighbour and skip the core's
-    # entries, which here are every entry when there is a core (K >= V)
+    # entries, which at scale 10 are every entry when there is a core (K >= V)
     res, _, counts = traced(graph, key)
     n = int(res.stats.levels)
     bu = res.stats.direction[:n] == BOTTOM_UP
     unvisited = int(res.stats.scanned_edges[:n][bu].long().sum())
-    core = {"bfs.core_words_read", "bfs.core_words"} if graph == "bfs" else set()
+    core = (set() if graph == "bfs-nocore" else
+            {"bfs.core_words_read", "bfs.core_words", "bfs.core_steps",
+             "bfs.core_steps_skipped"})
     assert set(counts) == {"bfs.bu_entries_read", "bfs.bu_entries_unvisited"} | core
     assert counts["bfs.bu_entries_unvisited"] == unvisited > 0
     if graph == "bfs":
@@ -205,12 +216,17 @@ def test_bfs_counters_follow_the_bottom_up_levels(graph, key):
         assert 0 < counts["bfs.bu_entries_read"] < unvisited
 
 
+@pytest.mark.parametrize("graph", ["bfs", "bfs-s13"])
 @pytest.mark.parametrize("key", [0, 1, 2, 3])
-def test_core_counters_follow_the_core_launches(key, monkeypatch):
-    # one core_spmv launch a bottom-up level over the K x W core, each row
-    # read up to the group of its first frontier hit (the rule of
-    # ref.core_words_read, applied to each launch's output)
-    c = compiled("bfs")[0]
+def test_core_counters_follow_the_core_launches(graph, key, monkeypatch):
+    # one core_spmv launch over the K x W core on each bottom-up level that
+    # begins with a core row unvisited (its level -1 or above the level's),
+    # each row read up to the group of its first frontier hit (the rule of
+    # ref.core_words_read, applied to each launch's output); the other
+    # bottom-up levels skip the step.  At scale 10 the core spans every
+    # vertex, isolated ones too, so every bottom-up level launches; at 13
+    # every key's first bottom-up level launches and a later one skips
+    c = compiled(graph)[0]
     outs = []
     real = kops.core_spmv
 
@@ -219,12 +235,14 @@ def test_core_counters_follow_the_core_launches(key, monkeypatch):
         return outs[-1]
 
     monkeypatch.setattr(kops, "core_spmv", keep)
-    res, _, counts = traced("bfs", key)
-    n = int(res.stats.levels)
-    n_bu = int((res.stats.direction[:n] == BOTTOM_UP).sum())
+    res, _, counts = traced(graph, key)
+    n_bu, launched = core_steps(res, min(c.core.k, res.parent.shape[0]))
     words = c.core.a_core.numel()
-    assert len(outs) == n_bu > 0
-    assert counts["bfs.core_words"] == n_bu * words
+    assert len(outs) == launched > 0
+    assert (launched == n_bu) == (graph == "bfs")
+    assert counts["bfs.core_words"] == launched * words
+    assert counts["bfs.core_steps"] == n_bu
+    assert counts["bfs.core_steps_skipped"] == n_bu - launched
     assert counts["bfs.core_words_read"] == sum(
         int(ref.core_words_read(o, c.core.a_core.shape[1])) for o in outs)
     assert 0 < counts["bfs.core_words_read"] <= counts["bfs.core_words"]
