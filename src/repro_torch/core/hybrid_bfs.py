@@ -37,8 +37,8 @@ vertex-sharded
 engine still synchronises a top-down level on the count of its live edge
 chunks, which it gathers and relaxes lane by lane, and it, the reference
 and the legacy engines write their stats from host ints, each write a
-host-to-device copy.  The single-device bitmap engine marks its phases for
-``torch.profiler`` (:mod:`repro_torch.tracing`).  The outputs (parent,
+host-to-device copy.  The single-device bitmap engine puts its phases in
+ranges for ``torch.profiler`` (:mod:`repro_torch.tracing`).  The outputs (parent,
 level and every stats trace) are bitwise equal to the JAX engines'.
 """
 from __future__ import annotations
@@ -66,7 +66,6 @@ from repro_torch.kernels.ref import (
     STATS_FS, STATS_OK, STATS_ROWS, STATS_SE, popcount_u32,
 )
 from repro_torch import tracing
-from repro_torch.tracing import mark, recording
 
 MAX_LEVELS = 64
 TOP_DOWN, BOTTOM_UP = 0, 1
@@ -259,149 +258,160 @@ def _run_bitmap_impl(rows: EdgeRows, degree: torch.Tensor, n_active: int,
     corrupts the level's parents after the delta is taken (None: the clean
     traversal).
 
-    While a ``torch.profiler`` session records, the loop marks its phases
-    ``repro_torch.bfs.<phase>`` (:mod:`repro_torch.tracing`), each running
-    to the next mark: ``start`` (the state's allocations), ``sync`` (blocked
-    on the level's readback, then the direction decision), ``level.td`` /
-    ``level.bu`` (the level's host work; top-down, the chunk count's launch),
-    ``core`` (only where the core step runs) and ``relax`` (their enqueue),
-    ``epilogue`` (the delta,
-    ``frontier_update`` and the stats launches), ``finish`` (the result) and
-    ``done``; and it counts ``bfs.bu_entries_read`` (the row entries the
-    bottom-up relax read, summed on the device) and
-    ``bfs.bu_entries_unvisited`` (the bottom-up levels' unvisited adjacency,
-    ``scanned_edges``), read back once at the end, and with a core
-    ``bfs.core_words_read`` (the words ``core_spmv`` read, summed on the
-    device in the same readback), ``bfs.core_words`` (the core's K x W
-    words for each of its launches), ``bfs.core_steps`` (the bottom-up
-    levels) and ``bfs.core_steps_skipped`` (those that skipped the core
-    step; both host counts)."""
-    traced = recording()
-    if traced:
-        mark("repro_torch.bfs.start")
-    v = degree.shape[0]
+    While a ``torch.profiler`` session records, the loop puts its work in
+    phase ranges ``repro_torch.bfs.<phase>`` (:mod:`repro_torch.tracing`),
+    each closed where the next of its depth opens: ``start`` (the state's
+    allocations and fills), ``sync`` (blocked on the level's readback, then
+    the direction decision), a level's ``level.td`` / ``level.bu`` (to the
+    next ``sync``; a top-down level's chunk count directly under it), which
+    encloses its ``core`` (only where the core step runs), ``relax`` and
+    ``epilogue`` (the delta, ``frontier_update`` and the stats launches),
+    then ``finish`` (the result), closed before the empty mark ``done``;
+    every range is closed when the search returns or raises.  It counts
+    ``bfs.bu_entries_read`` (the row entries the bottom-up relax read,
+    summed on the device), ``bfs.bu_entries_unvisited`` (the bottom-up
+    levels' unvisited adjacency, ``scanned_edges``, summed when the
+    counters are read) and, with a core, ``bfs.core_words_read`` (the words
+    ``core_spmv`` read, summed on the device), ``bfs.core_words`` (the
+    core's K x W words for each of its launches), ``bfs.core_steps`` (the
+    bottom-up levels) and ``bfs.core_steps_skipped`` (those that skipped the
+    core step; both host counts): the search issues no device work for
+    them, :func:`repro_torch.tracing.counters` reads them back."""
+    traced = tracing.recording()
     dev = degree.device
-    i32 = torch.int32
-    w = padded_bitmap_words(v)
-    root = int(root)
-    # the bottom-up relax's entries and the core's words read, on the device
-    reads = torch.zeros(2, dtype=torch.int64, device=dev) if traced else None
-    bu_read, core_read = reads.unbind() if traced else (None, None)
-    core_rows = min(core.k, v) if core is not None else 0
-    core_launches = core_skipped = 0
+    if traced:
+        # the bottom-up relax's entries and the core's words read, summed on
+        # the device into the counters' accumulator, read by tracing.counters()
+        bu_read = tracing.device_counter("bfs.bu_entries_read", dev)
+        core_read = (tracing.device_counter("bfs.core_words_read", dev)
+                     if core is not None else None)
+        ph = tracing.Phases("bfs")
+        ph.enter("start")
+    else:
+        bu_read = core_read = None
+    try:
+        v = degree.shape[0]
+        i32 = torch.int32
+        w = padded_bitmap_words(v)
+        root = int(root)
+        core_rows = min(core.k, v) if core is not None else 0
+        core_launches = core_skipped = 0
 
-    # fill_ on a view launches a kernel, where assigning a host int would be
-    # a synchronising host-to-device copy
-    parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
-    parent_ext[root].fill_(root)
-    level = torch.full((v,), -1, dtype=i32, device=dev)
-    level[root].fill_(0)
-    frontier_bm = torch.zeros(w, dtype=i32, device=dev)
-    bit = 1 << (root % 32)
-    frontier_bm[root // 32].fill_(bit - 2**32 if bit >= 2**31 else bit)
-    visited_bm = frontier_bm.clone()
-    # The epilogue writes each level's (frontier, visited) into the pair the
-    # previous level read from, and each level's delta into ``found``, so
-    # the loop allocates nothing.
-    pairs = [(frontier_bm, visited_bm),
-             (torch.empty_like(frontier_bm), torch.empty_like(visited_bm))]
-    found = torch.empty_like(frontier_bm)
-    # the level's one readback: the next frontier's size (frontier_update's
-    # popcount) and the core rows left unvisited (the stats launch's)
-    readback = torch.empty(2, dtype=i32, device=dev)
-    count, core_left_dev = readback.unbind()
-    # m_f and deg_vis start at the root's degree, the levels run at 0
-    acc = torch.zeros(ACC_SLOTS, dtype=i32, device=dev)
-    acc[ACC_M_F:ACC_DEG_VIS + 1] = degree[root]
-    acc[ACC_NNZ] = degree.sum()
-    # a column a level; -1 (0 for frontier_size and scanned_edges) past the last
-    stats = torch.full((STATS_ROWS, max_levels), -1, dtype=i32, device=dev)
-    stats[STATS_FS:STATS_SE + 1].zero_()
+        # fill_ on a view launches a kernel, where assigning a host int would be
+        # a synchronising host-to-device copy
+        parent_ext = torch.full((v + 1,), v, dtype=i32, device=dev)
+        parent_ext[root].fill_(root)
+        level = torch.full((v,), -1, dtype=i32, device=dev)
+        level[root].fill_(0)
+        frontier_bm = torch.zeros(w, dtype=i32, device=dev)
+        bit = 1 << (root % 32)
+        frontier_bm[root // 32].fill_(bit - 2**32 if bit >= 2**31 else bit)
+        visited_bm = frontier_bm.clone()
+        # The epilogue writes each level's (frontier, visited) into the pair the
+        # previous level read from, and each level's delta into ``found``, so
+        # the loop allocates nothing.
+        pairs = [(frontier_bm, visited_bm),
+                 (torch.empty_like(frontier_bm), torch.empty_like(visited_bm))]
+        found = torch.empty_like(frontier_bm)
+        # the level's one readback: the next frontier's size (frontier_update's
+        # popcount) and the core rows left unvisited (the stats launch's)
+        readback = torch.empty(2, dtype=i32, device=dev)
+        count, core_left_dev = readback.unbind()
+        # m_f and deg_vis start at the root's degree, the levels run at 0
+        acc = torch.zeros(ACC_SLOTS, dtype=i32, device=dev)
+        acc[ACC_M_F:ACC_DEG_VIS + 1] = degree[root]
+        acc[ACC_NNZ] = degree.sum()
+        # a column a level; -1 (0 for frontier_size and scanned_edges) past the last
+        stats = torch.full((STATS_ROWS, max_levels), -1, dtype=i32, device=dev)
+        stats[STATS_FS:STATS_SE + 1].zero_()
 
-    in_count, vis_count = 1, 1
-    core_left = core_rows - (root < core_rows)
-    lvl, direction = 0, TOP_DOWN
-    while lvl < max_levels:
-        if lvl > 0:
-            if traced:
-                mark("repro_torch.bfs.sync")
-            in_count, core_left = readback.tolist()  # the level's one synchronisation
-            vis_count += in_count
-        if in_count == 0:
-            break
-        direction = _switch_direction(direction, in_count, vis_count,
-                                      n_active, alpha, beta)
-        if traced:
-            mark("repro_torch.bfs.level.bu" if direction == BOTTOM_UP
-                 else "repro_torch.bfs.level.td")
-        if direction == BOTTOM_UP:
-            if core_left:
+        in_count, vis_count = 1, 1
+        core_left = core_rows - (root < core_rows)
+        lvl, direction = 0, TOP_DOWN
+        while lvl < max_levels:
+            if lvl > 0:
                 if traced:
-                    mark("repro_torch.bfs.core")
-                _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext,
-                                         core_read)
-                core_launches += 1
-            elif core is not None:
-                core_skipped += 1
+                    ph.enter("sync")
+                in_count, core_left = readback.tolist()  # the level's one synchronisation
+                vis_count += in_count
+            if in_count == 0:
+                break
+            direction = _switch_direction(direction, in_count, vis_count,
+                                          n_active, alpha, beta)
             if traced:
-                mark("repro_torch.bfs.relax")
-            kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
-                                     rows.dst, rows.core_deg, bu_read)
-        else:
-            kops.bfs_live_chunks(frontier_bm, rows.src_lo, rows.src_hi, stats, lvl)
-            if traced:
-                mark("repro_torch.bfs.relax")
-            kops.bfs_relax_top_down(frontier_bm, visited_bm, degree, rows.row_start,
-                                    rows.dst, parent_ext)
+                ph.enter("level.bu" if direction == BOTTOM_UP else "level.td")
+            if direction == BOTTOM_UP:
+                if core_left:
+                    if traced:
+                        ph.enter("core", 1)
+                    _core_bottom_up_resident(core, frontier_bm, visited_bm, parent_ext,
+                                             core_read)
+                    core_launches += 1
+                elif core is not None:
+                    core_skipped += 1
+                if traced:
+                    ph.enter("relax", 1)
+                kops.bfs_relax_bottom_up(frontier_bm, parent_ext, degree, rows.row_start,
+                                         rows.dst, rows.core_deg, bu_read)
+            else:
+                kops.bfs_live_chunks(frontier_bm, rows.src_lo, rows.src_hi, stats, lvl)
+                if traced:
+                    ph.enter("relax", 1)
+                kops.bfs_relax_top_down(frontier_bm, visited_bm, degree, rows.row_start,
+                                        rows.dst, parent_ext)
 
-        # Epilogue: the delta kernel packs the newly found vertices, which
-        # visited_bm tells apart (it holds exactly those with a parent when
-        # the level starts), then the fused kernel does mask / merge /
-        # popcount into the idle pair, and the stats kernel checks it.
+            # Epilogue: the delta kernel packs the newly found vertices, which
+            # visited_bm tells apart (it holds exactly those with a parent when
+            # the level starts), then the fused kernel does mask / merge /
+            # popcount into the idle pair, and the stats kernel checks it.
+            if traced:
+                ph.enter("epilogue", 1)
+            kops.bfs_level_delta(parent_ext, visited_bm, degree, level, lvl + 1, found, acc)
+            if fires(fault, "parent", level=lvl, root=root):
+                # the frontier still comes from the uncorrupted delta
+                parent_ext[:v] = corrupt_parent(
+                    fault, parent_ext[:v], unpack_bitmap(found, v),
+                    torch.arange(v, dtype=i32, device=dev), v, level=lvl, root=root)
+            next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
+            kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
+            kops.bfs_level_stats(next_bm, visited_bm, count, acc, stats, lvl,
+                                 direction == BOTTOM_UP, in_count, rows.n_chunks, core_rows,
+                                 core_left_dev)
+            frontier_bm, visited_bm = next_bm, new_visited_bm
+            lvl += 1
+
         if traced:
-            mark("repro_torch.bfs.epilogue")
-        kops.bfs_level_delta(parent_ext, visited_bm, degree, level, lvl + 1, found, acc)
-        if fires(fault, "parent", level=lvl, root=root):
-            # the frontier still comes from the uncorrupted delta
-            parent_ext[:v] = corrupt_parent(
-                fault, parent_ext[:v], unpack_bitmap(found, v),
-                torch.arange(v, dtype=i32, device=dev), v, level=lvl, root=root)
-        next_bm, new_visited_bm = pairs[(lvl + 1) % 2]
-        kops.frontier_update(found, visited_bm, out=(next_bm, new_visited_bm, count))
-        kops.bfs_level_stats(next_bm, visited_bm, count, acc, stats, lvl,
-                             direction == BOTTOM_UP, in_count, rows.n_chunks, core_rows,
-                             core_left_dev)
-        frontier_bm, visited_bm = next_bm, new_visited_bm
-        lvl += 1
+            ph.enter("finish")
+        parent = parent_ext[:v]
+        parent = torch.where(parent == v, -1, parent)
+        result = BFSResult(
+            parent=parent, level=level,
+            stats=BFSStats(
+                stats[STATS_DIR], stats[STATS_FS], stats[STATS_SE], acc[ACC_LEVELS],
+                stats[STATS_CH], torch.full((), rows.n_chunks, dtype=i32, device=dev),
+                stats[STATS_OK],
+            ),
+        )
+        if traced:
+            # the bottom-up levels' unvisited adjacency, summed when the
+            # counters are read; the core's launches are host counts
+            tracing.count_later("bfs.bu_entries_unvisited", _bottom_up_entries,
+                                stats[STATS_DIR, :lvl], stats[STATS_SE, :lvl])
+            if core is not None:
+                tracing.count("bfs.core_words", core_launches * core.a_core.numel())
+                tracing.count("bfs.core_steps", core_launches + core_skipped)
+                tracing.count("bfs.core_steps_skipped", core_skipped)
+            ph.close()
+            tracing.mark("repro_torch.bfs.done")
+        return result
+    finally:
+        if traced:
+            ph.close()
 
-    if traced:
-        mark("repro_torch.bfs.finish")
-    parent = parent_ext[:v]
-    parent = torch.where(parent == v, -1, parent)
-    result = BFSResult(
-        parent=parent, level=level,
-        stats=BFSStats(
-            stats[STATS_DIR], stats[STATS_FS], stats[STATS_SE], acc[ACC_LEVELS],
-            stats[STATS_CH], torch.full((), rows.n_chunks, dtype=i32, device=dev),
-            stats[STATS_OK],
-        ),
-    )
-    if traced:
-        # one copy back a traced search; an untraced one reads nothing back
-        read, core_words_read, unvisited = torch.cat([
-            reads,
-            torch.where(stats[STATS_DIR, :lvl] == BOTTOM_UP, stats[STATS_SE, :lvl], 0)
-            .sum()[None]
-        ]).tolist()
-        tracing.count("bfs.bu_entries_read", read)
-        tracing.count("bfs.bu_entries_unvisited", unvisited)
-        if core is not None:
-            tracing.count("bfs.core_words_read", core_words_read)
-            tracing.count("bfs.core_words", core_launches * core.a_core.numel())
-            tracing.count("bfs.core_steps", core_launches + core_skipped)
-            tracing.count("bfs.core_steps_skipped", core_skipped)
-        mark("repro_torch.bfs.done")
-    return result
+
+def _bottom_up_entries(direction: torch.Tensor, scanned: torch.Tensor) -> torch.Tensor:
+    """The scanned edges of the bottom-up levels, summed."""
+    return torch.where(direction == BOTTOM_UP, scanned, 0).sum()
 
 
 def _run_batch(rows, degree, n_active, roots, core, **kw) -> BFSResult:

@@ -52,7 +52,7 @@ from repro_torch.core.hybrid_bfs import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import popcount_u32, real_key_bits
-from repro_torch.tracing import count, mark, recording
+from repro_torch import tracing
 
 #: Exchange wirings of the sharded SSSP engine (:func:`_run_sssp_sharded`).
 SSSP_EXCHANGES = ("hier_min", "flat")
@@ -115,111 +115,135 @@ def _run_sssp_impl(rows: EdgeRows, degree: torch.Tensor, root: int, *,
     vertices still changed, or when a hop count reached its field's
     maximum; the integer search keeps the JAX engine's sentinels.
 
-    While a ``torch.profiler`` session records, the loop marks its phases
-    ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`): ``start``,
-    ``sync`` (blocked on the changed set's size), ``round`` (the round's
-    enqueue), ``finish`` (the sentinels and the result) and ``done``; and it counts
-    ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers, the
-    entries their relax reads), ``sssp.frontier_vertices`` (the rounds'
-    frontier sizes summed) and ``sssp.reached_vertices``, read back in one
-    copy at the end.
+    While a ``torch.profiler`` session records, the loop puts its work in
+    phase ranges ``repro_torch.sssp.<phase>`` (:mod:`repro_torch.tracing`),
+    each closed where the next of its depth opens: ``start``, ``sync``
+    (blocked on the changed set's size), ``round`` (to the next ``sync``),
+    which encloses the round's ``bucket`` (the passes over V that choose the
+    frontier), ``relax`` (``ops.sssp_relax`` and the fault site) and
+    ``tally`` (the changed set's size and the round's stats), then
+    ``finish`` (the sentinels and the result), closed before the empty mark
+    ``done``; every range is closed when the search returns or raises.  It
+    counts ``sssp.frontier_edges`` (the out-edges of the rounds' frontiers,
+    the entries their relax reads), ``sssp.frontier_vertices`` (the rounds'
+    frontier sizes summed) and ``sssp.reached_vertices``, each summed on the
+    device when :func:`repro_torch.tracing.counters` reads them: the search
+    issues no device work for them.
     """
-    traced = recording()
+    traced = tracing.recording()
     if traced:
-        mark("repro_torch.sssp.start")
-    v = degree.shape[0]
-    dev = degree.device
-    i32, i64 = torch.int32, torch.int64
-    root = int(root)
-    real = rows.weight.dtype is torch.float32
-    pbits = real_key_bits(v)[0] if real else 32
-    pmask = (1 << pbits) - 1              # the parent's bits of the key
+        ph = tracing.Phases("sssp")
+        ph.enter("start")
+    try:
+        v = degree.shape[0]
+        dev = degree.device
+        i32, i64 = torch.int32, torch.int64
+        root = int(root)
+        real = rows.weight.dtype is torch.float32
+        pbits = real_key_bits(v)[0] if real else 32
+        pmask = (1 << pbits) - 1              # the parent's bits of the key
 
-    # (INF_U32 << 32) | V, unreached with no parent, as int64 bits
-    state = torch.full((v,), (INF_U32 << 32 | v) - (1 << 64), dtype=i64, device=dev)
-    state[root] = root                      # distance 0, its own parent
-    changed = torch.zeros(v, dtype=torch.bool, device=dev)
-    changed[root] = True
-    bs = torch.empty(max_rounds, dtype=i64, device=dev)   # each round's bucket
+        # (INF_U32 << 32) | V, unreached with no parent, as int64 bits
+        state = torch.full((v,), (INF_U32 << 32 | v) - (1 << 64), dtype=i64, device=dev)
+        state[root] = root                      # distance 0, its own parent
+        changed = torch.zeros(v, dtype=torch.bool, device=dev)
+        changed[root] = True
+        bs = torch.empty(max_rounds, dtype=i64, device=dev)   # each round's bucket
 
-    stats_b = torch.full((max_rounds,), -1, dtype=i32, device=dev)
-    stats_fs = torch.zeros(max_rounds, dtype=i32, device=dev)
-    stats_se = torch.zeros(max_rounds, dtype=i32, device=dev)
-    stats_ok = torch.full((max_rounds,), -1, dtype=i32, device=dev)
+        stats_b = torch.full((max_rounds,), -1, dtype=i32, device=dev)
+        stats_fs = torch.zeros(max_rounds, dtype=i32, device=dev)
+        stats_se = torch.zeros(max_rounds, dtype=i32, device=dev)
+        stats_ok = torch.full((max_rounds,), -1, dtype=i32, device=dev)
 
-    n_changed, rnd = 1, 0
-    while rnd < max_rounds:
-        if rnd > 0:
+        n_changed, rnd = 1, 0
+        while rnd < max_rounds:
+            if rnd > 0:
+                if traced:
+                    ph.enter("sync")
+                n_changed = int(n_changed_t)  # the round's one synchronisation
+            if n_changed == 0:
+                break
             if traced:
-                mark("repro_torch.sssp.sync")
-            n_changed = int(n_changed_t)  # the round's one synchronisation
-        if n_changed == 0:
-            break
-        if traced:
-            mark("repro_torch.sssp.round")
-        dist = (state >> 32) & INF_U32
-        # The frontier: changed vertices in the minimum bucket.
-        if real:   # δ a power of two: the product is exact
-            bkt = torch.where(changed, (dist.to(i32).view(torch.float32) * (1 / delta)).to(i64),
-                              INF_U32)
-        else:
-            bkt = torch.where(changed, dist // delta, INF_U32)
-        b = bkt.min()
-        front = changed & (bkt == b)
-        front_deg = torch.where(front, degree, 0)
-        changed ^= front                     # the frontier leaves the changed set
-        ops.sssp_relax(state, changed, front_deg, rows.row_start, rows.dst, rows.weight)
-        if fires(fault, "parent", level=rnd, root=root):
-            improved = ((state >> 32) & INF_U32) < dist
-            parent = corrupt_parent(fault, state & pmask, improved,
-                                    torch.arange(v, dtype=i64, device=dev), v,
-                                    level=rnd, root=root)
-            state = (state & ~pmask) | parent
-        n_changed_t = changed.sum()
-        bs[rnd] = b
-        stats_fs[rnd] = front.sum()
-        stats_se[rnd] = front_deg.sum()
-        rnd += 1
+                ph.enter("round")
+                ph.enter("bucket", 1)
+            dist = (state >> 32) & INF_U32
+            # The frontier: changed vertices in the minimum bucket.
+            if real:   # δ a power of two: the product is exact
+                bkt = torch.where(changed,
+                                  (dist.to(i32).view(torch.float32) * (1 / delta)).to(i64),
+                                  INF_U32)
+            else:
+                bkt = torch.where(changed, dist // delta, INF_U32)
+            b = bkt.min()
+            front = changed & (bkt == b)
+            front_deg = torch.where(front, degree, 0)
+            changed ^= front                     # the frontier leaves the changed set
+            if traced:
+                ph.enter("relax", 1)
+            ops.sssp_relax(state, changed, front_deg, rows.row_start, rows.dst, rows.weight)
+            if fires(fault, "parent", level=rnd, root=root):
+                improved = ((state >> 32) & INF_U32) < dist
+                parent = corrupt_parent(fault, state & pmask, improved,
+                                        torch.arange(v, dtype=i64, device=dev), v,
+                                        level=rnd, root=root)
+                state = (state & ~pmask) | parent
+            if traced:
+                ph.enter("tally", 1)
+            n_changed_t = changed.sum()
+            bs[rnd] = b
+            stats_fs[rnd] = front.sum()
+            stats_se[rnd] = front_deg.sum()
+            rnd += 1
 
-    if traced:
-        mark("repro_torch.sssp.finish")
-    if rnd:
-        # The rounds' sentinels, from the buckets the loop kept: bucket
-        # monotone, frontier nonempty, round within bound (every round ran
-        # below it); a healthy round reads 7.
-        b = bs[:rnd]
-        stats_b[:rnd] = b.clamp(max=0x7FFFFFFF)
-        prev = torch.cat([b.new_zeros(1), b[:-1]])
-        stats_ok[:rnd] = (b >= prev).to(i32) + 2 * (stats_fs[:rnd] > 0).to(i32) + 4
-        if real:
-            # a hop count at its maximum, or vertices left changed at the bound
-            cut = (state & INF_U32).max() >= (INF_U32 >> pbits) << pbits
-            if rnd == max_rounds:
-                cut |= n_changed_t > 0
-            stats_ok[rnd - 1] -= 4 * cut.to(i32)
-    parent = (state & pmask).to(i32)
-    parent = torch.where(parent == v, -1, parent)
-    dist = (state >> 32) & INF_U32
-    dist_i = torch.where(dist == INF_U32, -1, dist).to(i32)
-    result = BFSResult(
-        parent=parent, level=dist_i,
-        stats=BFSStats(
-            stats_b, stats_fs, stats_se,
-            torch.tensor(rnd, dtype=i32, device=dev),
-            torch.full((max_rounds,), -1, dtype=i32, device=dev),
-            torch.tensor(0, dtype=i32, device=dev), stats_ok,
-        ),
-    )
-    if traced:
-        # one readback a traced search: the rounds' entries and frontier
-        # sizes, and the reached vertices
-        back = torch.cat([stats_se[:rnd], stats_fs[:rnd],
-                          (dist_i >= 0).sum(dtype=i32).view(1)]).tolist()
-        count("sssp.frontier_edges", sum(back[:rnd]))
-        count("sssp.frontier_vertices", sum(back[rnd:2 * rnd]))
-        count("sssp.reached_vertices", back[-1])
-        mark("repro_torch.sssp.done")
-    return result
+        if traced:
+            ph.enter("finish")
+        if rnd:
+            # The rounds' sentinels, from the buckets the loop kept: bucket
+            # monotone, frontier nonempty, round within bound (every round ran
+            # below it); a healthy round reads 7.
+            b = bs[:rnd]
+            stats_b[:rnd] = b.clamp(max=0x7FFFFFFF)
+            prev = torch.cat([b.new_zeros(1), b[:-1]])
+            stats_ok[:rnd] = (b >= prev).to(i32) + 2 * (stats_fs[:rnd] > 0).to(i32) + 4
+            if real:
+                # a hop count at its maximum, or vertices left changed at the bound
+                cut = (state & INF_U32).max() >= (INF_U32 >> pbits) << pbits
+                if rnd == max_rounds:
+                    cut |= n_changed_t > 0
+                stats_ok[rnd - 1] -= 4 * cut.to(i32)
+        parent = (state & pmask).to(i32)
+        parent = torch.where(parent == v, -1, parent)
+        dist = (state >> 32) & INF_U32
+        dist_i = torch.where(dist == INF_U32, -1, dist).to(i32)
+        result = BFSResult(
+            parent=parent, level=dist_i,
+            stats=BFSStats(
+                stats_b, stats_fs, stats_se,
+                torch.tensor(rnd, dtype=i32, device=dev),
+                torch.full((max_rounds,), -1, dtype=i32, device=dev),
+                torch.tensor(0, dtype=i32, device=dev), stats_ok,
+            ),
+        )
+        if traced:
+            # the rounds' entries and frontier sizes and the reached
+            # vertices, summed when the counters are read
+            tracing.count_later("sssp.frontier_edges", _sum, stats_se[:rnd])
+            tracing.count_later("sssp.frontier_vertices", _sum, stats_fs[:rnd])
+            tracing.count_later("sssp.reached_vertices", _reached, dist_i)
+            ph.close()
+            tracing.mark("repro_torch.sssp.done")
+        return result
+    finally:
+        if traced:
+            ph.close()
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    return x.sum(dtype=torch.int64)
+
+
+def _reached(dist: torch.Tensor) -> torch.Tensor:
+    return (dist >= 0).sum()
 
 
 def _run_sssp_batch(rows: EdgeRows, degree: torch.Tensor, roots, *,

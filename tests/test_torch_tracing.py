@@ -1,13 +1,17 @@
-"""The port's phase marks and counters (``repro_torch.tracing``) in the
+"""The port's phase ranges and counters (``repro_torch.tracing``) in the
 bitmap BFS level loop, the SSSP round loop and the graph's build, at scale
 10 on the CPU (and at 13, where the core's rows are a part of the graph's
 and the loop skips the core step once they are all visited).
 
-Marks are recorded only under ``torch.profiler``, in the order the loops
-run; they follow the levels and directions of ``stats``; the SSSP counters
+Ranges are recorded only under ``torch.profiler``, in the order the loops
+run, each phase closed where the next of its depth opens, a BFS level's or
+SSSP round's range around its parts; they follow the levels and
+directions of ``stats``; an operation issued in a phase has its range among
+its CPU parents; a search that raises leaves none open; the SSSP counters
 equal what ``stats`` says of the rounds, and the BFS counters what it says
-of the bottom-up levels and the core's launches; and a search's outputs
-are the same with the profiler on and off.
+of the bottom-up levels and the core's launches, read back only when the
+counters are read; and a search's outputs are the same with the profiler
+on and off.
 """
 import numpy as np
 import pytest
@@ -48,17 +52,27 @@ def compiled(kernel):
     return _COMPILED[kernel]
 
 
-def traced(kernel, key=0):
-    """One search under the profiler: (result, its mark names in order,
-    the counters it left)."""
+def profiled(kernel, key=0):
+    """One search under the profiler: (result, the profiler's events, its
+    ranges in the order they open (an enclosing range before the ranges it
+    holds), the counters it left)."""
     c, roots = compiled(kernel)
     tracing.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res = c.bfs(roots[key])
     prefix = f"repro_torch.{kernel.split('-')[0]}."
-    marks = sorted((e for e in prof.events() if e.name.startswith(prefix)),
-                   key=lambda e: e.time_range.start)
-    return res, [e.name[len(prefix):] for e in marks], tracing.counters()
+    events = prof.events()
+    ranges = sorted((e for e in events if e.name.startswith(prefix)),
+                    key=lambda e: (e.time_range.start, -e.time_range.end))
+    return res, events, ranges, tracing.counters()
+
+
+def traced(kernel, key=0):
+    """One search under the profiler: (result, its range names in order,
+    the counters it left)."""
+    res, _, ranges, counts = profiled(kernel, key)
+    prefix = f"repro_torch.{kernel.split('-')[0]}."
+    return res, [e.name[len(prefix):] for e in ranges], counts
 
 
 def expected_marks(kernel, res):
@@ -72,7 +86,7 @@ def expected_marks(kernel, res):
         if i:
             out.append("sync")
         if kernel == "sssp":
-            out.append("round")
+            out += ["round", "bucket", "relax", "tally"]
         elif int(res.stats.direction[i]) == BOTTOM_UP:
             out += ["level.bu"] + ["core"] * runs[i] + ["relax", "epilogue"]
         else:
@@ -246,6 +260,201 @@ def test_core_counters_follow_the_core_launches(graph, key, monkeypatch):
     assert counts["bfs.core_words_read"] == sum(
         int(ref.core_words_read(o, c.core.a_core.shape[1])) for o in outs)
     assert 0 < counts["bfs.core_words_read"] <= counts["bfs.core_words"]
+
+
+#: The phases of each loop that follow one another, and the parts a step's
+#: range encloses.
+TOP = {"bfs": ("start", "sync", "level.td", "level.bu", "finish"),
+       "sssp": ("start", "sync", "round", "finish")}
+STEPS = ("level.td", "level.bu", "round")
+PARTS = {"bfs": ("core", "relax", "epilogue"), "sssp": ("bucket", "relax", "tally")}
+
+
+def _short(e, loop):
+    return e.name[len(f"repro_torch.{loop}."):]
+
+
+def _chain(e):
+    """The names of ``e`` and its CPU parents, innermost first."""
+    out = []
+    while e is not None:
+        out.append(e.name)
+        e = e.cpu_parent
+    return out
+
+
+@pytest.mark.parametrize("kernel", KERNELS + ("bfs-s13",))
+@pytest.mark.parametrize("key", [0, 2])
+def test_ranges_nest_as_the_loops_run(kernel, key):
+    # the top-level phases follow one another, each closed before the next
+    # opens; each part lies inside the step opened last before it, which is
+    # its CPU parent, and the parts of a step follow one another; ``done``
+    # is an empty mark after every range
+    _, _, ranges, _ = profiled(kernel, key)
+    loop = kernel.split("-")[0]
+    top = [e for e in ranges if _short(e, loop) in TOP[loop]]
+    parts = [e for e in ranges if _short(e, loop) in PARTS[loop]]
+    done = ranges[-1]
+    assert _short(done, loop) == "done" and len(top) + len(parts) + 1 == len(ranges)
+    assert done.time_range.end - done.time_range.start < top[0].time_range.end - top[0].time_range.start
+    for a, b in zip(top, top[1:] + [done]):
+        assert a.time_range.start <= a.time_range.end <= b.time_range.start
+    steps = [e for e in top if _short(e, loop) in STEPS]
+    assert len(steps) == sum(_short(e, loop) in STEPS for e in ranges) > 0
+    held = {id(s): [] for s in steps}
+    for p in parts:
+        step = max((s for s in steps if s.time_range.start <= p.time_range.start),
+                   key=lambda s: s.time_range.start)
+        assert step.time_range.start <= p.time_range.start
+        assert p.time_range.end <= step.time_range.end
+        assert _chain(p)[1] == step.name
+        held[id(step)].append(p)
+    for s in steps:
+        ps = held[id(s)]
+        assert [_short(p, loop) for p in ps][-2:] == (
+            ["relax", "tally"] if loop == "sssp" else ["relax", "epilogue"])
+        for a, b in zip(ps, ps[1:]):
+            assert a.time_range.end <= b.time_range.start
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_an_operation_has_its_phase_among_its_parents(kernel):
+    # every torch operation of a search lies in a phase (the first traced
+    # search also allocates the device's counters before its first), and
+    # the innermost range around it in time is in its chain of CPU parents:
+    # the bucket's passes over V and the tally's sums each in their own range
+    c, roots = compiled(kernel)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        c.bfs(roots[0])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        c.bfs(roots[1])
+    loop, events = kernel, prof.events()
+    ranges = [e for e in events if e.name.startswith(f"repro_torch.{loop}.")]
+    ops = [e for e in events if e.name.startswith("aten::")]
+    assert len(ops) > 50
+    found: dict = {}
+    for op in ops:
+        around = [r for r in ranges
+                  if r.time_range.start <= op.time_range.start < r.time_range.end]
+        assert around, op.name
+        inner = max(around, key=lambda r: r.time_range.start)
+        assert inner.name in _chain(op), (op.name, inner.name)
+        found.setdefault(_short(inner, loop), set()).add(op.name)
+    assert {"aten::full", "aten::zeros"} <= found["start"]
+    assert "aten::where" in found["finish"]
+    if kernel == "sssp":
+        assert {"aten::where", "aten::min", "aten::eq"} <= found["bucket"]
+        assert "aten::sum" in found["tally"]
+        assert "aten::sum" not in found["bucket"] | found["relax"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_no_range_is_a_user_annotation(kernel):
+    # a user annotation (record_function) gets a device-side echo; the
+    # phase ranges are the fast RecordFunction, which gets none
+    from torch.profiler import record_function
+    c, roots = compiled(kernel)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("portbench.search"):
+            c.bfs(roots[0])
+    events = prof.events()
+    ours = [e for e in events if e.name.startswith("repro_torch.")]
+    assert len(ours) > 10 and not any(e.is_user_annotation for e in ours)
+    assert all(e.is_user_annotation for e in events if e.name == "portbench.search")
+
+
+@pytest.mark.parametrize("kernel,site", [("bfs", "bfs_level_delta"), ("bfs", "bfs_live_chunks"),
+                                         ("sssp", "sssp_relax")])
+def test_a_search_that_raises_leaves_no_range_open(kernel, site, monkeypatch):
+    # a kernel of the second step raises: every range the search opened is
+    # closed, innermost first, and the next traced search runs as before
+    opened, real_rf = [], torch._C._profiler._RecordFunctionFast
+
+    class Spy:
+        def __init__(self, name):
+            self.name, self.r = name, real_rf(name)
+
+        def __enter__(self):
+            opened.append(self.name)
+            return self.r.__enter__()
+
+        def __exit__(self, *exc):
+            assert opened[-1] == self.name
+            opened.pop()
+            return self.r.__exit__(*exc)
+
+    real, calls = getattr(kops, site), []
+
+    def fail(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("injected")
+        return real(*a, **kw)
+
+    c, roots = compiled(kernel)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Spy)
+    monkeypatch.setattr(kops, site, fail)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(RuntimeError, match="injected"):
+            c.bfs(roots[0])
+        assert len(calls) == 2 and opened == []
+    monkeypatch.setattr(kops, site, real)
+    res, marks, _ = traced(kernel)
+    assert marks == expected_marks(kernel, res)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_counters_are_reduced_when_read_not_in_the_search(kernel):
+    # a traced search's prologue and result issue no work for its counters
+    # (before: the prologue's zeroed sums; the result's ``cat``, comparison,
+    # ``sum`` and readback): the prologue makes only the state's ``zeros``
+    # (BFS: the frontier and the level's sums; SSSP: the changed set and two
+    # stats rows), the result no ``sum``; the counters' reductions run
+    # when they are read, and two searches read what each reads alone
+    c, roots = compiled(kernel)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        c.bfs(roots[0])            # the first allocates the device's accumulator
+        c.bfs(roots[1])
+    events = prof.events()
+    for name in ("start", "finish"):
+        last = max((e for e in events if e.name == f"repro_torch.{kernel}.{name}"),
+                   key=lambda e: e.time_range.start)
+        under = [e.name for e in events if e.cpu_parent is last]
+        if name == "start":
+            assert under.count("aten::zeros") == (2 if kernel == "bfs" else 3)
+        else:
+            assert under and "aten::sum" not in under
+            assert kernel == "sssp" or "aten::cat" not in under
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        counts = tracing.counters()
+    assert "aten::sum" in {e.name for e in prof.events()}
+    _, _, first = traced(kernel, 0)
+    _, _, second = traced(kernel, 1)
+    assert counts == {k: first[k] + second[k] for k in first}
+
+
+def test_device_counters_and_held_counts_are_read_once(monkeypatch):
+    # a device counter's gains since the last read, and each held count once;
+    # past HELD_BYTES the held counts are reduced at once and let go
+    tracing.reset()
+    a = tracing.device_counter("t.a", "cpu")
+    assert tracing.device_counter("t.a", "cpu") is a
+    a += 5
+    tracing.count_later("t.b", torch.sum, torch.ones(4, dtype=torch.int32))
+    assert tracing.counters() == {"t.a": 5, "t.b": 4}
+    a += 2
+    assert tracing.counters() == {"t.a": 7, "t.b": 4}
+    monkeypatch.setattr(tracing, "HELD_BYTES", 200)
+    big = torch.ones(32, dtype=torch.int32)          # 128 bytes
+    tracing.count_later("t.b", torch.sum, big)
+    assert tracing._later[0][2][0] is big
+    tracing.count_later("t.b", torch.sum, big)
+    assert all(args[0].numel() == 1 for _, _, args in tracing._later)
+    assert tracing.counters() == {"t.a": 7, "t.b": 4 + 64}
+    tracing.reset()
+    assert tracing.counters() == {}
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
